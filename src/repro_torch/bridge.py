@@ -1,0 +1,70 @@
+"""Carry weights across from the JAX package.
+
+``params_from_numpy`` takes a JAX params pytree already converted to a
+nested dict of numpy arrays — each ``QTensor`` given as ``{"values",
+"scale", "bits"}`` — and builds the port's ``Model`` from it, splitting the
+layer-stacked ``(L, …)`` leaves into per-layer modules.  Values are copied
+exactly, so the port and the JAX package run the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.quantization import QTensor
+from repro_torch.core.quantized_linear import Linear
+from repro_torch.models.attention import Attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.ffn import FFN
+from repro_torch.models.layers import Embedding, LMHead, Norm
+from repro_torch.models.transformer import (DecoderBlock, Model,
+                                            check_supported)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _norm(node, i=None) -> Norm | None:
+    if node is None:
+        return None
+    pick = (lambda a: a[i]) if i is not None else (lambda a: a)
+    b = node.get("b")
+    return Norm(_t(pick(node["w"])), None if b is None else _t(pick(b)))
+
+
+def _linear(node, i) -> Linear | None:
+    if node is None:
+        return None
+    b = _t(node["b"][i]) if "b" in node else None
+    if "w_q" in node:
+        q = node["w_q"]
+        return Linear(w_q=QTensor(_t(q["values"][i]), _t(q["scale"][i]),
+                                  int(q.get("bits", 8))), b=b)
+    return Linear(w=_t(node["w"][i]), b=b)
+
+
+def _block(layers: dict, i: int) -> DecoderBlock:
+    a, f = layers["attn"], layers["ffn"]
+    attn = Attention(_linear(a["wq"], i), _linear(a["wk"], i),
+                     _linear(a["wv"], i), _linear(a["wo"], i),
+                     _norm(a.get("q_norm"), i), _norm(a.get("k_norm"), i))
+    ffn = FFN(_linear(f["up"], i), _linear(f["down"], i),
+              _linear(f.get("gate"), i))
+    return DecoderBlock(_norm(layers["norm_attn"], i), attn,
+                        _norm(layers["norm_ffn"], i), ffn,
+                        _norm(layers.get("norm_attn_post"), i),
+                        _norm(layers.get("norm_ffn_post"), i))
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
+    """The port's ``Model`` holding the weights of a numpy params tree."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    head = tree.get("lm_head")
+    model = Model(Embedding(_t(tree["embed"]["table"])),
+                  _norm(tree["final_norm"]),
+                  [_block(tree["layers"], i) for i in range(cfg.n_layers)],
+                  LMHead(_t(head["w"])) if head is not None else None)
+    return model.to(dev)

@@ -1,0 +1,89 @@
+"""Symmetric integer quantization — the paper's P4 mechanism.
+
+Symmetric int8 quantization with zero-point 0 for weights and activations:
+per-tensor, per-channel (weights) and per-row (activations) absmax scales,
+carried in a ``QTensor`` of int8 ``values`` and a keepdims f32 ``scale``.
+Values and scales match the JAX package's ``quantize`` bit for bit:
+absmax in f32, scale 1.0 where absmax <= 1e-12, IEEE division, round half
+to even (``torch.round``), clip to ±qmax.
+
+``Calibrator``, ``fake_quantize`` and ``quantize_kv`` are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+__all__ = ["QTensor", "quantize", "dequantize", "qmax_for_bits"]
+
+
+def qmax_for_bits(bits: int) -> int:
+    """Symmetric integer range: ±(2^(bits-1) - 1), e.g. ±127 for int8."""
+    if not 2 <= bits <= 8:
+        raise ValueError(f"bits must be in [2, 8], got {bits}")
+    return (1 << (bits - 1)) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class QTensor:
+    """Quantized tensor: int8 ``values`` with broadcastable f32 ``scale``.
+
+    ``scale`` has the same rank as ``values`` with size 1 on every axis that
+    shares a scale (keepdims layout), so ``values.float() * scale``
+    dequantizes with plain broadcasting.  ``bits`` is metadata: values are
+    stored int8 regardless, clipped to the ±(2^(bits-1)-1) range.
+    """
+
+    values: torch.Tensor
+    scale: torch.Tensor
+    bits: int = 8
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return dequantize(self, dtype)
+
+
+def _scale_for(x: torch.Tensor, channel_axes: Sequence[int], bits: int,
+               eps: float = 1e-12) -> torch.Tensor:
+    """Absmax symmetric scale, kept on ``channel_axes``, reduced elsewhere."""
+    channel_axes = tuple(a % x.ndim for a in channel_axes)
+    reduce_axes = tuple(a for a in range(x.ndim) if a not in channel_axes)
+    absmax = x.float().abs()
+    if reduce_axes:
+        absmax = torch.amax(absmax, dim=reduce_axes, keepdim=True)
+    qmax = qmax_for_bits(bits)
+    # Guard all-zero rows/channels: scale 1 quantizes zeros to zeros exactly.
+    # Tensor / tensor: on CUDA a division by a Python scalar becomes a
+    # multiply by its reciprocal, one ulp off the IEEE quotient.
+    return torch.where(absmax <= eps, torch.ones_like(absmax),
+                       absmax / torch.full_like(absmax, qmax))
+
+
+def quantize(x: torch.Tensor, *, channel_axes: Sequence[int] = (),
+             bits: int = 8) -> QTensor:
+    """Symmetric absmax quantization (zero-point 0, per the paper).
+
+    ``channel_axes`` are the axes that KEEP independent scales:
+      * weights ``(K, N)``  → ``channel_axes=(1,)``  (per output channel)
+      * stacked weights ``(L, K, N)`` → ``(0, 2)``  (per layer and channel)
+      * activations ``(M, K)`` → ``channel_axes=(0,)`` (per token/row)
+      * ``()`` → per-tensor (the paper's fixed single scale)
+    """
+    scale = _scale_for(x, channel_axes, bits)
+    qmax = qmax_for_bits(bits)
+    q = torch.round(x.float() / scale)
+    q = torch.clamp(q, -qmax, qmax).to(torch.int8)
+    return QTensor(values=q, scale=scale, bits=bits)
+
+
+def dequantize(q: QTensor, dtype=torch.float32) -> torch.Tensor:
+    return (q.values.float() * q.scale).to(dtype)

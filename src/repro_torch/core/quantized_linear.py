@@ -1,0 +1,113 @@
+"""QuantizedLinear — the FPGAQuantizedLinear analogue (paper §6.2).
+
+A projection primitive with three modes, selected per model from the
+config's ``quant_proj``:
+
+  * ``none``  — bf16/f32 GEMM (the baseline the paper compares against)
+  * ``w8``    — weight-only int8 (weights dequantized on the fly)
+  * ``w8a8``  — the paper's technique: per-row int8 activations
+                (``quant_act``, kernel K1) times per-channel int8 weights
+                with an int32 accumulator and a dequant + bias epilogue
+                (``tiled_matmul``, kernel K2).
+
+A ``Linear`` module holds either master float weights ``w`` (K, N) or their
+offline quantization ``w_q`` (int8 values + (1, N) f32 scales), and an
+optional f32 bias ``b``; ``quantize_linear`` converts one into the other.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core.quantization import QTensor, quantize
+from repro_torch.kernels.quant_act.ops import quant_act
+from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+
+QuantMode = str  # "none" | "w8" | "w8a8"
+VALID_MODES = ("none", "w8", "w8a8")
+
+
+class Linear(nn.Module):
+    """y = x @ W (+ b): master ``w`` (K, N) or quantized ``w_q``, bias ``b``."""
+
+    def __init__(self, w: torch.Tensor | None = None,
+                 w_q: QTensor | None = None, b: torch.Tensor | None = None):
+        super().__init__()
+        if (w is None) == (w_q is None):
+            raise ValueError("Linear takes exactly one of w and w_q")
+        self.register_buffer("w", w)
+        self.register_buffer("w_q_values", None if w_q is None else w_q.values)
+        self.register_buffer("w_q_scale", None if w_q is None else w_q.scale)
+        self.bits = 8 if w_q is None else w_q.bits
+        self.register_buffer("b", b)
+
+    @property
+    def w_q(self) -> QTensor | None:
+        if self.w_q_values is None:
+            return None
+        return QTensor(self.w_q_values, self.w_q_scale, self.bits)
+
+
+def init_linear(generator: torch.Generator, in_dim: int, out_dim: int, *,
+                use_bias: bool = False, scale: float | None = None) -> Linear:
+    """Truncated-normal fan-in init, f32 master weights, drawn on the
+    generator's device (the CPU in ``init_model``)."""
+    std = scale if scale is not None else in_dim ** -0.5
+    w = torch.empty((in_dim, out_dim), dtype=torch.float32,
+                    device=generator.device)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    b = torch.zeros((out_dim,), device=generator.device) if use_bias else None
+    return Linear(w=w * std, b=b)
+
+
+def weight_channel_axes(w: torch.Tensor) -> tuple[int, ...]:
+    """Per-output-channel scale axes, stack-aware: (K, N) → (1,);
+    layer-stacked (L, K, N) → (0, 2) — per (layer, out-channel)."""
+    return tuple(range(w.dim() - 2)) + (w.dim() - 1,)
+
+
+def quantize_linear(params: Linear) -> Linear:
+    """Offline int8 weight quantization (per output channel), keeps bias
+    f32."""
+    w = params.w
+    w_q = quantize(w, channel_axes=weight_channel_axes(w))
+    b = params.b.float() if params.b is not None else None
+    return Linear(w_q=w_q, b=b)
+
+
+def _add_bias(y: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    if bias is None:
+        return y
+    return y + bias.to(y.dtype)
+
+
+def apply_linear(params: Linear, x: torch.Tensor, *,
+                 mode: QuantMode = "none", out_dtype=None) -> torch.Tensor:
+    """y = x @ W (+ b) under the configured quantization mode.
+
+    Takes master weights for 'none' and 'w8' (quantized on the fly) or
+    quantized weights for 'w8' and 'w8a8'.
+    """
+    if mode not in VALID_MODES:
+        raise ValueError(f"mode must be one of {VALID_MODES}, got {mode!r}")
+    out_dtype = out_dtype or x.dtype
+    bias = params.b
+
+    if mode == "none":
+        y = x @ params.w.to(x.dtype)
+        return _add_bias(y, bias).to(out_dtype)
+
+    wq = params.w_q
+    if wq is None:
+        wq = quantize(params.w, channel_axes=weight_channel_axes(params.w))
+
+    if mode == "w8":
+        y = x @ wq.dequantize(x.dtype)
+        return _add_bias(y, bias).to(out_dtype)
+
+    # w8a8 — the paper's path.
+    lead = x.shape[:-1]
+    xq = quant_act(x.reshape(-1, x.shape[-1]).contiguous())
+    y = tiled_matmul(xq, wq, bias.float() if bias is not None else None,
+                     out_dtype=out_dtype)
+    return y.reshape(*lead, y.shape[-1])

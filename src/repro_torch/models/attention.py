@@ -1,0 +1,148 @@
+"""Attention: MHA/GQA/MQA with RoPE variants, sliding window, softcap,
+QK-norm and a dense KV cache.
+
+The Q/K/V projections — the paper's target bottleneck — route through
+``core.qkv_fusion.apply_fused_qkv`` (the persistent-A / update_A mechanism)
+or ``core.quantized_linear.apply_linear`` under the config's ``quant_proj``
+mode.  Scores are computed in f32 over the whole (S, T) block
+(``_attend_dense``).  Not ported yet: the paged cache layout (ROADMAP
+queue 1, item 7: kernel K4; refused by ``init_cache`` and ``apply_model``),
+cross-attention (item 12), and the long-prompt blockwise / flash path
+(item 8: kernel K5), for which ``apply_attention`` raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core.qkv_fusion import apply_fused_qkv
+from repro_torch.core.quantized_linear import Linear, apply_linear, init_linear
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (Norm, apply_norm, apply_rope,
+                                       init_norm, softcap)
+
+NEG_INF = -2.3819763e38  # finite min-bf16-safe mask value
+
+
+class Attention(nn.Module):
+    """Q/K/V/O projections, plus per-head q/k norms under ``qk_norm``."""
+
+    def __init__(self, wq: Linear, wk: Linear, wv: Linear, wo: Linear,
+                 q_norm: Norm | None = None, k_norm: Norm | None = None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        self.q_norm = q_norm
+        self.k_norm = k_norm
+
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig) -> Attention:
+    wq = init_linear(generator, cfg.d_model, cfg.q_dim, use_bias=cfg.qkv_bias)
+    wk = init_linear(generator, cfg.d_model, cfg.kv_dim, use_bias=cfg.qkv_bias)
+    wv = init_linear(generator, cfg.d_model, cfg.kv_dim, use_bias=cfg.qkv_bias)
+    wo = init_linear(generator, cfg.q_dim, cfg.d_model,
+                     scale=(cfg.q_dim ** -0.5) / max(cfg.n_layers, 1) ** 0.5)
+    q_norm = k_norm = None
+    if cfg.qk_norm:
+        q_norm = init_norm(cfg, cfg.head_dim, device=generator.device)
+        k_norm = init_norm(cfg, cfg.head_dim, device=generator.device)
+    return Attention(wq, wk, wv, wo, q_norm, k_norm)
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _mask_bias(q_pos, k_pos, *, window, is_local: bool) -> torch.Tensor:
+    """(…, S, T) additive causal (and sliding-window) bias."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    allowed = kp <= qp
+    if window is not None and is_local:
+        allowed &= kp > qp - window
+    return torch.where(allowed, 0.0, NEG_INF).float()
+
+
+def _attend_dense(q, k, v, q_pos, k_pos, *, scale, cap, window, is_local):
+    """q (B,S,K,G,hd); k,v (B,T,K,hd) → (B,S,K,G,hd).  Scores in f32.
+
+    ``q_pos`` may be (S,) (batch-synchronous) or (B, S) (per-sequence
+    positions — mixed-length batches); it is aligned to the (B,K,G,S,T)
+    score block so the mask broadcasts per sequence.
+    """
+    if q_pos.dim() == 2:
+        q_pos = q_pos[:, None, None, :]        # (B,1,1,S) → bias (B,1,1,S,T)
+    s = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
+    s = softcap(s, cap)
+    s = s + _mask_bias(q_pos, k_pos, window=window, is_local=is_local)
+    p = torch.softmax(s, dim=-1)
+    # probabilities rounded to v's dtype, products summed in f32
+    o = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype).float(), v.float())
+    return o.to(v.dtype)
+
+
+def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor,
+                    is_local: bool = False,
+                    cache: tuple | None = None,
+                    cache_pos: torch.Tensor | None = None):
+    """Causal self-attention over x (B, S, D), without a cache or with a
+    dense one (the bidirectional encoder path comes with item 12).
+
+    With ``cache`` = (k, v), each (B, S_max, K, hd), the new keys and values
+    are written **in place** into the cache tensors at ``cache_pos``, a (B,)
+    int vector of per-sequence write positions (mixed-length batches), and
+    attention runs over the whole cache with per-sequence causal masking.
+
+    Returns (y, (k_cache, v_cache) or None).
+    """
+    b, s, _ = x.shape
+    kh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    hd = cfg.head_dim
+    scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
+
+    if cache is None and s >= cfg.blockwise_attn_threshold:
+        raise NotImplementedError(
+            f"no-cache attention at s={s} >= blockwise_attn_threshold "
+            f"({cfg.blockwise_attn_threshold}) takes the blockwise / flash "
+            "path: ROADMAP queue 1, item 8 (kernel K5)")
+
+    if cfg.fuse_qkv:
+        q, k, v = apply_fused_qkv(params.wq, params.wk, params.wv, x,
+                                  mode=cfg.quant_proj)
+    else:
+        q = apply_linear(params.wq, x, mode=cfg.quant_proj)
+        k = apply_linear(params.wk, x, mode=cfg.quant_proj)
+        v = apply_linear(params.wv, x, mode=cfg.quant_proj)
+
+    q = _split_heads(q, cfg.n_heads, hd)
+    k = _split_heads(k, kh, hd)
+    v = _split_heads(v, kh, hd)
+
+    if cfg.qk_norm:
+        q = apply_norm(params.q_norm, q, cfg)
+        k = apply_norm(params.k_norm, k, cfg)
+
+    q = apply_rope(q, positions, cfg)
+    k = apply_rope(k, positions, cfg)
+
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache
+        bidx = torch.arange(b, device=x.device)[:, None]
+        tok_pos = cache_pos[:, None] + torch.arange(s, device=x.device)
+        ck[bidx, tok_pos] = k.to(ck.dtype)
+        cv[bidx, tok_pos] = v.to(cv.dtype)
+        new_cache = (ck, cv)
+        k, v = ck, cv
+        k_pos = torch.arange(k.shape[1], device=x.device)
+    else:
+        k_pos = positions
+
+    q = q.reshape(b, s, kh, g, hd)
+    o = _attend_dense(q, k, v, positions, k_pos, scale=scale,
+                      cap=cfg.attn_logit_softcap, window=cfg.sliding_window,
+                      is_local=is_local)
+    o = o.reshape(b, s, cfg.q_dim)
+    y = apply_linear(params.wo, o, mode=cfg.quant_proj)
+    return y, new_cache

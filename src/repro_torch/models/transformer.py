@@ -1,0 +1,153 @@
+"""Model assembly for the dense family: ``init_model`` / ``apply_model``.
+
+Pre-norm decoder blocks (optionally gemma2 sandwich post-norms) run as a
+Python loop over per-layer modules, the eager counterpart of the JAX
+package's layer scan.  MoE, SSM, hybrid, vision-frontend and
+encoder-decoder families are later ROADMAP items (queue 1, item 12) and
+raise ``NotImplementedError``.
+
+Cache convention (decode) — see serving/cache.py:
+  dense:  {"k","v"}: (L, B, S_max, KVH, hd); layer i attends through the
+          views cache["k"][i], cache["v"][i], written in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.models.attention import (Attention, apply_attention,
+                                          init_attention)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.ffn import FFN, apply_ffn, init_ffn
+from repro_torch.models.layers import (Embedding, LMHead, Norm, apply_norm,
+                                       embed_tokens, init_embedding,
+                                       init_norm, sinusoidal_positions,
+                                       unembed)
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, norm_attn: Norm, attn: Attention, norm_ffn: Norm,
+                 ffn: FFN, norm_attn_post: Norm | None = None,
+                 norm_ffn_post: Norm | None = None):
+        super().__init__()
+        self.norm_attn = norm_attn
+        self.attn = attn
+        self.norm_ffn = norm_ffn
+        self.ffn = ffn
+        self.norm_attn_post = norm_attn_post
+        self.norm_ffn_post = norm_ffn_post
+
+
+class Model(nn.Module):
+    def __init__(self, embed: Embedding, final_norm: Norm,
+                 layers: list[DecoderBlock], lm_head: LMHead | None = None):
+        super().__init__()
+        self.embed = embed
+        self.final_norm = final_norm
+        self.lm_head = lm_head
+        self.layers = nn.ModuleList(layers)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port runs the dense family only (for now)."""
+    if (cfg.family != "dense" or cfg.is_moe or cfg.frontend is not None
+            or cfg.is_encoder_decoder):
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
+            "queue 1, item 12); the port runs the dense family")
+
+
+def _init_decoder_block(generator: torch.Generator,
+                        cfg: ModelConfig) -> DecoderBlock:
+    dev = generator.device
+    post = cfg.post_block_norm
+    return DecoderBlock(
+        init_norm(cfg, device=dev), init_attention(generator, cfg),
+        init_norm(cfg, device=dev), init_ffn(generator, cfg),
+        init_norm(cfg, device=dev) if post else None,
+        init_norm(cfg, device=dev) if post else None)
+
+
+def init_model(generator: torch.Generator, cfg: ModelConfig, *,
+               device="cuda") -> Model:
+    """Random model from ``generator``, drawn on the generator's device and
+    placed on ``device``.  A CPU generator gives the same weights whatever
+    the target device."""
+    cfg.validate()
+    check_supported(cfg)
+    dev = resolve_device(device)
+    embed = init_embedding(generator, cfg)
+    lm_head = None
+    if not cfg.tie_embeddings:
+        lm_head = LMHead(torch.randn((cfg.vocab_size, cfg.d_model),
+                                     generator=generator,
+                                     device=generator.device)
+                         * (cfg.d_model ** -0.5))
+    layers = [_init_decoder_block(generator, cfg) for _ in range(cfg.n_layers)]
+    model = Model(embed, init_norm(cfg, device=generator.device), layers,
+                  lm_head)
+    return model.to(dev)
+
+
+def _decoder_block(p: DecoderBlock, x, cfg: ModelConfig, *, positions,
+                   is_local, cache_kv, cache_pos):
+    h = apply_norm(p.norm_attn, x, cfg)
+    a_out, new_kv = apply_attention(p.attn, h, cfg, positions=positions,
+                                    is_local=is_local, cache=cache_kv,
+                                    cache_pos=cache_pos)
+    if p.norm_attn_post is not None:
+        a_out = apply_norm(p.norm_attn_post, a_out, cfg)
+    x = x + cfg.residual_multiplier * a_out.to(x.dtype)
+
+    h = apply_norm(p.norm_ffn, x, cfg)
+    f_out = apply_ffn(p.ffn, h, cfg)
+    if p.norm_ffn_post is not None:
+        f_out = apply_norm(p.norm_ffn_post, f_out, cfg)
+    x = x + cfg.residual_multiplier * f_out.to(x.dtype)
+    return x, new_kv
+
+
+def _local_flags(cfg: ModelConfig) -> list[bool]:
+    """Which layers use the sliding window (gemma2: even)."""
+    if cfg.layer_pattern == "local_global" and cfg.sliding_window:
+        return [i % 2 == 0 for i in range(cfg.n_layers)]
+    return [bool(cfg.sliding_window)] * cfg.n_layers
+
+
+def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
+                cache: dict | None = None,
+                cache_pos: torch.Tensor | int | None = None):
+    """Returns (logits f32 (B, S, V), cache, aux).
+
+    tokens: (B, S) int decoder tokens.  ``cache``/``cache_pos``: the dense
+    decode cache (updated in place, and returned) and the write position —
+    a scalar (batch-synchronous, made a (B,) vector here) or a (B,) int
+    vector of per-sequence positions.  DistilBERT runs causally here, as in
+    the JAX package.
+    """
+    check_supported(cfg)
+    x = embed_tokens(model.embed, tokens, cfg)
+    b, s, _ = x.shape
+    dev = x.device
+    ar = torch.arange(s, device=dev)
+    if cache is None:
+        positions = ar                                      # (S,)
+    else:
+        cache_pos = torch.as_tensor(0 if cache_pos is None else cache_pos,
+                                    device=dev).expand(b)
+        positions = cache_pos[:, None] + ar[None, :]        # (B, S)
+    if cfg.pos_embedding == "sinusoidal":
+        pe = sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+        x = x + (pe[None] if positions.dim() == 1 else pe)
+
+    for i, (layer, flag) in enumerate(zip(model.layers, _local_flags(cfg))):
+        cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
+        x, _ = _decoder_block(layer, x, cfg, positions=positions,
+                              is_local=flag, cache_kv=cache_kv,
+                              cache_pos=cache_pos)
+
+    x = apply_norm(model.final_norm, x, cfg)
+    logits = unembed(model.embed, x, cfg, model.lm_head)
+    aux = {"load_balance_loss": torch.zeros((), device=dev)}
+    return logits, cache, aux

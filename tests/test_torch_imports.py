@@ -1,0 +1,43 @@
+"""The port and chip_smoke.py import neither JAX nor the JAX package."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                yield "."                      # relative: inside the package
+            else:
+                yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              == "import_module" and node.args
+              and isinstance(node.args[0], (ast.Constant, ast.JoinedStr))):
+            arg = node.args[0]
+            text = (arg.value if isinstance(arg, ast.Constant)
+                    else "".join(v.value for v in arg.values
+                                 if isinstance(v, ast.Constant)))
+            yield text
+
+
+def test_files_exist():
+    assert len(FILES) > 20 and (ROOT / "chip_smoke.py").is_file()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for mod in _imported_modules(tree):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod!r}"

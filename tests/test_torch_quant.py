@@ -1,0 +1,97 @@
+"""Port's quantization core and quant_act (K1) plain version vs the JAX
+package, bit for bit."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quantization import quantize as jax_quantize
+from repro.kernels.quant_act.ops import quant_act as jax_quant_act
+from repro.kernels.quant_act.ref import quant_act_ref as jax_quant_act_ref
+from repro_torch.core.quantization import dequantize, qmax_for_bits, quantize
+from repro_torch.kernels.quant_act.ops import quant_act
+from repro_torch.kernels.quant_act.ref import quant_act_ref
+
+
+def _pair(shape, dtype, seed, zero_row=True):
+    """The same values as a torch tensor and a jax array (f32 or bf16)."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32) * 3
+    if zero_row:
+        x[(0,) * (len(shape) - 1)] = 0.0
+    t = torch.from_numpy(x).to(dtype)
+    j = jnp.asarray(t.float().numpy())          # exact: bf16 ⊂ f32
+    if dtype == torch.bfloat16:
+        j = j.astype(jnp.bfloat16)
+    return t, j
+
+
+def _assert_same(qt, qj):
+    np.testing.assert_array_equal(qt.values.numpy(), np.asarray(qj.values))
+    np.testing.assert_array_equal(qt.scale.numpy(), np.asarray(qj.scale))
+    assert qt.values.dtype == torch.int8
+    assert qt.scale.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axes", [
+    ((37, 50), (0,)),            # per row (activations)
+    ((50, 37), (1,)),            # per output channel (weights)
+    ((13, 21), ()),              # per tensor
+    ((3, 24, 40), (0, 2)),       # layer-stacked weights: per (layer, channel)
+])
+def test_quantize_matches_jax(shape, axes, dtype):
+    t, j = _pair(shape, dtype, seed=len(shape) * 7 + len(axes))
+    qt = quantize(t, channel_axes=axes)
+    _assert_same(qt, jax_quantize(j, channel_axes=axes))
+    assert qt.scale.shape == tuple(1 if i not in axes else n
+                                   for i, n in enumerate(shape))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantize_bits_and_dequantize(bits):
+    t, j = _pair((16, 24), torch.float32, seed=bits)
+    qt = quantize(t, channel_axes=(1,), bits=bits)
+    _assert_same(qt, jax_quantize(j, channel_axes=(1,), bits=bits))
+    assert int(qt.values.abs().max()) <= qmax_for_bits(bits)
+    deq = dequantize(qt)
+    np.testing.assert_array_equal(
+        deq.numpy(), np.asarray(jax_quantize(j, channel_axes=(1,),
+                                             bits=bits).dequantize()))
+    with pytest.raises(ValueError):
+        qmax_for_bits(9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 768), (5, 770), (1, 33)])
+def test_quant_act_ref_matches_jax_ref(shape, dtype):
+    t, j = _pair(shape, dtype, seed=shape[1])
+    vt, st = quant_act_ref(t)
+    vj, sj = jax_quant_act_ref(j)
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    # the zero row quantizes to zeros with scale 1
+    assert st[0, 0] == 1.0 and not vt[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(24, 128), (7, 96)])
+def test_quant_act_matches_pallas_interpret(shape, dtype):
+    t, j = _pair(shape, dtype, seed=shape[0])
+    qt = quant_act(t)                      # CPU tensor: the plain version
+    qj = jax_quant_act(j, mode="pallas_interpret")
+    np.testing.assert_array_equal(qt.values.numpy(), np.asarray(qj.values))
+    # the interpreted Pallas kernel divides by qmax as a reciprocal multiply,
+    # so its scale may sit 1 ulp off its own ref (tests/test_kernels.py holds
+    # it to the same atol); the values stay bitwise
+    np.testing.assert_allclose(qt.scale.numpy(), np.asarray(qj.scale),
+                               atol=1e-8, rtol=0)
+
+
+def test_quant_act_rounds_half_to_even():
+    # x / scale lands exactly on .5 steps: 127 * (k + 0.5) / 127.5 ...
+    x = torch.tensor([[127.0, 0.5, 1.5, 2.5, -0.5, -2.5]])
+    v, s = quant_act_ref(x)
+    assert s.item() == 1.0
+    assert v.tolist() == [[127, 0, 2, 2, 0, -2]]
+    vj, _ = jax_quant_act_ref(jnp.asarray(x.numpy()))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(vj))
