@@ -6,22 +6,32 @@
 1. Device: name, count, power limit; TF32 off.
 2. Build: every CUDA kernel from ``src/repro_torch/csrc`` with nvcc for
    sm_90a, printing ptxas' register and shared-memory lines.
-3. Kernels against their plain PyTorch versions on the card, bitwise, at
-   the main path's shapes (and a few more).
-4. The main path: ``distilbert_paper`` (w8a8, bf16) at full width from a
+3. Kernels against their plain PyTorch versions on the card at the main
+   paths' shapes (and a few more): K1-K3 bitwise; K4 (paged attention)
+   within atol 5e-6 / rtol 1e-5 in f32 and int8 pools, rel-err 1e-2 in
+   bf16, bitwise across page tables and against pre-dequantized pools.
+4. The main paths: ``distilbert_paper`` (w8a8, bf16) at full width from a
    seeded generator, 4 requests of 64/48/33/17 prompt tokens through
-   ``prefill`` then 32 steps of ``greedy_decode`` on the dense cache, with
-   exact kernel launch counts.  The same serve is run again on the card
-   with the plain versions swapped in for the kernels: prefill logits,
-   tokens and the whole KV cache must be bitwise equal.
-5. Card against CPU in f32, same weights: unquantized (``none``) at full
-   depth within rel-err 1e-5; w8a8 on the first 2 layers as a printed
-   yardstick, argmax agreement >= 0.99 for both (why: ``card_vs_cpu``).
-6. Timings at the slice's shapes (prefill M=256, decode M=4): each kernel,
-   its plain version and, where shapes allow, ``torch._int_mm`` plus the
-   epilogue as a library yardstick, beside the kernel's bound.  Times are
-   device times: CUDA graphs of many launches, timed with CUDA events, over
-   enough input copies that each launch finds its operands outside L2.
+   ``prefill`` then 32 steps of ``greedy_decode``, each with exact kernel
+   launch counts: on the dense cache (the same serve is run again with
+   the plain versions swapped in for the kernels: prefill logits, tokens
+   and the whole KV cache must be bitwise equal), then on the paged cache
+   (page 16, striped table) in bf16 pools and in int8 pools: each of the
+   serve's K4 calls is held against the plain version on that call's own
+   operands, at phase 3's limits, and layer 0's prompt rows must equal
+   the dense serve's bit for bit.
+5. Card against CPU in f32, same weights, with exact launch counts on the
+   card: unquantized (``none``) at full depth within rel-err 1e-5 on the
+   dense cache and on the paged cache (one pass and chunked prefill);
+   int8 KV pools and w8a8 (first 2 layers) printed; argmax agreement
+   >= 0.99 for all (why: ``card_vs_cpu``).
+6. Timings at the slice's shapes: each kernel, its plain version and a
+   library yardstick (``torch._int_mm`` plus the epilogue, A zero-padded
+   to M=32 at decode; ``scaled_dot_product_attention`` over the gathered
+   K/V for K4), beside the kernel's bound (for K4, the bytes of the K/V
+   rows the lengths make visible).  Times are device times: CUDA
+   graphs of many launches, timed with CUDA events, over enough input
+   copies that each launch finds its operands outside L2.
 
 Exits non-zero on any failure.  The last line is a JSON object naming the
 device; the line before it lists each kernel's numbers.
@@ -48,6 +58,12 @@ L2_BYTES = 50 * 2 ** 20
 
 BATCH_LENS = (64, 48, 33, 17)
 DECODE_STEPS = 32
+PAGE = 16
+# K4 against its plain version: the JAX package's own f32 limits, and a
+# rel-err for bf16 pools (the kernel rounds the unnormalised p to bf16, the
+# plain version p / l)
+PAGED_ATOL, PAGED_RTOL = 5e-6, 1e-5
+PAGED_BF16_REL = 1e-2
 # card vs CPU (phase 5): the unquantized model's limit (as the port's CPU
 # tests hold 'none' against JAX), the w8a8 yardstick's depth, and argmax
 CHECK_LAYERS = 2
@@ -170,6 +186,123 @@ def check_kernels(dev):
     return errs
 
 
+def paged_inputs(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
+                 q_dtype=None, alloc="striped", seed=0):
+    """The wrapper's operands for a random K/V history of ``t`` tokens per
+    sequence, scattered into page pools through a ``default_page_table``:
+    pools in f32, bf16, or int8 with scale pools (``kv``); q of
+    ``q_dtype`` (default: bf16 with bf16 pools, else f32)."""
+    from repro_torch.core.quantization import quantize_kv
+    from repro_torch.serving.cache import default_page_table
+    table = default_page_table(b, t // page, alloc).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def pool():
+        hist = torch.randn((b * (t // page), page, kh, d), generator=gen,
+                           device=dev)
+        out = torch.empty_like(hist)
+        out[table.flatten().long()] = hist      # page j of sequence b
+        return out.to(torch.bfloat16) if kv == "bf16" else out
+
+    c = {"k_pages": pool(), "v_pages": pool(), "page_table": table,
+         "lengths": torch.tensor(lens, dtype=torch.int32, device=dev)}
+    q_dtype = q_dtype or (torch.bfloat16 if kv == "bf16" else torch.float32)
+    c["q"] = torch.randn((b, qs, h, d), generator=gen, device=dev).to(q_dtype)
+    if kv == "int8":
+        c["k_pages"], c["k_scales"] = quantize_kv(c["k_pages"])
+        c["v_pages"], c["v_scales"] = quantize_kv(c["v_pages"])
+    return c
+
+
+# name, b, t, h, kh, d, lens, options: distilbert decode (the first decode
+# step's lengths) and prefill (one 64-row q block), a chunked prefill in
+# 128-row q blocks, GQA at head_dim 128, window + softcap
+PAGED_CHECKS = [
+    ("decode", 4, 96, 12, 12, 64, [65, 49, 34, 18], {}),
+    ("prefill", 4, 96, 12, 12, 64, [64] * 4, dict(qs=64, q_chunk=128)),
+    ("chunked", 2, 208, 12, 12, 64, [200, 200], dict(qs=200, q_chunk=128)),
+    ("gqa", 2, 256, 16, 2, 128, [256, 77], {}),
+    ("window_softcap", 2, 128, 12, 12, 64, [100, 23],
+     dict(window=20, softcap=50.0)),
+]
+# kv pools, q dtype (the limit follows q's dtype: k4_agrees)
+PAGED_MODES = [("f32", torch.float32), ("bf16", torch.bfloat16),
+               ("int8", torch.float32), ("int8", torch.bfloat16)]
+
+
+def k4_agrees(got, want):
+    """K4's output against its plain version's on the same operands:
+    within atol/rtol for f32 q, within the rel-err limit for bf16 q.
+    Returns (ok, max |err|, rel-err, the limit as text)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"paged_decode: {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(want.shape)} {want.dtype}")
+    diff = (got.double() - want.double()).abs()
+    err, rel = diff.max().item(), rel_err(got, want)
+    if got.dtype == torch.float32:
+        ok = bool((diff <= PAGED_ATOL + PAGED_RTOL * want.double().abs()).all())
+        return ok, err, rel, f"atol {PAGED_ATOL}, rtol {PAGED_RTOL}"
+    return rel <= PAGED_BF16_REL, err, rel, f"rel-err limit {PAGED_BF16_REL}"
+
+
+def split_opts(opts):
+    opts = dict(opts)
+    return opts.pop("qs", 1), opts
+
+
+def check_paged(dev):
+    """K4 against its plain version on the same CUDA tensors, and its two
+    bitwise invariants.  Returns (max |err| under the f32 limits, max
+    rel-err under the bf16 limit)."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ref import \
+        paged_decode_attention_ref
+    worst_abs = worst_rel = 0.0
+    for name, b, t, h, kh, d, lens, opts in PAGED_CHECKS:
+        qs, opts = split_opts(opts)
+        for kv, q_dtype in PAGED_MODES:
+            c = paged_inputs(b, t, h, kh, d, lens, dev, qs=qs, kv=kv,
+                             q_dtype=q_dtype, seed=b * t + h)
+            got = paged_decode_attention(**c, **opts)
+            want = paged_decode_attention_ref(**c, **opts)
+            torch.cuda.synchronize()
+            ok, err, rel, limit = k4_agrees(got, want)
+            what = (f"paged_decode {name} kv={kv} q={str(q_dtype)[6:]} "
+                    f"({b}x{qs}x{h}x{d}, KH={kh}, lens={lens}"
+                    f"{', ' + str(opts) if opts else ''})")
+            if q_dtype == torch.float32:
+                worst_abs = max(worst_abs, err)
+            else:
+                worst_rel = max(worst_rel, rel)
+            print(f"  {'ok' if ok else 'FAIL'} {what}: max |err| {err:.3e}, "
+                  f"rel-err {rel:.3e} ({limit})")
+            if not ok:
+                fail(f"{what}: kernel differs from its plain version")
+
+    # bitwise: the same history through two page tables, and the int8
+    # pools against the f32 launch on the pools dequantized beforehand
+    for name, b, t, h, kh, d, lens, opts in PAGED_CHECKS[:3]:
+        qs, opts = split_opts(opts)
+        outs = [paged_decode_attention(**paged_inputs(
+                    b, t, h, kh, d, lens, dev, qs=qs, kv="bf16", alloc=alloc,
+                    seed=1), **opts) for alloc in ("striped", "contiguous")]
+        c = paged_inputs(b, t, h, kh, d, lens, dev, qs=qs, kv="int8", seed=2)
+        ks, vs = c.pop("k_scales"), c.pop("v_scales")
+        got = paged_decode_attention(**c, k_scales=ks, v_scales=vs, **opts)
+        fp = paged_decode_attention(**dict(
+            c, k_pages=c["k_pages"].float() * ks[..., None],
+            v_pages=c["v_pages"].float() * vs[..., None]), **opts)
+        torch.cuda.synchronize()
+        if not torch.equal(outs[0], outs[1]):
+            fail(f"paged_decode {name}: striped and contiguous tables differ")
+        if not torch.equal(got, fp):
+            fail(f"paged_decode {name}: int8 pools differ from the f32 "
+                 "launch on the pools dequantized beforehand")
+        print(f"  ok paged_decode {name}: striped == contiguous table, "
+              "int8 == f32 on pre-dequantized pools (bitwise)")
+    return worst_abs, worst_rel
+
+
 # ---------------------------------------------------------------------------
 # 4-5. the main path, and card vs CPU
 # ---------------------------------------------------------------------------
@@ -180,33 +313,38 @@ def make_prompts(cfg, dev):
     return prompts.to(dev), torch.tensor(BATCH_LENS, device=dev)
 
 
-def serve(model, cfg, dev):
+def serve(model, cfg, dev, config=None):
+    """The smoke serve on a dense cache, or on the paged one ``config``
+    describes (whose decode starts from the cache's own ``seq_lens``)."""
     from repro_torch.serving.cache import init_cache
     from repro_torch.serving.engine import greedy_decode, prefill
     prompts, lens = make_prompts(cfg, dev)
     cache = init_cache(cfg, len(BATCH_LENS), max(BATCH_LENS) + DECODE_STEPS,
-                       dtype=cfg.activation_dtype, device=dev)
+                       dtype=cfg.activation_dtype, config=config, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     next_logits, cache = prefill(model, cache, prompts, lens, cfg)
     first = torch.argmax(next_logits, dim=-1)[:, None]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    toks, cache = greedy_decode(model, cache, first, lens, DECODE_STEPS, cfg)
+    toks, cache = greedy_decode(model, cache, first,
+                                lens if config is None else None,
+                                DECODE_STEPS, cfg)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return next_logits, toks, cache, t1 - t0, t2 - t1
 
 
-# the modules of the main path that call the kernel wrappers
+# the modules of the dense main path that call the kernel wrappers
 WRAPPER_CALLERS = ("repro_torch.core.quantized_linear",
                    "repro_torch.core.qkv_fusion")
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within the block, the main path calls the kernels' plain versions
-    (on whatever device its tensors are) where it called the wrappers."""
+    """Within the block, the dense main path calls the kernels' plain
+    versions (on whatever device its tensors are) where it called the
+    wrappers."""
     from repro_torch.core.quantization import QTensor
     from repro_torch.kernels.fused_qkv.ref import fused_qkv_ref
     from repro_torch.kernels.quant_act.ref import quant_act_ref
@@ -240,31 +378,47 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
+def expected_launches(cfg, paged: bool, prefill_forwards: int = 1) -> dict:
+    """Each kernel's launches in a smoke serve of ``cfg``: per layer and
+    forward, 4 quant_act, 1 fused_qkv and 3 tiled_matmul under w8a8 (none
+    unquantized), and 1 paged_decode on the paged cache."""
+    forwards = prefill_forwards + DECODE_STEPS
+    w8a8 = int(cfg.quant_proj == "w8a8")
+    per_layer = {"quant_act": 4 * w8a8, "fused_qkv": w8a8,
+                 "tiled_matmul": 3 * w8a8, "paged_decode": int(paged)}
+    return {k: forwards * cfg.n_layers * n for k, n in per_layer.items()}
+
+
+def check_serve(what, counts, want, next_logits, toks, cfg, t_prefill,
+                t_decode):
+    """Launch counts exact, outputs in range; returns decode tok/s."""
+    print(f"{what}: launches {counts} (expected {want})")
+    if counts != want:
+        fail(f"{what}: launch counts {counts} != {want}")
+    if toks.shape != (len(BATCH_LENS), DECODE_STEPS + 1):
+        fail(f"{what}: tokens shape {tuple(toks.shape)}")
+    if not bool(torch.isfinite(next_logits).all()):
+        fail(f"{what}: non-finite prefill logits")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        fail(f"{what}: token ids out of the vocabulary")
+    tps = len(BATCH_LENS) * DECODE_STEPS / t_decode
+    print(f"  prefill: {t_prefill * 1e3:.3f} ms for {len(BATCH_LENS)} x "
+          f"{max(BATCH_LENS)} tokens; decode: {DECODE_STEPS} steps in "
+          f"{t_decode * 1e3:.3f} ms = {tps:.1f} tok/s (host clock)")
+    return tps
+
+
 def main_path(model, cfg, dev):
+    """The dense serve, then the same serve with the plain versions."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     serve(model, cfg, dev)                               # warm-up
     reset_launch_counts()
     next_logits, toks, cache, t_prefill, t_decode = serve(model, cfg, dev)
     counts = launch_counts()
-    forwards = 1 + DECODE_STEPS
-    want = {"quant_act": forwards * cfg.n_layers * 4,
-            "fused_qkv": forwards * cfg.n_layers * 1,
-            "tiled_matmul": forwards * cfg.n_layers * 3}
-    print(f"launches: {counts} (expected {want})")
-    if counts != want:
-        fail(f"launch counts {counts} != {want}")
-    if toks.shape != (len(BATCH_LENS), DECODE_STEPS + 1):
-        fail(f"tokens shape {tuple(toks.shape)}")
-    if not bool(torch.isfinite(next_logits).all()):
-        fail("non-finite prefill logits")
-    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        fail("token ids out of the vocabulary")
+    tps = check_serve("dense serve", counts, expected_launches(cfg, False),
+                      next_logits, toks, cfg, t_prefill, t_decode)
     for b, row in enumerate(toks.tolist()):
         print(f"  request {b} (prompt {BATCH_LENS[b]}): {row}")
-    tps = len(BATCH_LENS) * DECODE_STEPS / t_decode
-    print(f"prefill: {t_prefill * 1e3:.3f} ms for {len(BATCH_LENS)} x "
-          f"{max(BATCH_LENS)} tokens; decode: {DECODE_STEPS} steps in "
-          f"{t_decode * 1e3:.3f} ms = {tps:.1f} tok/s (host clock)")
 
     # the same serve with the plain versions in place of the kernels: the
     # kernels are exact functions, so everything must match bit for bit
@@ -283,7 +437,104 @@ def main_path(model, cfg, dev):
                  f"(max |err| {(got.double() - want_.double()).abs().max()})")
     print(f"main path vs plain versions on the card: prefill logits, "
           f"tokens and the {cfg.n_layers}-layer KV cache bitwise equal")
-    return counts, t_prefill, tps
+    return counts, t_prefill, tps, toks, cache
+
+
+@contextlib.contextmanager
+def recorded_k4_calls(calls):
+    """Within the block, every K4 call of the main paths appends to
+    ``calls`` its operands as the call found them (copies: the pools
+    change in place afterwards) and its output."""
+    mod = importlib.import_module("repro_torch.models.attention")
+    wrapper = mod.paged_decode_attention
+
+    def record(*args, **kwargs):
+        snap = [a.clone() for a in args], {
+            k: v.clone() if torch.is_tensor(v) else v
+            for k, v in kwargs.items()}
+        out = wrapper(*args, **kwargs)
+        calls.append((*snap, out.clone()))
+        return out
+
+    mod.paged_decode_attention = record
+    try:
+        yield
+    finally:
+        mod.paged_decode_attention = wrapper
+
+
+def check_served_k4(what, calls, n):
+    """Each of a serve's K4 calls against the plain version on that call's
+    own operands, at phase 3's limits; returns the worst rel-err."""
+    from repro_torch.kernels.flash_attention.ref import \
+        paged_decode_attention_ref
+    if len(calls) != n:
+        fail(f"{what}: {len(calls)} K4 calls recorded, {n} launched")
+    worst_err = worst_rel = 0.0
+    for i, (args, kwargs, out) in enumerate(calls):
+        ok, err, rel, limit = k4_agrees(
+            out, paged_decode_attention_ref(*args, **kwargs))
+        if not ok:
+            fail(f"{what}: K4 call {i} (q {tuple(args[0].shape)}) differs "
+                 f"from its plain version: max |err| {err:.3e}, rel-err "
+                 f"{rel:.3e} ({limit})")
+        worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
+    print(f"  each of its {n} K4 calls against the plain version on the "
+          f"call's own operands: worst max |err| {worst_err:.3e}, worst "
+          f"rel-err {worst_rel:.3e} ({limit})")
+    return worst_rel
+
+
+def paged_paths(model, cfg, dev, dense_toks, dense_cache):
+    """The smoke serve on the paged cache, in bf16 pools and in int8 pools,
+    each with exact launch counts and each K4 call held against the plain
+    version on its own operands; returns the bf16 run's (counts, prefill
+    s, decode tok/s)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.ref import paged_gather
+    from repro_torch.serving.cache import CacheConfig
+    out = None
+    for kv_quant in ("none", "int8"):
+        config = CacheConfig(layout="paged", page_size=PAGE, alloc="striped",
+                             kv_quant=kv_quant)
+        what = f"paged serve (page {PAGE}, striped, kv_quant={kv_quant})"
+        calls = []
+        with recorded_k4_calls(calls):                   # warm-up
+            w_logits, w_toks, _, _, _ = serve(model, cfg, dev, config)
+        reset_launch_counts()
+        next_logits, toks, cache, t_prefill, t_decode = serve(model, cfg, dev,
+                                                              config)
+        counts = launch_counts()
+        tps = check_serve(what, counts, expected_launches(cfg, True),
+                          next_logits, toks, cfg, t_prefill, t_decode)
+        if cache["seq_lens"].tolist() != [n + DECODE_STEPS
+                                          for n in BATCH_LENS]:
+            fail(f"{what}: seq_lens {cache['seq_lens'].tolist()}")
+        # the warm-up is the same serve, bit for bit, so the K4 operands it
+        # recorded are the counted serve's
+        if not (torch.equal(w_logits, next_logits)
+                and torch.equal(w_toks, toks)):
+            fail(f"{what}: two runs of the same serve differ")
+        check_served_k4(what, calls, counts["paged_decode"])
+        del calls
+        agree = (toks == dense_toks).float().mean().item()
+        print(f"  token agreement with the dense serve: {agree:.4f} over "
+              f"{toks.numel()} tokens (printed: the two attend with "
+              "different roundings)")
+        if kv_quant == "none":
+            out = (counts, t_prefill, tps)
+            # layer 0's K/V come from exact kernels on equal inputs: its
+            # prompt rows, read through the table, equal the dense cache's
+            for name in ("k", "v"):
+                rows = paged_gather(cache[f"{name}_pages"][0],
+                                    cache["page_table"])
+                for b, n in enumerate(BATCH_LENS):
+                    if not torch.equal(rows[b, :n], dense_cache[name][0, b, :n]):
+                        fail(f"{what}: layer 0 {name} rows of request {b} "
+                             "differ from the dense cache")
+            print(f"  layer 0 prompt rows through the page table == dense "
+                  "cache rows (bitwise)")
+    return out
 
 
 def rel_err(a, b):
@@ -298,32 +549,45 @@ def first_layers(model, n):
                  model.lm_head)
 
 
-def teacher_forced(model, cfg, d, tokens=None):
-    """Prefill, then decode in f32: greedy, or fed ``tokens`` when given.
+def teacher_forced(model, cfg, d, tokens=None, config=None, chunk=None):
+    """Prefill (in chunks of ``chunk``, if given), then decode in f32:
+    greedy, or fed ``tokens`` when given.  On the dense cache, or on the
+    paged one ``config`` describes (positions from its ``seq_lens``).
     Returns (the logits of each position, on the CPU; the tokens fed)."""
     from repro_torch.serving.cache import init_cache
     from repro_torch.serving.engine import prefill, serve_step
     prompts, lens = make_prompts(cfg, d)
     cache = init_cache(cfg, len(BATCH_LENS), max(BATCH_LENS) + DECODE_STEPS,
-                       dtype=torch.float32, device=d)
-    nl, cache = prefill(model, cache, prompts, lens, cfg)
+                       dtype=torch.float32, config=config, device=d)
+    nl, cache = prefill(model, cache, prompts, lens, cfg, chunk=chunk)
     logits = [nl]
     fed = [torch.argmax(nl, -1)[:, None] if tokens is None
            else tokens[:, :1].to(d)]
     for t in range(DECODE_STEPS):
-        lg, cache = serve_step(model, cache, fed[-1], lens + t, cfg)
+        lg, cache = serve_step(model, cache, fed[-1],
+                               lens + t if config is None else None, cfg)
         logits.append(lg[:, -1])
         fed.append(torch.argmax(lg[:, -1], -1)[:, None] if tokens is None
                    else tokens[:, t + 1:t + 2].to(d))
     return [x.cpu() for x in logits], torch.cat(fed, 1).cpu()
 
 
-def compare(model_cpu, cfg, dev):
+def compare(model_cpu, cfg, dev, what, config=None, chunk=None):
     """The card (kernels) against the CPU (plain versions) on the same f32
-    weights, the CPU teacher-forced with the card's tokens.  Returns
-    (prefill rel-err, worst decode step rel-err, argmax agreement)."""
-    card, tokens = teacher_forced(copy.deepcopy(model_cpu).to(dev), cfg, dev)
-    cpu, _ = teacher_forced(model_cpu, cfg, torch.device("cpu"), tokens)
+    weights, the CPU teacher-forced with the card's tokens; the card's
+    launch counts must be exact.  Returns (prefill rel-err, worst decode
+    step rel-err, argmax agreement)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    model = copy.deepcopy(model_cpu).to(dev)
+    reset_launch_counts()
+    card, tokens = teacher_forced(model, cfg, dev, config=config, chunk=chunk)
+    counts = launch_counts()
+    prefill_forwards = 1 if chunk is None else -(-max(BATCH_LENS) // chunk)
+    want = expected_launches(cfg, config is not None, prefill_forwards)
+    if counts != want:
+        fail(f"card vs CPU ({what}): launch counts {counts} != {want}")
+    cpu, _ = teacher_forced(model_cpu, cfg, torch.device("cpu"), tokens,
+                            config=config, chunk=chunk)
     agree = torch.cat([(a.argmax(-1) == b.argmax(-1)).float()
                        for a, b in zip(card, cpu)]).mean().item()
     return (rel_err(card[0], cpu[0]),
@@ -347,25 +611,44 @@ def card_vs_cpu(model_cpu, master_cpu, cfg, dev):
     beside that error (CPU w8a8 against CPU ``none``) as a yardstick, and
     only their argmax agreement is held.  The kernels' exactness on the
     card is phase 3's check and phase 4's bitwise serve.
+
+    The paged cache is held to the same 1e-5 in ``none``, in one prefill
+    pass and in chunks of 32 (K4 against its plain version, which sums in
+    another order).  Its int8 pools are printed and only their argmax
+    held, for w8a8's reason: an ulp in a K/V row can flip its int8
+    rounding.
     """
-    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.cache import CacheConfig, init_cache
     from repro_torch.serving.engine import prefill
     cfg = cfg.replace(dtype="float32")
     n = len(BATCH_LENS) * (DECODE_STEPS + 1)
-    e_pre, e_dec, agree = compare(master_cpu, cfg.replace(quant_proj="none"),
-                                  dev)
-    print(f"card vs CPU: {cfg.name} f32 'none', n_layers={cfg.n_layers}: "
-          f"rel-err (max |card - cpu| / max |cpu|) prefill {e_pre:.3e}, "
-          f"worst decode step {e_dec:.3e} (limit {TOL_NONE}); argmax "
-          f"agreement {agree:.4f} over {n} positions (limit {TOL_ARGMAX})")
-    if not (e_pre <= TOL_NONE and e_dec <= TOL_NONE):
-        fail(f"card vs CPU ('none') rel-err above {TOL_NONE}")
-    if agree < TOL_ARGMAX:
-        fail(f"card vs CPU ('none') argmax agreement {agree} < {TOL_ARGMAX}")
+    paged = dict(layout="paged", page_size=PAGE, alloc="striped")
+    runs = [("dense", None, None, True),
+            ("paged", CacheConfig(**paged), None, True),
+            ("paged, chunk=32", CacheConfig(**paged), 32, True),
+            ("paged int8 KV", CacheConfig(**paged, kv_quant="int8"), None,
+             False)]
+    for label, config, chunk, held in runs:
+        e_pre, e_dec, agree = compare(master_cpu,
+                                      cfg.replace(quant_proj="none"), dev,
+                                      f"'none', {label}", config=config,
+                                      chunk=chunk)
+        limit = f"limit {TOL_NONE}" if held else "printed, no limit"
+        print(f"card vs CPU: {cfg.name} f32 'none', {label}, n_layers="
+              f"{cfg.n_layers}, launches exact: rel-err (max |card - cpu| "
+              f"/ max |cpu|) "
+              f"prefill {e_pre:.3e}, worst decode step {e_dec:.3e} "
+              f"({limit}); argmax agreement {agree:.4f} over {n} positions "
+              f"(limit {TOL_ARGMAX})")
+        if held and not (e_pre <= TOL_NONE and e_dec <= TOL_NONE):
+            fail(f"card vs CPU ('none', {label}) rel-err above {TOL_NONE}")
+        if agree < TOL_ARGMAX:
+            fail(f"card vs CPU ('none', {label}) argmax agreement {agree} "
+                 f"< {TOL_ARGMAX}")
 
     cut = cfg.replace(n_layers=CHECK_LAYERS)
     q_pre, q_dec, q_agree = compare(first_layers(model_cpu, CHECK_LAYERS),
-                                    cut, dev)
+                                    cut, dev, "w8a8")
     prompts, lens = make_prompts(cut, "cpu")
     nl_q, nl_none = (
         prefill(first_layers(m, CHECK_LAYERS),
@@ -374,7 +657,8 @@ def card_vs_cpu(model_cpu, master_cpu, cfg, dev):
                 prompts, lens, c)[0]
         for m, c in ((model_cpu, cut),
                      (master_cpu, cut.replace(quant_proj="none"))))
-    print(f"card vs CPU: {cfg.name} f32 w8a8, n_layers={CHECK_LAYERS}: "
+    print(f"card vs CPU: {cfg.name} f32 w8a8, n_layers={CHECK_LAYERS}, "
+          f"launches exact: "
           f"rel-err prefill {q_pre:.3e}, worst decode step {q_dec:.3e} "
           f"(printed, no limit); yardstick: CPU w8a8 vs CPU 'none' prefill "
           f"rel-err {rel_err(nl_q, nl_none):.3e}; argmax agreement "
@@ -440,6 +724,15 @@ def int_mm_epilogue(a, sa, b_cm, sb, out_dtype):
     return (torch._int_mm(a, b_cm).float() * (sa * sb)).to(out_dtype)
 
 
+# torch._int_mm refuses M <= 16: at decode its yardstick runs on A
+# zero-padded (before timing) to this many rows
+INT_MM_MIN_M = 32
+
+
+def pad_rows(x, m):
+    return torch.cat([x, x.new_zeros((m - x.shape[0],) + x.shape[1:])])
+
+
 def time_gemm(m, k, n, out_dtype, dev):
     from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
     from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
@@ -456,11 +749,14 @@ def time_gemm(m, k, n, out_dtype, dev):
                lambda *s: tiled_matmul_ref(*s, out_dtype=out_dtype),
                plain_sets),
            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
-    if m > 16 and k % 8 == 0 and n % 8 == 0:
-        lib_sets = [(a.values, a.scale, b.values.t().contiguous().t(),
-                     b.scale) for a, b in sets]
+    if k % 8 == 0 and n % 8 == 0:
+        mp = max(m, INT_MM_MIN_M)
+        lib_sets = [(pad_rows(a.values, mp), pad_rows(a.scale, mp),
+                     b.values.t().contiguous().t(), b.scale) for a, b in sets]
         row["library_ms"] = device_ms(
-            lambda *s: int_mm_epilogue(*s, out_dtype), lib_sets)
+            lambda *s: int_mm_epilogue(*s, out_dtype)[:m], lib_sets)
+        if mp != m:
+            row["library_note"] = f"padded to M={mp}"
     return row
 
 
@@ -481,12 +777,84 @@ def time_fused(m, k, nq, nkv, dev):
                lambda *s: fused_qkv_ref(*s, out_dtype=torch.float32),
                plain_sets),
            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
-    if m > 16 and k % 8 == 0 and n_all % 8 == 0:
-        lib_sets = [(a.values, a.scale,
+    if k % 8 == 0 and n_all % 8 == 0:
+        mp = max(m, INT_MM_MIN_M)
+        lib_sets = [(pad_rows(a.values, mp), pad_rows(a.scale, mp),
                      torch.cat([w.values for w in ws], 1).t().contiguous().t(),
                      torch.cat([w.scale for w in ws], 1)) for a, ws in ops]
         row["library_ms"] = device_ms(
-            lambda *s: int_mm_epilogue(*s, torch.float32), lib_sets)
+            lambda *s: int_mm_epilogue(*s, torch.float32)[:m], lib_sets)
+        if mp != m:
+            row["library_note"] = f"padded to M={mp}"
+    return row
+
+
+def sdpa_gathered(q, k, v, mask):
+    """The library yardstick for K4: scaled_dot_product_attention over K/V
+    already gathered into dense (B, KH, T, D) form, one mask per
+    sequence."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def time_paged(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
+               q_dtype=None, q_chunk=None, window=None, launches=200):
+    """K4 at one shape: kernel, plain version and library yardstick, and
+    the bound from the K/V rows this run's lengths make visible."""
+    from repro_torch.kernels.flash_attention.decode import (
+        flash_decode_schedule, pages_touched)
+    from repro_torch.kernels.flash_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        dequantize_gathered, paged_decode_attention_ref, paged_gather,
+        paged_gather_scales)
+    elt = {"f32": 4, "bf16": 2, "int8": 1}[kv]
+    q_elt = 2 if (q_dtype or (torch.bfloat16 if kv == "bf16"
+                              else torch.float32)) == torch.bfloat16 else 4
+    # the K/V rows some new row of a sequence sees, once per KV head: its
+    # whole context, or with a window its last window + qs - 1 rows; and
+    # the table entries of their pages (the one-block schedule's walk)
+    kv_rows = sum(min(n, window + qs - 1) if window else n for n in lens)
+    pages = pages_touched(lens, flash_decode_schedule(
+        t // page, page, q_len=qs, window=window))
+    nbytes = (kv_rows * kh * (2 * d * elt + (8 if kv == "int8" else 0))
+              + 2 * b * qs * h * d * q_elt + 4 * pages + 4 * b)
+    # QK and PV: 4·d flops per (query head, row, visible key)
+    visible = sum(min(n - qs + r + 1, window or t)
+                  for n in lens for r in range(qs))
+    b_ms, by = bound(nbytes, 4 * d * h * visible, F32_OPS_PER_S)
+    opts = dict(q_chunk=q_chunk, window=window)
+    sets = [(paged_inputs(b, t, h, kh, d, lens, dev, qs=qs, page=page, kv=kv,
+                          q_dtype=q_dtype, seed=i),)
+            for i in range(n_copies(nbytes))]
+
+    def library_operands(c):
+        k, v = (paged_gather(c[f"{n}_pages"], c["page_table"])
+                for n in ("k", "v"))
+        if kv == "int8":
+            k = dequantize_gathered(k, paged_gather_scales(c["k_scales"],
+                                                           c["page_table"]))
+            v = dequantize_gathered(v, paged_gather_scales(c["v_scales"],
+                                                           c["page_table"]))
+        q_pos = c["lengths"].long()[:, None] - qs + torch.arange(qs, device=dev)
+        k_pos = torch.arange(k.shape[1], device=dev)
+        mask = k_pos <= q_pos[..., None]                   # (B, qs, T)
+        if window is not None:
+            mask &= k_pos > q_pos[..., None] - window
+        dt = c["q"].dtype
+        return (c["q"].transpose(1, 2), k.transpose(1, 2).to(dt),
+                v.transpose(1, 2).to(dt), mask[:, None])
+
+    row = {"ms": device_ms(lambda c: paged_decode_attention(**c, **opts),
+                           sets, launches),
+           "plain_ms": device_ms(
+               lambda c: paged_decode_attention_ref(**c, **opts), sets,
+               launches),
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    try:
+        row["library_ms"] = device_ms(
+            sdpa_gathered, [library_operands(c) for (c,) in sets], launches)
+    except RuntimeError as e:        # a yardstick only: report, go on
+        print(f"  (library yardstick unavailable: {e})")
     return row
 
 
@@ -508,17 +876,43 @@ def timings(cfg, dev):
             shapes["tiled_matmul"].append(
                 (phase, f"{name} ({m},{k})x({k},{n}) bf16", 1,
                  time_gemm(m, k, n, bf16, dev)))
+    # K4: one launch per layer; the serve's prefill (one 64-row q block)
+    # and first decode step, in bf16 and int8 pools; then long contexts
+    # whose bound is more than launch latency (bf16 pools, page 64)
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    t = -(-(max(BATCH_LENS) + DECODE_STEPS) // PAGE) * PAGE
+    first_step = [n + 1 for n in BATCH_LENS]
+    rows = []
+    for pool in ("bf16", "int8"):
+        sfx = "" if pool == "bf16" else "-int8"
+        rows.append((f"prefill{sfx}",
+                     f"{len(BATCH_LENS)}x64 {pool} page {PAGE}", 1,
+                     time_paged(len(BATCH_LENS), t, h, kh, hd,
+                                [max(BATCH_LENS)] * len(BATCH_LENS), dev,
+                                qs=max(BATCH_LENS), kv=pool,
+                                q_dtype=torch.bfloat16, q_chunk=128)))
+        rows.append((f"decode{sfx}", f"lens {first_step} {pool}", 1,
+                     time_paged(len(BATCH_LENS), t, h, kh, hd, first_step,
+                                dev, kv=pool, q_dtype=torch.bfloat16)))
+    for label, hh, kk, dd in (("long", 12, 12, 64), ("long-gqa", 16, 2, 128)):
+        rows.append((label, f"8x4096 H{hh} KH{kk} D{dd} bf16 page 64", 1,
+                     time_paged(8, 4096, hh, kk, dd, [4096] * 8, dev,
+                                page=64, kv="bf16", launches=50)))
+    shapes["paged_decode"] = rows
+
     print("timings (device ms per launch; bound = max(bytes / 3.35 TB/s, "
           "ops / peak)):")
-    print(f"  {'kernel':13s} {'phase':8s} {'shape':34s} {'x':>2s} "
+    print(f"  {'kernel':13s} {'phase':13s} {'shape':38s} {'x':>2s} "
           f"{'ms':>9s} {'plain_ms':>9s} {'lib_ms':>9s} {'bound_ms':>9s} by")
     for kname, rows in shapes.items():
         for phase, desc, times, r in rows:
             lib = ("-" if r["library_ms"] is None
                    else f"{r['library_ms']:.5f}")
-            print(f"  {kname:13s} {phase:8s} {desc:34s} {times:2d} "
+            note = f" (library {r['library_note']})" if "library_note" in r \
+                else ""
+            print(f"  {kname:13s} {phase:13s} {desc:38s} {times:2d} "
                   f"{r['ms']:9.5f} {r['plain_ms']:9.5f} {lib:>9s} "
-                  f"{r['bound_ms']:9.5f} {r['bound_by']}")
+                  f"{r['bound_ms']:9.5f} {r['bound_by']}{note}")
     return shapes
 
 
@@ -533,6 +927,9 @@ def per_layer(rows, phase):
                          else sum(t * r["library_ms"] for t, r in sel))
     out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
                                      for _, r in sel) else "operations"
+    notes = {r["library_note"] for _, r in sel if "library_note" in r}
+    if notes:
+        out["library_note"] = ", ".join(sorted(notes))
     return out
 
 
@@ -543,7 +940,11 @@ KERNELS = {
                   "src/repro/kernels/fused_qkv/kernel.py:60"),
     "tiled_matmul": ("src/repro_torch/csrc/int8_gemm.cu",
                      "src/repro/kernels/tiled_matmul/kernel.py:67"),
+    "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
+                     "src/repro/kernels/flash_attention/decode.py:178"),
 }
+# what each kernel's row times: one layer's launches at prefill
+WORK = {"paged_decode": "one prefill layer: 4 x 64 rows over bf16 pages"}
 
 
 def main():
@@ -559,8 +960,9 @@ def main():
     smi = device_info()
     build_kernels()
 
-    print("kernels vs plain versions (bitwise):")
+    print("kernels vs plain versions (K1-K3 bitwise, K4 within limits):")
     errs = check_kernels(dev)
+    errs["paged_decode"], paged_rel_bf16 = check_paged(dev)
 
     cfg = get_config("distilbert_paper")
     print(f"main path: {cfg.name} {cfg.quant_proj} {cfg.dtype}, "
@@ -571,8 +973,12 @@ def main():
     model_cpu = quantize_model_params(master)
     model = copy.deepcopy(model_cpu).to(dev)
     with torch.inference_mode():
-        counts, t_prefill, tps = main_path(model, cfg, dev)
+        counts, t_prefill, tps, toks, cache = main_path(model, cfg, dev)
+        paged_counts, paged_prefill, paged_tps = paged_paths(
+            model, cfg, dev, toks, cache)
+        del cache
         card_vs_cpu(model_cpu, master, cfg, dev)
+    counts["paged_decode"] = paged_counts["paged_decode"]
     shapes = timings(cfg, dev)
 
     kernels = []
@@ -585,11 +991,16 @@ def main():
             "max_abs_err": errs[name], "ms": pre["ms"],
             "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
             "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
-            "work": "one prefill layer, M=256 (sum over its launches)",
+            "work": WORK.get(name, "one prefill layer, M=256 (sum over "
+                             "its launches)"),
             "decode": {k: dec[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "library_ms")},
+                                           "library_ms", "library_note")
+                       if k in dec},
         })
-    print(f"serve: prefill_ms={t_prefill * 1e3:.3f} decode_tok_s={tps:.1f}")
+    kernels[-1]["max_rel_err_bf16"] = paged_rel_bf16
+    print(f"serve: dense prefill_ms={t_prefill * 1e3:.3f} "
+          f"decode_tok_s={tps:.1f}; paged prefill_ms="
+          f"{paged_prefill * 1e3:.3f} decode_tok_s={paged_tps:.1f}")
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,8 @@ Values and scales match the JAX package's ``quantize`` bit for bit:
 absmax in f32, scale 1.0 where absmax <= 1e-12, IEEE division, round half
 to even (``torch.round``), clip to ±qmax.
 
-``Calibrator``, ``fake_quantize`` and ``quantize_kv`` are not ported yet.
+``quantize_kv`` gives the int8 rows and scales of the paged KV cache.
+``Calibrator`` and ``fake_quantize`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["QTensor", "quantize", "dequantize", "qmax_for_bits"]
+__all__ = ["QTensor", "quantize", "dequantize", "qmax_for_bits",
+           "quantize_kv"]
 
 
 def qmax_for_bits(bits: int) -> int:
@@ -87,3 +89,13 @@ def quantize(x: torch.Tensor, *, channel_axes: Sequence[int] = (),
 
 def dequantize(q: QTensor, dtype=torch.float32) -> torch.Tensor:
     return (q.values.float() * q.scale).to(dtype)
+
+
+def quantize_kv(x: torch.Tensor, *, bits: int = 8):
+    """Quantize K/V rows for the int8 page pools: one absmax scale per
+    vector on the trailing (head_dim) axis, i.e. per (token, kv-head).
+    Returns ``(values int8, scales f32)`` with ``scales.shape ==
+    x.shape[:-1]``, so ``values.float() * scales[..., None]``
+    dequantizes."""
+    q = quantize(x, channel_axes=tuple(range(x.ndim - 1)), bits=bits)
+    return q.values, q.scale[..., 0]

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quant_act", "int8_gemm")
+SOURCES = ("quant_act", "int8_gemm", "paged_decode")
 
 # no --use_fast_math: the kernels rely on IEEE division and rint rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the launchers: pointers and the stream as c_void_p
 SIGNATURES = {
     "quant_act": {
@@ -40,6 +41,9 @@ SIGNATURES = {
     "int8_gemm": {
         "launch_tiled_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "launch_fused_qkv": [_P] * 11 + [_I] * 6 + [_P],
+    },
+    "paged_decode": {
+        "launch_paged_decode": [_P] * 8 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P],
     },
 }
 

@@ -1,0 +1,103 @@
+"""Wrapper for paged flash attention: CUDA kernel K4 on the card, the plain
+version on the CPU."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ref as _ref
+
+__all__ = ["paged_decode_attention"]
+
+_Q_DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 128
+
+
+def _check(t: torch.Tensor, dtype, shape, dev, what: str) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"paged_decode_attention: {what} must be {dtype}, "
+                        f"got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"paged_decode_attention: {what} has shape "
+                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != dev:
+        raise ValueError(f"paged_decode_attention: {what} on {t.device}, "
+                         f"q on {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"paged_decode_attention: {what} must be contiguous")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           scale: float | None = None,
+                           window: int | None = None,
+                           softcap: float | None = None,
+                           q_chunk: int | None = None,
+                           k_scales: torch.Tensor | None = None,
+                           v_scales: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Causal attention over a paged KV cache.
+
+    q (B, q_len, H, D): the step's new queries (1 row for plain decode, a
+    prompt chunk for cache-writing prefill).  k_pages / v_pages
+    (P, page, KH, D): one layer's pools, of q's dtype, or int8 with
+    ``k_scales`` / ``v_scales`` (P, page, KH) f32.  page_table
+    (B, max_pages) int32; lengths (B,) int32 counts each context with the
+    new rows, whose K/V are already in the pools.  Returns
+    (B, q_len, H, D) in q's dtype.  ``q_chunk`` bounds the rows of one
+    kernel q block (default: all of q_len); it changes the blocking, not
+    the result.
+    """
+    b, qs, h, d = q.shape
+    p_total, page, kh, dk = k_pages.shape
+    if dk != d or h % kh:
+        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} does "
+                         f"not fit pools {tuple(k_pages.shape)}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("paged_decode_attention: need both scale pools "
+                         "or neither")
+    dev = q.device
+    if dev.type == "cpu":
+        return _ref.paged_decode_attention_ref(
+            q, k_pages, v_pages, page_table, lengths, scale=scale,
+            window=window, softcap=softcap, k_scales=k_scales,
+            v_scales=v_scales)
+    if dev.type != "cuda":
+        raise ValueError(f"paged_decode_attention: unsupported device {dev}")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"paged_decode_attention kernel takes f32 or bf16 "
+                        f"q, got {q.dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"paged_decode_attention kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    quant = k_scales is not None
+    pool_dtype = torch.int8 if quant else q.dtype
+    _check(q, q.dtype, (b, qs, h, d), dev, "q")
+    _check(k_pages, pool_dtype, (p_total, page, kh, d), dev, "k_pages")
+    _check(v_pages, pool_dtype, (p_total, page, kh, d), dev, "v_pages")
+    _check(page_table, torch.int32, (b, page_table.shape[1]), dev,
+           "page_table")
+    _check(lengths, torch.int32, (b,), dev, "lengths")
+    if quant:
+        _check(k_scales, torch.float32, (p_total, page, kh), dev, "k_scales")
+        _check(v_scales, torch.float32, (p_total, page, kh), dev, "v_scales")
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty((b, qs, h, d), dtype=q.dtype, device=dev)
+    fn = _build.library("paged_decode").launch_paged_decode
+    _build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    k_scales.data_ptr() if quant else None,
+                    v_scales.data_ptr() if quant else None,
+                    page_table.data_ptr(), lengths.data_ptr(),
+                    out.data_ptr(), b, qs, h, kh, d, page,
+                    page_table.shape[1], min(q_chunk or qs, qs),
+                    window if window is not None else 0, scale,
+                    softcap if softcap is not None else 0.0,
+                    int(q.dtype == torch.bfloat16), int(quant),
+                    dev.index, torch.cuda.current_stream(dev).cuda_stream),
+                 "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -1,0 +1,88 @@
+"""Plain PyTorch version of the paged flash-decode kernel (K4).
+
+``paged_decode_attention_ref`` gathers the page pool back into a dense
+cache and applies the decode masks in one f32 softmax: the CPU runs it,
+and ``chip_smoke.py`` holds the kernel against it on the card.  GQA-native:
+the ``H // KH`` query heads of a KV head share it by reshape, not repeat.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -2.3819763e38
+
+
+def paged_gather(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """pages (P, page, KH, D); page_table (B, max_pages) int32 →
+    (B, max_pages·page, KH, D), each sequence in logical token order."""
+    b, max_pages = page_table.shape
+    _, page, kh, d = pages.shape
+    return pages[page_table.long()].reshape(b, max_pages * page, kh, d)
+
+
+def paged_gather_scales(scales: torch.Tensor,
+                        page_table: torch.Tensor) -> torch.Tensor:
+    """scales (P, page, KH) f32; page_table (B, max_pages) int32 →
+    (B, max_pages·page, KH), token order matching ``paged_gather``."""
+    b, max_pages = page_table.shape
+    _, page, kh = scales.shape
+    return scales[page_table.long()].reshape(b, max_pages * page, kh)
+
+
+def dequantize_gathered(values: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """(B, T, KH, D) int8 values × (B, T, KH) scales → f32: the dequant
+    the kernel does on load (``values.f32 * scale``)."""
+    return values.float() * scales[..., None]
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, page_table: torch.Tensor,
+                               lengths: torch.Tensor, *,
+                               scale: float | None = None,
+                               window: int | None = None,
+                               softcap: float | None = None,
+                               q_chunk: int | None = None,
+                               k_scales: torch.Tensor | None = None,
+                               v_scales: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """Dense oracle over a paged cache, with the wrapper's interface.
+
+    q (B, q_len, H, D); pools (P, page, KH, D); lengths (B,) int32 is the
+    context *including* the q_len new rows → (B, q_len, H, D) in q's
+    dtype.  Row r of sequence b sits at position ``lengths[b] - q_len +
+    r``; causality, the window and the uncommitted tail are masked against
+    it, and a fully masked row gives 0.  ``k_scales``/``v_scales``
+    (P, page, KH) f32 select int8 pools, dequantized row by row.
+    ``q_chunk`` is the kernel's blocking and changes nothing here.
+    """
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    b, qs, h, d = q.shape
+    kh = k_pages.shape[2]
+    g = h // kh
+    k = paged_gather(k_pages, page_table)           # (B, T, KH, D)
+    v = paged_gather(v_pages, page_table)
+    if k_scales is not None:
+        k = dequantize_gathered(k, paged_gather_scales(k_scales, page_table))
+    if v_scales is not None:
+        v = dequantize_gathered(v, paged_gather_scales(v_scales, page_table))
+    t_len = k.shape[1]
+    qg = q.transpose(1, 2).reshape(b, kh, g, qs, d)
+    s = torch.einsum("bkgsd,btkd->bkgst", qg.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = (lengths.long()[:, None] - qs
+             + torch.arange(qs, device=q.device)[None, :])     # (B, qs)
+    k_pos = torch.arange(t_len, device=q.device)
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]            # (B, qs, T)
+    if window is not None:
+        mask &= k_pos[None, None, :] > q_pos[:, :, None] - window
+    mask = mask[:, None, None]                                  # (B,1,1,qs,T)
+    s = torch.where(mask, s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-37)
+    # probabilities normalised, rounded to v's dtype, products summed in f32
+    o = torch.einsum("bkgst,btkd->bkgsd", (p / l).to(v.dtype).float(),
+                     v.float())
+    return o.to(v.dtype).reshape(b, h, qs, d).transpose(1, 2).to(q.dtype)

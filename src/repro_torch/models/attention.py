@@ -1,15 +1,15 @@
 """Attention: MHA/GQA/MQA with RoPE variants, sliding window, softcap,
-QK-norm and a dense KV cache.
+QK-norm, and a dense or paged KV cache.
 
 The Q/K/V projections — the paper's target bottleneck — route through
 ``core.qkv_fusion.apply_fused_qkv`` (the persistent-A / update_A mechanism)
 or ``core.quantized_linear.apply_linear`` under the config's ``quant_proj``
-mode.  Scores are computed in f32 over the whole (S, T) block
-(``_attend_dense``).  Not ported yet: the paged cache layout (ROADMAP
-queue 1, item 7: kernel K4; refused by ``init_cache`` and ``apply_model``),
-cross-attention (item 12), and the long-prompt blockwise / flash path
-(item 8: kernel K5), for which ``apply_attention`` raises
-``NotImplementedError``.
+mode.  On the dense cache (and without a cache) scores are computed in f32
+over the whole (S, T) block (``_attend_dense``); on the paged cache every
+step goes through the paged flash-decode kernel K4 (``_attend_paged``).
+Not ported yet: cross-attention (ROADMAP queue 1, item 12) and the
+long-prompt blockwise / flash path (item 8: kernel K5), for which
+``apply_attention`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,12 +17,20 @@ import torch
 from torch import nn
 
 from repro_torch.core.qkv_fusion import apply_fused_qkv
+from repro_torch.core.quantization import quantize_kv
 from repro_torch.core.quantized_linear import Linear, apply_linear, init_linear
+from repro_torch.kernels.flash_attention.ops import paged_decode_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Norm, apply_norm, apply_rope,
                                        init_norm, softcap)
 
 NEG_INF = -2.3819763e38  # finite min-bf16-safe mask value
+
+# paged steps of up to this many new tokens run K4 as one q block; longer
+# cache-writing steps (prefill) run it in PAGED_PREFILL_CHUNK_Q-row blocks,
+# each walking only the pages its own causal horizon exposes
+PAGED_FLASH_MAX_Q = 8
+PAGED_PREFILL_CHUNK_Q = 128
 
 
 class Attention(nn.Module):
@@ -81,20 +89,66 @@ def _attend_dense(q, k, v, q_pos, k_pos, *, scale, cap, window, is_local):
     return o.to(v.dtype)
 
 
+def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
+                  cache_pos, page_table, is_local: bool, scale, b, s):
+    """Paged-cache step: scatter the new K/V into their pages, attend
+    through K4, project.
+
+    q (B,S,H,hd), k/v (B,S,K,hd), already rope'd.  ``cache`` is one
+    layer's (k_pages, v_pages), each (P, page, K, hd), or (k_pages,
+    v_pages, k_scales, v_scales) for int8 pools with (P, page, K) f32
+    scales; the new rows are written in place (int8 pools get their
+    ``quantize_kv`` values and scales through the same indices).
+    ``cache_pos`` (B,) are the per-sequence lengths before the write.
+    """
+    quant = len(cache) == 4
+    ck, cv = cache[0], cache[1]
+    page = ck.shape[1]
+    tok_pos = cache_pos[:, None] + torch.arange(s, device=q.device)  # (B, S)
+    pidx = torch.gather(page_table, 1, tok_pos // page).long()
+    slot = tok_pos % page
+    cks = cvs = None
+    if quant:
+        cks, cvs = cache[2], cache[3]
+        kq, k_sc = quantize_kv(k)             # (B,S,K,hd) int8, (B,S,K) f32
+        vq, v_sc = quantize_kv(v)
+        ck[pidx, slot] = kq
+        cv[pidx, slot] = vq
+        cks[pidx, slot] = k_sc
+        cvs[pidx, slot] = v_sc
+    else:
+        ck[pidx, slot] = k.to(ck.dtype)
+        cv[pidx, slot] = v.to(cv.dtype)
+    lengths = (cache_pos + s).to(torch.int32)
+    q_chunk = None if s <= PAGED_FLASH_MAX_Q else PAGED_PREFILL_CHUNK_Q
+    window = cfg.sliding_window if is_local else None
+    # q is a view of the projection when Q/K/V come from one matmul
+    o = paged_decode_attention(q.contiguous(), ck, cv, page_table, lengths,
+                               scale=scale,
+                               window=window, softcap=cfg.attn_logit_softcap,
+                               q_chunk=q_chunk, k_scales=cks, v_scales=cvs)
+    o = o.reshape(b, s, cfg.q_dim)
+    y = apply_linear(params.wo, o, mode=cfg.quant_proj)
+    return y, tuple(cache)
+
+
 def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor,
                     is_local: bool = False,
                     cache: tuple | None = None,
-                    cache_pos: torch.Tensor | None = None):
+                    cache_pos: torch.Tensor | None = None,
+                    page_table: torch.Tensor | None = None):
     """Causal self-attention over x (B, S, D), without a cache or with a
-    dense one (the bidirectional encoder path comes with item 12).
+    dense or paged one (the bidirectional encoder path comes with item 12).
 
     With ``cache`` = (k, v), each (B, S_max, K, hd), the new keys and values
     are written **in place** into the cache tensors at ``cache_pos``, a (B,)
     int vector of per-sequence write positions (mixed-length batches), and
     attention runs over the whole cache with per-sequence causal masking.
+    With ``page_table`` the cache is one layer's page pools
+    (``_attend_paged``).
 
-    Returns (y, (k_cache, v_cache) or None).
+    Returns (y, the layer's cache tuple or None).
     """
     b, s, _ = x.shape
     kh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
@@ -125,6 +179,11 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
+
+    if cache is not None and page_table is not None:
+        return _attend_paged(params, q, k, v, cfg, cache=cache,
+                             cache_pos=cache_pos, page_table=page_table,
+                             is_local=is_local, scale=scale, b=b, s=s)
 
     new_cache = None
     if cache is not None:

@@ -9,6 +9,11 @@ raise ``NotImplementedError``.
 Cache convention (decode) — see serving/cache.py:
   dense:  {"k","v"}: (L, B, S_max, KVH, hd); layer i attends through the
           views cache["k"][i], cache["v"][i], written in place.
+  paged:  {"k_pages","v_pages"}: (L, P, page, KVH, hd) page pools,
+          {"k_scales","v_scales"}: (L, P, page, KVH) f32 (kv_quant="int8"),
+          {"page_table"}: (B, max_pages) int32, {"seq_lens"}: (B,) int32;
+          layer i attends through the views of its pools, written in
+          place, and ``apply_model`` sets seq_lens to cache_pos + S.
 """
 from __future__ import annotations
 
@@ -91,11 +96,12 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
 
 
 def _decoder_block(p: DecoderBlock, x, cfg: ModelConfig, *, positions,
-                   is_local, cache_kv, cache_pos):
+                   is_local, cache_kv, cache_pos, page_table=None):
     h = apply_norm(p.norm_attn, x, cfg)
     a_out, new_kv = apply_attention(p.attn, h, cfg, positions=positions,
                                     is_local=is_local, cache=cache_kv,
-                                    cache_pos=cache_pos)
+                                    cache_pos=cache_pos,
+                                    page_table=page_table)
     if p.norm_attn_post is not None:
         a_out = apply_norm(p.norm_attn_post, a_out, cfg)
     x = x + cfg.residual_multiplier * a_out.to(x.dtype)
@@ -121,10 +127,11 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Returns (logits f32 (B, S, V), cache, aux).
 
     tokens: (B, S) int decoder tokens.  ``cache``/``cache_pos``: the dense
-    decode cache (updated in place, and returned) and the write position —
-    a scalar (batch-synchronous, made a (B,) vector here) or a (B,) int
-    vector of per-sequence positions.  DistilBERT runs causally here, as in
-    the JAX package.
+    or paged decode cache (updated in place, and returned) and the write
+    position — a scalar (batch-synchronous, made a (B,) vector here) or a
+    (B,) int vector of per-sequence positions.  A paged cache comes back
+    with ``seq_lens = cache_pos + S``.  DistilBERT runs causally here, as
+    in the JAX package.
     """
     check_supported(cfg)
     x = embed_tokens(model.embed, tokens, cfg)
@@ -141,11 +148,19 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
         pe = sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
         x = x + (pe[None] if positions.dim() == 1 else pe)
 
+    paged = cache is not None and "k_pages" in cache
+    # each layer's slice of the cache: dense k/v, or the paged pools (and
+    # the int8 layout's scale pools, which travel with their pages)
+    kv_keys = [key for key in ("k", "v", "k_pages", "v_pages", "k_scales",
+                               "v_scales") if cache is not None and key in cache]
+    page_table = cache["page_table"] if paged else None
     for i, (layer, flag) in enumerate(zip(model.layers, _local_flags(cfg))):
-        cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
+        cache_kv = tuple(cache[key][i] for key in kv_keys) or None
         x, _ = _decoder_block(layer, x, cfg, positions=positions,
                               is_local=flag, cache_kv=cache_kv,
-                              cache_pos=cache_pos)
+                              cache_pos=cache_pos, page_table=page_table)
+    if paged:
+        cache["seq_lens"] = (cache_pos + s).to(torch.int32)
 
     x = apply_norm(model.final_norm, x, cfg)
     logits = unembed(model.embed, x, cfg, model.lm_head)

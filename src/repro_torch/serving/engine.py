@@ -1,19 +1,21 @@
 """Serving engine: prefill → decode handoff and the batched decode loop.
 
   * ``prefill`` runs the whole (right-padded) prompt batch through the
-    cache-writing path in one pass, committing prompt KV into the dense
-    cache and returning each sequence's next-token logits at its *own* last
-    prompt position; a batch may mix prompt lengths.
+    cache-writing path — one pass, or fixed-size chunks (``chunk=``) —
+    committing prompt KV into the cache (dense rows or paged pools) and
+    returning each sequence's next-token logits at its *own* last prompt
+    position; a batch may mix prompt lengths.
   * ``serve_step`` is one decode step: B new tokens against per-sequence
     contexts.
   * ``greedy_decode`` is the batched serving loop, a Python loop over
     ``serve_step`` that updates the cache in place (the JAX package runs a
     jitted scan with the cache donated).
 
-Per-sequence positions (``pos`` as a (B,) int vector) make mixed-length
-batches exact: prefill padding beyond a short prompt is masked until the
-decode loop overwrites it, one slot per step.  Chunked prefill
-(``chunk=``), prefill onto a committed prefix (``start_pos=``),
+Per-sequence positions (``pos`` as a (B,) int vector, or the paged
+cache's own ``seq_lens``) make mixed-length batches exact: prefill padding
+beyond a short prompt is written but not committed, masked until the
+decode loop overwrites it, one slot per step.  Prefill onto a committed
+prefix (``start_pos=``, with the allocator: ROADMAP queue 1, item 9),
 cross-attention ``memory=`` and ``spec_step`` are not ported yet.
 """
 from __future__ import annotations
@@ -22,49 +24,108 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model, apply_model
+from repro_torch.serving.cache import PAGE_STATE_KEYS
 
 
 def validate_decode_cache(cache: dict, cfg: ModelConfig) -> None:
-    """Fail loudly on a dense cache built for another model config."""
+    """Fail loudly on a cache built for another model config, or on a
+    layout the decode path cannot execute (int8 pages without their scale
+    pools would be read as raw integers)."""
+    paged = "k_pages" in cache
     want = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
-    for name in ("k", "v"):
+    for name in PAGE_STATE_KEYS if paged else ("k", "v"):
+        if name not in cache:
+            continue
+        # (L, B|P, S|page, KVH, hd); scale pools lack the trailing hd
         shape = tuple(cache[name].shape)
-        if (shape[0],) + shape[3:] != want:
+        if (shape[0],) + shape[3:] != want[:len(shape) - 2]:
             raise ValueError(
                 f"cache[{name!r}] has shape {shape}, but {cfg.name} needs "
                 f"(L, KVH, hd) = {want} — was it built with a different "
                 "model config?")
+    if paged:
+        kd, vd = cache["k_pages"].dtype, cache["v_pages"].dtype
+        has_scales = "k_scales" in cache or "v_scales" in cache
+        combo = (f"layout='paged', kv dtype {kd}, kv_quant="
+                 f"{'int8' if has_scales else 'none'}")
+        if not kd.is_floating_point and not has_scales:
+            raise NotImplementedError(
+                f"unsupported decode cache combo ({combo}): integer KV "
+                "pages need their k_scales/v_scales pools — build the "
+                "cache with CacheConfig(kv_quant='int8')")
+        if has_scales:
+            if "k_scales" not in cache or "v_scales" not in cache:
+                raise NotImplementedError(
+                    f"unsupported decode cache combo ({combo}): the "
+                    "quantized page layout needs BOTH k_scales and "
+                    "v_scales")
+            if kd != torch.int8 or vd != torch.int8:
+                raise NotImplementedError(
+                    f"unsupported decode cache combo ({combo}): scale "
+                    "pools are present but the pages are not int8")
+    elif not cache["k"].dtype.is_floating_point:
+        raise NotImplementedError(
+            f"unsupported decode cache combo (layout='dense', kv dtype "
+            f"{cache['k'].dtype}): quantized KV is only implemented for "
+            "the paged layout (CacheConfig(layout='paged', "
+            "kv_quant='int8'))")
 
 
 def cache_capacity(cache: dict) -> int:
-    """Token capacity of a dense decode cache."""
+    """Token capacity of a decode cache."""
+    if "k_pages" in cache:
+        return cache["page_table"].shape[1] * cache["k_pages"].shape[2]
     return cache["k"].shape[2]
 
 
 def prefill(model: Model, cache: dict, prompts: torch.Tensor,
-            prompt_lens: torch.Tensor, cfg: ModelConfig):
+            prompt_lens: torch.Tensor, cfg: ModelConfig, *,
+            chunk: int | None = None):
     """Prefill → decode handoff: commit prompt KV, return first logits.
 
     prompts (B, S_pad) int, right-padded to the longest prompt; prompt_lens
     (B,) true lengths (may differ per sequence).  The whole padded batch
     runs through the cache-writing path at positions ``0..S_pad-1``; slots
-    past ``prompt_lens[b]`` hold padding garbage that decode masks per
-    sequence until it overwrites them.
+    past ``prompt_lens[b]`` hold padding that decode masks per sequence
+    until it overwrites them.  ``chunk`` commits the prompt in chunks of
+    that many positions, each attending over what earlier chunks wrote.
 
     Returns (next_logits (B, V) f32 at each sequence's last real prompt
-    token, the cache — updated in place).
+    token, the cache — updated in place, a paged one with ``seq_lens =
+    prompt_lens``).
     """
     b, s_pad = prompts.shape
     validate_decode_cache(cache, cfg)
     capacity = cache_capacity(cache)
     if s_pad > capacity:
+        # past capacity the page-table lookup would fault on the card
         raise ValueError(f"prompt width {s_pad} exceeds cache capacity "
                          f"{capacity} tokens")
     dev = prompts.device
     prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.long, device=dev)
-    logits, cache, _ = apply_model(model, prompts, cfg, cache=cache,
-                                   cache_pos=0)
-    next_logits = logits[torch.arange(b, device=dev), prompt_lens - 1]
+    rows = torch.arange(b, device=dev)
+    if chunk is None or s_pad <= chunk:
+        logits, cache, _ = apply_model(model, prompts, cfg, cache=cache,
+                                       cache_pos=0)
+        next_logits = logits[rows, prompt_lens - 1]
+    else:
+        next_logits = None
+        for c0 in range(0, s_pad, chunk):
+            cs = min(chunk, s_pad - c0)
+            logits, cache, _ = apply_model(model, prompts[:, c0:c0 + cs],
+                                           cfg, cache=cache, cache_pos=c0)
+            if next_logits is None:
+                next_logits = torch.zeros((b, logits.shape[-1]),
+                                          dtype=logits.dtype, device=dev)
+            # each sequence's last prompt token lies in exactly one chunk
+            rel = prompt_lens - 1 - c0
+            inside = (rel >= 0) & (rel < cs)
+            got = logits[rows, rel.clamp(0, cs - 1)]
+            next_logits = torch.where(inside[:, None], got, next_logits)
+    if "seq_lens" in cache:
+        # padded tails were written but are not committed: decode
+        # overwrites them slot by slot
+        cache["seq_lens"] = prompt_lens.to(torch.int32)
     return next_logits, cache
 
 
@@ -72,14 +133,26 @@ def serve_step(model: Model, cache: dict, tokens: torch.Tensor,
                pos, cfg: ModelConfig):
     """One decode step.
 
-    tokens (B, 1) int; pos is a scalar (batch-synchronous) or a (B,) int
-    vector of per-sequence lengths (mixed-length batches).
+    tokens (B, 1) int; pos is a scalar (batch-synchronous), a (B,) int
+    vector of per-sequence lengths (mixed-length batches), or None to read
+    the paged cache's own ``seq_lens``.  Every position must lie below
+    ``cache_capacity(cache)``: a scalar is checked here, but a device
+    vector is not (that would read it on the host every step), and past
+    capacity its write faults on the card.  ``greedy_decode`` checks its
+    whole run once.
 
     Returns (logits (B, 1, V) f32, cache — updated in place).
     """
     validate_decode_cache(cache, cfg)
+    if isinstance(pos, int) and pos + tokens.shape[1] > cache_capacity(cache):
+        raise ValueError(f"decode position {pos} exceeds cache capacity "
+                         f"{cache_capacity(cache)} tokens")
     if pos is None:
-        raise ValueError("the dense cache needs an explicit pos")
+        if "seq_lens" not in cache:
+            raise ValueError("pos=None needs a cache carrying seq_lens (the "
+                             "paged layout); a dense cache needs an "
+                             "explicit pos")
+        pos = cache["seq_lens"]
     logits, cache, _ = apply_model(model, tokens, cfg, cache=cache,
                                    cache_pos=pos)
     return logits, cache
@@ -89,15 +162,27 @@ def greedy_decode(model: Model, cache: dict, first_token: torch.Tensor,
                   start_pos, n_steps: int, cfg: ModelConfig):
     """Batched greedy serving loop over ``n_steps`` decode steps.
 
-    first_token (B, 1) int; start_pos is an int (batch-synchronous) or a
-    (B,) int vector of per-sequence lengths.
+    first_token (B, 1) int; start_pos is an int (batch-synchronous), a
+    (B,) int vector of per-sequence lengths, or None to start from the
+    paged cache's ``seq_lens``.
 
     Returns (tokens (B, n_steps + 1) — ``first_token`` followed by the
     greedy continuations — and the cache, updated in place).
     """
     validate_decode_cache(cache, cfg)
     dev = first_token.device
-    pos = torch.as_tensor(start_pos, dtype=torch.long, device=dev)
+    if start_pos is None:
+        if "seq_lens" not in cache:
+            raise ValueError("start_pos=None needs a cache carrying "
+                             "seq_lens (the paged layout)")
+        start_pos = cache["seq_lens"]
+    pos = torch.as_tensor(start_pos, device=dev).long()
+    # one host read per call, not per step: past capacity a write would
+    # fault on the card
+    if n_steps and int(pos.max()) + n_steps > cache_capacity(cache):
+        raise ValueError(f"{n_steps} decode steps from position "
+                         f"{int(pos.max())} exceed cache capacity "
+                         f"{cache_capacity(cache)} tokens")
     tok = first_token
     out = [first_token]
     for _ in range(n_steps):

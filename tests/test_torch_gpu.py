@@ -6,14 +6,17 @@ Without a card every test here skips (the card is checked in a fixture).
 import pytest
 import torch
 
-from repro_torch.core.quantization import quantize
+from repro_torch.core.quantization import quantize, quantize_kv
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention import ref as paged_ref
+from repro_torch.kernels.flash_attention.ops import paged_decode_attention
 from repro_torch.kernels.fused_qkv import ref as fused_ref
 from repro_torch.kernels.fused_qkv.ops import fused_qkv
 from repro_torch.kernels.quant_act import ref as quant_ref
 from repro_torch.kernels.quant_act.ops import quant_act
 from repro_torch.kernels.tiled_matmul import ref as matmul_ref
 from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+from repro_torch.serving.cache import default_page_table
 
 pytestmark = pytest.mark.gpu
 
@@ -84,14 +87,17 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(quant_ref, "quant_act_ref", refuse)
     monkeypatch.setattr(matmul_ref, "tiled_matmul_ref", refuse)
     monkeypatch.setattr(fused_ref, "fused_qkv_ref", refuse)
+    monkeypatch.setattr(paged_ref, "paged_decode_attention_ref", refuse)
     reset_launch_counts()
     a = quant_act(_randn((8, 64), 0, cuda))
     _, ws = _operands(8, 64, [64, 32, 32], cuda)
     tiled_matmul(a, ws[0])
     fused_qkv(a, *ws)
+    c = _paged_case(2, 32, 4, 2, 64, 8, [20, 9], cuda)
+    paged_decode_attention(c["q"], c["k"], c["v"], c["table"], c["lens"])
     torch.cuda.synchronize()
     assert launch_counts() == {"quant_act": 1, "fused_qkv": 1,
-                               "tiled_matmul": 1}
+                               "tiled_matmul": 1, "paged_decode": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -102,3 +108,90 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     a, (b,) = _operands(4, 32, [16], cuda)
     with pytest.raises(TypeError):
         tiled_matmul(a, b, out_dtype=torch.float16)
+    c = _paged_case(2, 32, 4, 2, 64, 8, [20, 9], cuda)
+    args = [c["q"], c["k"], c["v"], c["table"], c["lens"]]
+    for i, bad, err in ((0, c["q"].half(), TypeError),             # dtype
+                        (1, c["k"].transpose(1, 2).contiguous()
+                         .transpose(1, 2), ValueError),           # layout
+                        (3, c["table"].cpu(), ValueError)):         # device
+        with pytest.raises(err):
+            paged_decode_attention(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(TypeError):                 # int8 pools need scales
+        paged_decode_attention(c["q"], c["k"].to(torch.int8),
+                               c["v"].to(torch.int8), c["table"], c["lens"])
+
+
+def _paged_case(b, t, h, kh, d, page, lens, dev, *, qs=1, alloc="striped",
+                dtype=torch.float32, seed=0):
+    """A random K/V history of t tokens scattered into page pools through
+    a ``default_page_table``, and q rows at the end of each context."""
+    table = default_page_table(b, t // page, alloc)
+    hist_k = _randn((b, t, kh, d), seed, "cpu")
+    hist_v = _randn((b, t, kh, d), seed + 1, "cpu")
+
+    def pool(hist):
+        out = torch.empty((b * (t // page), page, kh, d))
+        out[table.flatten().long()] = hist.reshape(-1, page, kh, d)
+        return out.to(dtype).to(dev)
+
+    return {"q": _randn((b, qs, h, d), seed + 2, dev).to(dtype),
+            "k": pool(hist_k), "v": pool(hist_v), "table": table.to(dev),
+            "lens": torch.tensor(lens, dtype=torch.int32, device=dev)}
+
+
+# b, t, h, kh, d, page, lens, options: distilbert decode and prefill,
+# a chunked prefill in q blocks, GQA at head_dim 128, window + softcap
+PAGED_CASES = {
+    "decode": (4, 80, 12, 12, 64, 16, [65, 49, 34, 18], {}),
+    "prefill": (4, 64, 12, 12, 64, 16, [64] * 4, dict(qs=64)),
+    "chunked": (2, 208, 12, 12, 64, 16, [200, 200],
+                dict(qs=200, q_chunk=128)),
+    "gqa": (2, 256, 16, 2, 128, 64, [256, 77], {}),
+    "window_softcap": (2, 128, 4, 1, 64, 16, [100, 23],
+                       dict(window=20, softcap=50.0)),
+}
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_decode_kernel_matches_plain(cuda, case, mode):
+    b, t, h, kh, d, page, lens, opts = PAGED_CASES[case]
+    opts = dict(opts)
+    qs = opts.pop("qs", 1)
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    c = _paged_case(b, t, h, kh, d, page, lens, cuda, qs=qs, dtype=dtype)
+    if mode == "int8":
+        (c["k"], opts["k_scales"]), (c["v"], opts["v_scales"]) = (
+            quantize_kv(c["k"]), quantize_kv(c["v"]))
+    out = paged_decode_attention(c["q"], c["k"], c["v"], c["table"],
+                                 c["lens"], **opts)
+    torch.cuda.synchronize()
+    want = paged_ref.paged_decode_attention_ref(c["q"], c["k"], c["v"],
+                                                c["table"], c["lens"], **opts)
+    assert out.shape == want.shape and out.dtype == want.dtype
+    if mode == "bf16":
+        # the kernel rounds the unnormalised p to bf16, the plain version p/l
+        err = ((out.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        assert err <= 1e-2, err
+    else:
+        torch.testing.assert_close(out, want, atol=5e-6, rtol=1e-5)
+
+
+def test_paged_decode_kernel_bitwise_invariants(cuda):
+    b, t, h, kh, d, page, lens = 4, 80, 12, 12, 64, 16, [65, 49, 34, 18]
+    outs = [paged_decode_attention(c["q"], c["k"], c["v"], c["table"],
+                                   c["lens"])
+            for c in (_paged_case(b, t, h, kh, d, page, lens, cuda,
+                                  alloc=alloc)
+                      for alloc in ("striped", "contiguous"))]
+    assert torch.equal(outs[0], outs[1])
+    c = _paged_case(b, t, h, kh, d, page, lens, cuda, qs=3)
+    (kq, ks), (vq, vs) = quantize_kv(c["k"]), quantize_kv(c["v"])
+    got = paged_decode_attention(c["q"], kq, vq, c["table"], c["lens"],
+                                 k_scales=ks, v_scales=vs, window=20)
+    fp = paged_decode_attention(c["q"], kq.float() * ks[..., None],
+                                vq.float() * vs[..., None], c["table"],
+                                c["lens"], window=20)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fp)
