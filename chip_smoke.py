@@ -9,7 +9,12 @@
 3. Kernels against their plain PyTorch versions on the card at the main
    paths' shapes (and a few more): K1-K3 bitwise; K4 (paged attention)
    within atol 5e-6 / rtol 1e-5 in f32 and int8 pools, rel-err 1e-2 in
-   bf16, bitwise across page tables and against pre-dequantized pools.
+   bf16 (each row against its own largest value), bitwise across page
+   tables and against pre-dequantized pools; K5 (block-sparse flash
+   attention) within the same limits at the served shapes (qwen2.5-3b
+   causal, gemma2-27b local and global) in bf16 and in f32, and at
+   further f32 ones (non-causal windowed, partial tiles, distilbert's
+   width).
 4. The main paths: ``distilbert_paper`` (w8a8, bf16) at full width from a
    seeded generator, 4 requests of 64/48/33/17 prompt tokens through
    ``prefill`` then 32 steps of ``greedy_decode``, each with exact kernel
@@ -20,18 +25,34 @@
    serve's K4 calls is held against the plain version on that call's own
    operands, at phase 3's limits, and layer 0's prompt rows must equal
    the dense serve's bit for bit.
+   The long-prompt path: ``prefill_step`` of qwen2.5-3b (w8a8, bf16) at
+   full width and all 36 layers, weights drawn on the card from a seeded
+   generator, on one prompt of 8192 random tokens, with exact launch
+   counts (every attention layer one launch of K5, the block-sparse flash
+   kernel); each served K5 call is held against the plain version on its
+   own operands at phase 3's limits, the logits must be finite, and the
+   prefill time is printed.  Then gemma2-27b (w8a8, bf16) at full width,
+   2 layers (one local with the 4096 window, one global; softcap 50), the
+   same way.
 5. Card against CPU in f32, same weights, with exact launch counts on the
    card: unquantized (``none``) at full depth within rel-err 1e-5 on the
    dense cache and on the paged cache (one pass and chunked prefill);
    int8 KV pools and w8a8 (first 2 layers) printed; argmax agreement
-   >= 0.99 for all (why: ``card_vs_cpu``).
-6. Timings at the slice's shapes: each kernel, its plain version and a
+   >= 0.99 for all (why: ``card_vs_cpu``).  ``prefill_step`` of
+   qwen2.5-3b and of gemma2-27b at full width, 2 layers, 1024 tokens, in
+   ``none``, with ``blockwise_attn_threshold=1024`` so K5 is on the path
+   (and gemma2's window cut to 256 so it bites): within rel-err 1e-5,
+   argmax agreement >= 0.99.
+6. Timings at the slices' shapes: each kernel, its plain version and a
    library yardstick (``torch._int_mm`` plus the epilogue, A zero-padded
    to M=32 at decode; ``scaled_dot_product_attention`` over the gathered
-   K/V for K4), beside the kernel's bound (for K4, the bytes of the K/V
-   rows the lengths make visible).  Times are device times: CUDA
-   graphs of many launches, timed with CUDA events, over enough input
-   copies that each launch finds its operands outside L2.
+   K/V for K4, and on the same q/k/v for K5 where it computes the same
+   function: not with a softcap), beside the kernel's bound (for K4, the
+   bytes of the K/V rows the lengths make visible; for K5, the flops of
+   the visible (q, k) pairs at the bf16 tensor-core peak).  Times are
+   device times: CUDA graphs of many launches, timed with CUDA events,
+   over enough input copies that each launch finds its operands outside
+   L2 (K5's plain version, which allocates GBs, eagerly between events).
 
 Exits non-zero on any failure.  The last line is a JSON object naming the
 device; the line before it lists each kernel's numbers.
@@ -50,25 +71,32 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-# H100 SXM data-sheet peaks (dense): memory, int8 tensor cores, f32 ALUs
+# H100 SXM data-sheet peaks (dense): memory, int8 and bf16 tensor cores,
+# f32 ALUs
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
 BATCH_LENS = (64, 48, 33, 17)
 DECODE_STEPS = 32
 PAGE = 16
-# K4 against its plain version: the JAX package's own f32 limits, and a
-# rel-err for bf16 pools (the kernel rounds the unnormalised p to bf16, the
-# plain version p / l)
-PAGED_ATOL, PAGED_RTOL = 5e-6, 1e-5
-PAGED_BF16_REL = 1e-2
+# K4 and K5 against their plain versions: the JAX package's own f32
+# limits, and a rel-err for bf16 held in each row (one head of one query)
+# at that row's scale (the kernels round the unnormalised p to bf16, the
+# plain versions p / l)
+ATTN_ATOL, ATTN_RTOL = 5e-6, 1e-5
+ATTN_BF16_REL = 1e-2
 # card vs CPU (phase 5): the unquantized model's limit (as the port's CPU
 # tests hold 'none' against JAX), the w8a8 yardstick's depth, and argmax
 CHECK_LAYERS = 2
 TOL_NONE = 1e-5
 TOL_ARGMAX = 0.99
+# the long-prompt path: one prompt of this many tokens through
+# prefill_step (phase 4), and the card-vs-CPU one (phase 5)
+LONG_PROMPT = 8192
+CHECK_PROMPT = 1024
 
 
 def fail(msg: str):
@@ -225,24 +253,39 @@ PAGED_CHECKS = [
     ("window_softcap", 2, 128, 12, 12, 64, [100, 23],
      dict(window=20, softcap=50.0)),
 ]
-# kv pools, q dtype (the limit follows q's dtype: k4_agrees)
+# kv pools, q dtype (the limit follows q's dtype: attention_agrees)
 PAGED_MODES = [("f32", torch.float32), ("bf16", torch.bfloat16),
                ("int8", torch.float32), ("int8", torch.bfloat16)]
 
 
-def k4_agrees(got, want):
-    """K4's output against its plain version's on the same operands:
-    within atol/rtol for f32 q, within the rel-err limit for bf16 q.
-    Returns (ok, max |err|, rel-err, the limit as text)."""
+def row_rel_err(got, want):
+    """The worst row's rel-err, a row being one head of one query (the
+    last axis): max |got - want| / max |want| within the row.  A long walk
+    averages thousands of values into a row far smaller than the first
+    rows' single ones, so each row is held at its own scale; a row the
+    masks leave empty (want 0) must be 0."""
+    diff = (got.double() - want.double()).abs().amax(-1)
+    size = want.double().abs().amax(-1)
+    ratio = torch.where(size > 0, diff / size.clamp_min(1e-300),
+                        torch.where(diff > 0, float("inf"), 0.0))
+    return ratio.max().item()
+
+
+def attention_agrees(got, want, what="paged_decode"):
+    """An attention kernel's output (K4's or K5's) against its plain
+    version's on the same operands: within atol/rtol for f32 q, within the
+    per-row rel-err limit for bf16 q (the limits of K4 and K5 are the
+    same).  Returns (ok, max |err|, per-row rel-err, the limit as text)."""
     if got.shape != want.shape or got.dtype != want.dtype:
-        fail(f"paged_decode: {tuple(got.shape)} {got.dtype} vs "
+        fail(f"{what}: {tuple(got.shape)} {got.dtype} vs "
              f"{tuple(want.shape)} {want.dtype}")
     diff = (got.double() - want.double()).abs()
-    err, rel = diff.max().item(), rel_err(got, want)
+    err, rel = diff.max().item(), row_rel_err(got, want)
     if got.dtype == torch.float32:
-        ok = bool((diff <= PAGED_ATOL + PAGED_RTOL * want.double().abs()).all())
-        return ok, err, rel, f"atol {PAGED_ATOL}, rtol {PAGED_RTOL}"
-    return rel <= PAGED_BF16_REL, err, rel, f"rel-err limit {PAGED_BF16_REL}"
+        ok = bool((diff <= ATTN_ATOL + ATTN_RTOL * want.double().abs()).all())
+        return ok, err, rel, f"atol {ATTN_ATOL}, rtol {ATTN_RTOL}"
+    return (rel <= ATTN_BF16_REL, err, rel,
+            f"per-row rel-err limit {ATTN_BF16_REL}")
 
 
 def split_opts(opts):
@@ -266,7 +309,7 @@ def check_paged(dev):
             got = paged_decode_attention(**c, **opts)
             want = paged_decode_attention_ref(**c, **opts)
             torch.cuda.synchronize()
-            ok, err, rel, limit = k4_agrees(got, want)
+            ok, err, rel, limit = attention_agrees(got, want)
             what = (f"paged_decode {name} kv={kv} q={str(q_dtype)[6:]} "
                     f"({b}x{qs}x{h}x{d}, KH={kh}, lens={lens}"
                     f"{', ' + str(opts) if opts else ''})")
@@ -275,7 +318,7 @@ def check_paged(dev):
             else:
                 worst_rel = max(worst_rel, rel)
             print(f"  {'ok' if ok else 'FAIL'} {what}: max |err| {err:.3e}, "
-                  f"rel-err {rel:.3e} ({limit})")
+                  f"per-row rel-err {rel:.3e} ({limit})")
             if not ok:
                 fail(f"{what}: kernel differs from its plain version")
 
@@ -300,6 +343,61 @@ def check_paged(dev):
                  "launch on the pools dequantized beforehand")
         print(f"  ok paged_decode {name}: striped == contiguous table, "
               "int8 == f32 on pre-dequantized pools (bitwise)")
+    return worst_abs, worst_rel
+
+
+def flash_inputs(b, s, t, h, kh, d, dev, dtype, seed):
+    """q (B, S, H, D) and k, v (B, T, KH, D), normal, drawn on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+
+
+# name, b, s (= t), h, kh, d, dtype, options: the served shapes (qwen2.5-3b
+# causal, gemma2-27b's local and global layers with their scale and
+# softcap) in bf16 and again in f32, whose limit holds every row of a long
+# walk to 1e-5 of itself; then f32 ones: non-causal windowed, partial
+# tiles at benchmarks/flash_attention.py's smoke shape, distilbert's width
+SERVED_FLASH = [
+    ("qwen2.5-3b causal", 1, LONG_PROMPT, 16, 2, 128, {}),
+    ("gemma2-27b local", 1, LONG_PROMPT, 32, 16, 128,
+     dict(scale=144 ** -0.5, window=4096, softcap=50.0)),
+    ("gemma2-27b global", 1, LONG_PROMPT, 32, 16, 128,
+     dict(scale=144 ** -0.5, softcap=50.0)),
+]
+FLASH_CHECKS = [
+    *[(n, b, s, h, kh, d, dt, o) for dt in (torch.bfloat16, torch.float32)
+      for n, b, s, h, kh, d, o in SERVED_FLASH],
+    ("non-causal window", 2, 1000, 8, 2, 64, torch.float32,
+     dict(causal=False, window=300)),
+    ("partial tiles", 1, 300, 4, 2, 64, torch.float32, dict(window=128)),
+    ("distilbert width", 4, 512, 12, 12, 64, torch.float32, {}),
+]
+
+
+def check_flash(dev):
+    """K5 against its plain version on the same CUDA tensors.  Returns (max
+    |err| under the f32 limits, max rel-err under the bf16 limit)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    worst_abs = worst_rel = 0.0
+    for i, (name, b, s, h, kh, d, dtype, opts) in enumerate(FLASH_CHECKS):
+        q, k, v = flash_inputs(b, s, s, h, kh, d, dev, dtype, seed=10 + i)
+        got = flash_attention(q, k, v, **opts)
+        want = attention_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        ok, err, rel, limit = attention_agrees(got, want, "flash_attention")
+        if dtype == torch.float32:
+            worst_abs = max(worst_abs, err)
+        else:
+            worst_rel = max(worst_rel, rel)
+        what = (f"flash_attention {name} ({b}x{s}x{h}x{d}, KH={kh}, "
+                f"{str(dtype)[6:]}{', ' + str(opts) if opts else ''})")
+        print(f"  {'ok' if ok else 'FAIL'} {what}: max |err| {err:.3e}, "
+              f"per-row rel-err {rel:.3e} ({limit})")
+        if not ok:
+            fail(f"{what}: kernel differs from its plain version")
+        del q, k, v, got, want
     return worst_abs, worst_rel
 
 
@@ -378,15 +476,33 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def expected_launches(cfg, paged: bool, prefill_forwards: int = 1) -> dict:
-    """Each kernel's launches in a smoke serve of ``cfg``: per layer and
-    forward, 4 quant_act, 1 fused_qkv and 3 tiled_matmul under w8a8 (none
-    unquantized), and 1 paged_decode on the paged cache."""
-    forwards = prefill_forwards + DECODE_STEPS
+def layer_launches(cfg, *, paged=False, flash=False) -> dict:
+    """One layer's kernel launches in one forward of ``cfg``.  Under w8a8
+    each projection is one quant_act and one GEMM: the fused QKV one
+    fused_qkv, wo and the FFN's up and down (and gate, in a gated FFN)
+    one tiled_matmul each; unquantized, none.  One attention launch:
+    paged_decode on the paged cache, flash_attention on a cache-less
+    prompt of at least ``blockwise_attn_threshold`` tokens."""
     w8a8 = int(cfg.quant_proj == "w8a8")
-    per_layer = {"quant_act": 4 * w8a8, "fused_qkv": w8a8,
-                 "tiled_matmul": 3 * w8a8, "paged_decode": int(paged)}
-    return {k: forwards * cfg.n_layers * n for k, n in per_layer.items()}
+    ffn = 3 if cfg.ffn_type in ("swiglu", "geglu") else 2
+    return {"quant_act": (2 + ffn) * w8a8, "fused_qkv": w8a8,
+            "tiled_matmul": (1 + ffn) * w8a8, "paged_decode": int(paged),
+            "flash_attention": int(flash)}
+
+
+def expected_launches(cfg, paged: bool, prefill_forwards: int = 1) -> dict:
+    """Each kernel's launches in a smoke serve of ``cfg``: its prefill
+    forwards and one forward per decode step, ``layer_launches`` each."""
+    forwards = prefill_forwards + DECODE_STEPS
+    return {k: forwards * cfg.n_layers * n
+            for k, n in layer_launches(cfg, paged=paged).items()}
+
+
+def prefill_step_launches(cfg, s: int) -> dict:
+    """Each kernel's launches in one ``prefill_step`` of ``s`` tokens."""
+    flash = s >= cfg.blockwise_attn_threshold and cfg.attn_impl != "jnp"
+    return {k: cfg.n_layers * n
+            for k, n in layer_launches(cfg, flash=flash).items()}
 
 
 def check_serve(what, counts, want, next_logits, toks, cfg, t_prefill,
@@ -472,16 +588,17 @@ def check_served_k4(what, calls, n):
         fail(f"{what}: {len(calls)} K4 calls recorded, {n} launched")
     worst_err = worst_rel = 0.0
     for i, (args, kwargs, out) in enumerate(calls):
-        ok, err, rel, limit = k4_agrees(
+        ok, err, rel, limit = attention_agrees(
             out, paged_decode_attention_ref(*args, **kwargs))
         if not ok:
             fail(f"{what}: K4 call {i} (q {tuple(args[0].shape)}) differs "
-                 f"from its plain version: max |err| {err:.3e}, rel-err "
+                 f"from its plain version: max |err| {err:.3e}, per-row "
+                 f"rel-err "
                  f"{rel:.3e} ({limit})")
         worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
     print(f"  each of its {n} K4 calls against the plain version on the "
           f"call's own operands: worst max |err| {worst_err:.3e}, worst "
-          f"rel-err {worst_rel:.3e} ({limit})")
+          f"per-row rel-err {worst_rel:.3e} ({limit})")
     return worst_rel
 
 
@@ -535,6 +652,157 @@ def paged_paths(model, cfg, dev, dense_toks, dense_cache):
             print(f"  layer 0 prompt rows through the page table == dense "
                   "cache rows (bitwise)")
     return out
+
+
+@contextlib.contextmanager
+def recorded_k5_calls(calls):
+    """Within the block, every K5 call of the model appends to ``calls``
+    its operands and its output (none of them is changed in place
+    afterwards, so references suffice)."""
+    mod = importlib.import_module("repro_torch.models.attention")
+    wrapper = mod.flash_attention
+
+    def record(*args, **kwargs):
+        out = wrapper(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    mod.flash_attention = record
+    try:
+        yield
+    finally:
+        mod.flash_attention = wrapper
+
+
+def check_served_k5(what, calls, n):
+    """Each K5 call of a run against the plain version on that call's own
+    operands, at phase 3's limits; returns the worst rel-err."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    if len(calls) != n:
+        fail(f"{what}: {len(calls)} K5 calls recorded, {n} launched")
+    worst_err = worst_rel = 0.0
+    for i, (args, kwargs, out) in enumerate(calls):
+        ok, err, rel, limit = attention_agrees(
+            out, attention_ref(*args, **kwargs), "flash_attention")
+        if not ok:
+            fail(f"{what}: K5 call {i} (q {tuple(args[0].shape)}) differs "
+                 f"from its plain version: max |err| {err:.3e}, per-row "
+                 f"rel-err "
+                 f"{rel:.3e} ({limit})")
+        worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
+    print(f"  each of its {n} K5 calls against the plain version on the "
+          f"call's own operands: worst max |err| {worst_err:.3e}, worst "
+          f"per-row rel-err {worst_rel:.3e} ({limit})")
+    return worst_rel
+
+
+def device_breakdown(fn, top=10):
+    """One more ``fn()`` under ``torch.profiler`` (CUDA activity): device
+    time by kernel name, the sum, and the device's idle share of the
+    run's host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.count, e.device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    total = sum(ms for _, _, ms in rows)
+    if not rows:
+        print("  torch.profiler saw no device time (not measured)")
+        return
+    print(f"  device time by kernel (torch.profiler, one more run of "
+          f"{wall_ms:.3f} ms on the host clock): total {total:.3f} ms, so "
+          f"the device idles {1 - total / wall_ms:.3f} of the run")
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
+        print(f"    {ms:10.3f} ms {ms / total:6.3f} x{count:<5d} {key[:90]}")
+
+
+def long_prompt_path(arch, dev, n_layers=None):
+    """``prefill_step`` of ``arch`` (w8a8, bf16, fused QKV) at full width
+    (and ``n_layers`` layers, if given) on one prompt of LONG_PROMPT
+    random tokens, weights drawn on the card from a seeded generator.  A
+    warm-up run records every K5 call; the counted run must equal it bit
+    for bit, have exact launch counts and finite logits; each recorded
+    call is held against the plain version.  Returns (launch counts,
+    prefill s on the host clock, the window of each K5 call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize_params import quantize_model_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.engine import prefill_step
+    cfg = get_config(arch).replace(quant_proj="w8a8")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    what = (f"prefill_step {cfg.name} {cfg.quant_proj} {cfg.dtype}, "
+            f"{cfg.n_layers} layers, d={cfg.d_model}, heads {cfg.n_heads}/"
+            f"{cfg.n_kv_heads}x{cfg.head_dim}, d_ff={cfg.d_ff}, vocab="
+            f"{cfg.vocab_size}, 1 x {LONG_PROMPT} tokens")
+    master = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    model = quantize_model_params(master)
+    del master
+    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    calls = []
+    with recorded_k5_calls(calls):                       # warm-up
+        w_logits, _ = prefill_step(model, tokens, cfg)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill_step(model, tokens, cfg)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    counts = launch_counts()
+    want = prefill_step_launches(cfg, LONG_PROMPT)
+    print(f"{what}: launches {counts} (expected {want})")
+    if counts != want:
+        fail(f"{what}: launch counts {counts} != {want}")
+    if logits.shape != (1, LONG_PROMPT, cfg.vocab_size) \
+            or logits.dtype != torch.float32:
+        fail(f"{what}: logits {tuple(logits.shape)} {logits.dtype}")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{what}: non-finite logits")
+    # the warm-up is the same run, bit for bit, so the K5 operands it
+    # recorded are the counted run's
+    if not torch.equal(w_logits, logits):
+        fail(f"{what}: two runs of the same prefill_step differ")
+    del w_logits, logits
+    print(f"  prefill_step: {t_prefill * 1e3:.3f} ms for 1 x {LONG_PROMPT} "
+          "tokens (host clock, after torch.cuda.synchronize())")
+    device_breakdown(lambda: prefill_step(model, tokens, cfg))
+    check_served_k5(what, calls, counts["flash_attention"])
+    windows = [kw.get("window") for _, kw, _ in calls]
+    del calls, model
+    torch.cuda.empty_cache()
+    return counts, t_prefill, windows
+
+
+def long_prompt_paths(dev):
+    """Phase 4's long-prompt path: qwen2.5-3b at full depth, then gemma2-27b
+    at 2 layers (layer 0 local, layer 1 global), whose local call must
+    stream fewer KV tiles than its global one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import (KERNEL_KV_TILE,
+                                                            KERNEL_Q_TILE,
+                                                            flash_schedule)
+    qwen = long_prompt_path("qwen2_5_3b", dev)
+    gemma = long_prompt_path("gemma2_27b", dev, n_layers=2)
+    window = get_config("gemma2_27b").sliding_window
+    if gemma[2] != [window, None]:
+        fail(f"gemma2-27b: K5 windows per layer {gemma[2]}, expected "
+             f"[{window}, None] (local, then global)")
+    tiles = [flash_schedule(LONG_PROMPT, LONG_PROMPT, q_chunk=KERNEL_Q_TILE,
+                            kv_chunk=KERNEL_KV_TILE, window=w).blocks_touched
+             for w in gemma[2]]
+    print(f"  K5's walk at its {KERNEL_Q_TILE}x{KERNEL_KV_TILE} tiles, per "
+          f"head: local layer {tiles[0]} KV tiles, global layer {tiles[1]} "
+          f"(dense sweep {(LONG_PROMPT // KERNEL_Q_TILE) ** 2})")
+    if not tiles[0] < tiles[1]:
+        fail("gemma2-27b: the local layer does not stream fewer KV tiles")
+    return qwen, gemma
 
 
 def rel_err(a, b):
@@ -665,6 +933,54 @@ def card_vs_cpu(model_cpu, master_cpu, cfg, dev):
           f"{q_agree:.4f} over {n} positions (limit {TOL_ARGMAX})")
     if q_agree < TOL_ARGMAX:
         fail(f"card vs CPU (w8a8) argmax agreement {q_agree} < {TOL_ARGMAX}")
+
+
+def card_vs_cpu_long(dev):
+    """``prefill_step`` in f32 ``none``, the card (K5) against the CPU (its
+    plain version) on the same weights: qwen2.5-3b and gemma2-27b at full
+    width, CHECK_LAYERS layers, one prompt of CHECK_PROMPT tokens.
+    ``blockwise_attn_threshold`` is cut to the prompt so K5 is on the
+    path, and gemma2's window to 256 so it bites (layer 0 local); these
+    change routing and the window, not width.  Limits as ``card_vs_cpu``'s
+    ``none``: rel-err 1e-5, argmax agreement 0.99; launch counts exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.engine import prefill_step
+    for arch, extra in (("qwen2_5_3b", {}),
+                        ("gemma2_27b", {"sliding_window": 256})):
+        cfg = get_config(arch).replace(
+            n_layers=CHECK_LAYERS, quant_proj="none", dtype="float32",
+            blockwise_attn_threshold=CHECK_PROMPT, **extra)
+        model_cpu = init_model(torch.Generator(device=dev).manual_seed(3),
+                               cfg, device="cpu")
+        model = copy.deepcopy(model_cpu).to(dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, CHECK_PROMPT),
+                               generator=torch.Generator().manual_seed(4))
+        reset_launch_counts()
+        card, _ = prefill_step(model, tokens.to(dev), cfg)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = prefill_step_launches(cfg, CHECK_PROMPT)
+        what = (f"card vs CPU: prefill_step {cfg.name} f32 'none', "
+                f"{cfg.n_layers} layers, 1 x {CHECK_PROMPT} tokens, "
+                f"threshold {cfg.blockwise_attn_threshold}, window "
+                f"{cfg.sliding_window}")
+        if counts != want:
+            fail(f"{what}: launch counts {counts} != {want}")
+        card = card.cpu()
+        del model
+        torch.cuda.empty_cache()
+        cpu, _ = prefill_step(model_cpu, tokens, cfg)
+        err = rel_err(card, cpu)
+        agree = (card.argmax(-1) == cpu.argmax(-1)).float().mean().item()
+        print(f"{what}, launches exact ({counts['flash_attention']} K5): "
+              f"rel-err {err:.3e} (limit {TOL_NONE}); argmax agreement "
+              f"{agree:.4f} over {CHECK_PROMPT} positions (limit "
+              f"{TOL_ARGMAX})")
+        if err > TOL_NONE or agree < TOL_ARGMAX:
+            fail(f"{what}: card and CPU disagree")
+        del model_cpu, card, cpu
 
 
 # ---------------------------------------------------------------------------
@@ -858,6 +1174,69 @@ def time_paged(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
     return row
 
 
+def eager_ms(fn, sets, calls=3):
+    """Device time of one ``fn(*set)`` call run eagerly between CUDA events
+    (for a function that allocates GBs per call, which a graph of many
+    calls would hold at once), after one warm-up call."""
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(*sets[i % len(sets)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def visible_pairs(s_len, t_len, *, causal=True, window=None):
+    """The (query, key) pairs the masks leave visible: key t for query s
+    when t <= s (causal) and t > s - window."""
+    total = 0
+    for s in range(s_len):
+        hi = min(s, t_len - 1) if causal else t_len - 1
+        lo = max(s - window + 1, 0) if window else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def time_flash(b, s, h, kh, d, dev, *, dtype=torch.bfloat16, launches=10,
+               **opts):
+    """K5 at one shape (t = s): kernel, plain version and, where it
+    computes the same function (causal, no window, no softcap),
+    ``scaled_dot_product_attention``; the bound from the visible pairs'
+    flops (QK and PV: 4 * d per pair and head) at the tensor-core peak of
+    the dtype, and from q, k, v and out moved once."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elt * 2 * (b * s * h * d + b * s * kh * d)
+    pairs = visible_pairs(s, s, causal=opts.get("causal", True),
+                          window=opts.get("window"))
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    b_ms, by = bound(nbytes, 4 * d * h * b * pairs, peak)
+    sets = [flash_inputs(b, s, s, h, kh, d, dev, dtype, seed=i)
+            for i in range(n_copies(nbytes))]
+    row = {"ms": device_ms(lambda *x: flash_attention(*x, **opts), sets,
+                           launches, replays=3),
+           "plain_ms": eager_ms(lambda *x: attention_ref(*x, **opts), sets),
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    if opts.get("causal", True) and not opts.get("window") \
+            and not opts.get("softcap"):
+        lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in st)
+                    for st in sets]
+        try:
+            row["library_ms"] = device_ms(
+                lambda q, k, v:
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True,
+                    scale=opts.get("scale")), lib_sets, launches, replays=3)
+        except RuntimeError as e:    # a yardstick only: report, go on
+            print(f"  (library yardstick unavailable: {e})")
+    return row
+
+
 def timings(cfg, dev):
     d, f = cfg.d_model, cfg.d_ff
     q, kv = cfg.q_dim, cfg.kv_dim
@@ -899,6 +1278,17 @@ def timings(cfg, dev):
                      time_paged(8, 4096, hh, kk, dd, [4096] * 8, dev,
                                 page=64, kv="bf16", launches=50)))
     shapes["paged_decode"] = rows
+    # K5: one launch per layer of prefill_step at the served shapes
+    shapes["flash_attention"] = [
+        ("prefill", f"qwen2.5-3b 1x{LONG_PROMPT} H16 KH2 D128 bf16", 1,
+         time_flash(1, LONG_PROMPT, 16, 2, 128, dev)),
+        ("local", f"gemma2-27b 1x{LONG_PROMPT} H32 KH16 W4096 cap50", 1,
+         time_flash(1, LONG_PROMPT, 32, 16, 128, dev, scale=144 ** -0.5,
+                    window=4096, softcap=50.0)),
+        ("global", f"gemma2-27b 1x{LONG_PROMPT} H32 KH16 cap50", 1,
+         time_flash(1, LONG_PROMPT, 32, 16, 128, dev, scale=144 ** -0.5,
+                    softcap=50.0)),
+    ]
 
     print("timings (device ms per launch; bound = max(bytes / 3.35 TB/s, "
           "ops / peak)):")
@@ -945,6 +1335,8 @@ KERNELS = {
 }
 # what each kernel's row times: one layer's launches at prefill
 WORK = {"paged_decode": "one prefill layer: 4 x 64 rows over bf16 pages"}
+FLASH_KERNEL = ("src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/kernel.py:133")
 
 
 def main():
@@ -960,9 +1352,11 @@ def main():
     smi = device_info()
     build_kernels()
 
-    print("kernels vs plain versions (K1-K3 bitwise, K4 within limits):")
+    print("kernels vs plain versions (K1-K3 bitwise, K4 and K5 within "
+          "limits):")
     errs = check_kernels(dev)
     errs["paged_decode"], paged_rel_bf16 = check_paged(dev)
+    errs["flash_attention"], flash_rel_bf16 = check_flash(dev)
 
     cfg = get_config("distilbert_paper")
     print(f"main path: {cfg.name} {cfg.quant_proj} {cfg.dtype}, "
@@ -977,7 +1371,9 @@ def main():
         paged_counts, paged_prefill, paged_tps = paged_paths(
             model, cfg, dev, toks, cache)
         del cache
+        qwen, gemma = long_prompt_paths(dev)
         card_vs_cpu(model_cpu, master, cfg, dev)
+        card_vs_cpu_long(dev)
     counts["paged_decode"] = paged_counts["paged_decode"]
     shapes = timings(cfg, dev)
 
@@ -997,10 +1393,33 @@ def main():
                                            "library_ms", "library_note")
                        if k in dec},
         })
-    kernels[-1]["max_rel_err_bf16"] = paged_rel_bf16
+    kernels[-1]["max_row_rel_err_bf16"] = paged_rel_bf16
+    fa = {phase: r for phase, _, _, r in shapes["flash_attention"]}
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_KERNEL[0],
+        "replaces": FLASH_KERNEL[1],
+        "launches": qwen[0]["flash_attention"],
+        "max_abs_err": errs["flash_attention"], "ms": fa["prefill"]["ms"],
+        "plain_ms": fa["prefill"]["plain_ms"],
+        "bound_ms": fa["prefill"]["bound_ms"],
+        "bound_by": fa["prefill"]["bound_by"],
+        "library_ms": fa["prefill"]["library_ms"],
+        "work": f"one qwen2.5-3b layer of prefill_step: (1, {LONG_PROMPT}, "
+                "16/2, 128) bf16, causal",
+        "max_row_rel_err_bf16": flash_rel_bf16,
+        "launches_gemma2": gemma[0]["flash_attention"],
+        "gemma2": {phase: {k: fa[phase][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for phase in ("local", "global")},
+    })
     print(f"serve: dense prefill_ms={t_prefill * 1e3:.3f} "
           f"decode_tok_s={tps:.1f}; paged prefill_ms="
           f"{paged_prefill * 1e3:.3f} decode_tok_s={paged_tps:.1f}")
+    print(f"prefill_step (1 x {LONG_PROMPT} tokens, w8a8 bf16): qwen2.5-3b "
+          f"{qwen[0]['flash_attention']} layers {qwen[1] * 1e3:.3f} ms, K5 "
+          f"{qwen[0]['flash_attention'] * fa['prefill']['ms']:.3f} ms of "
+          f"it (launches x device ms); gemma2-27b 2 layers "
+          f"{gemma[1] * 1e3:.3f} ms")
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,13 +8,15 @@ from __future__ import annotations
 
 
 def _wrappers():
-    from repro_torch.kernels.flash_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, paged_decode_attention)
     from repro_torch.kernels.fused_qkv.ops import fused_qkv
     from repro_torch.kernels.quant_act.ops import quant_act
     from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
     return {"quant_act": quant_act, "fused_qkv": fused_qkv,
             "tiled_matmul": tiled_matmul,
-            "paged_decode": paged_decode_attention}
+            "paged_decode": paged_decode_attention,
+            "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict[str, int]:

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quant_act", "int8_gemm", "paged_decode")
+SOURCES = ("quant_act", "int8_gemm", "paged_decode", "flash_attention")
 
 # no --use_fast_math: the kernels rely on IEEE division and rint rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +44,9 @@ SIGNATURES = {
     },
     "paged_decode": {
         "launch_paged_decode": [_P] * 8 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P],
+    },
+    "flash_attention": {
+        "launch_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 2 + [_P],
     },
 }
 

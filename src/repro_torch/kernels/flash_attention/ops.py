@@ -1,5 +1,7 @@
-"""Wrapper for paged flash attention: CUDA kernel K4 on the card, the plain
-version on the CPU."""
+"""Wrappers for the flash-attention kernels: the block-sparse prefill
+kernel K5 (``flash_attention``) and paged flash decode K4
+(``paged_decode_attention``).  Each launches its CUDA kernel for CUDA
+tensors and runs its plain version for CPU tensors."""
 from __future__ import annotations
 
 import torch
@@ -7,24 +9,86 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref as _ref
 
-__all__ = ["paged_decode_attention"]
+__all__ = ["flash_attention", "paged_decode_attention"]
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 
 
-def _check(t: torch.Tensor, dtype, shape, dev, what: str) -> None:
+def _check(t: torch.Tensor, dtype, shape, dev, what: str,
+           fn: str = "paged_decode_attention") -> None:
     if t.dtype != dtype:
-        raise TypeError(f"paged_decode_attention: {what} must be {dtype}, "
-                        f"got {t.dtype}")
+        raise TypeError(f"{fn}: {what} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"paged_decode_attention: {what} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{fn}: {what} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
     if t.device != dev:
-        raise ValueError(f"paged_decode_attention: {what} on {t.device}, "
-                         f"q on {dev}")
+        raise ValueError(f"{fn}: {what} on {t.device}, q on {dev}")
     if not t.is_contiguous():
-        raise ValueError(f"paged_decode_attention: {what} must be contiguous")
+        raise ValueError(f"{fn}: {what} must be contiguous")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None, causal: bool = True,
+                    window: int | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
+    """Multi-head attention, q (B, S, H, D) over k, v (B, T, KH, D) (GQA:
+    H a multiple of KH, each KV head shared by its H // KH query heads,
+    never repeated).
+
+    Returns (B, S, H, D) in q's dtype (f32 softmax inside).  ``window``
+    masks key t for query s unless ``t > s - window``; with ``causal``,
+    also unless ``t <= s``; a row that sees no key gives 0.  ``softcap``
+    caps the scores through tanh.  S and T need not be multiples of any
+    tile.
+
+    A CUDA tensor launches K5 (``csrc/flash_attention.cu``; f32 or bf16
+    q, k and v, contiguous, head_dim <= 128), whose tiles are its own:
+    ``kernel.KERNEL_Q_TILE`` q rows by ``kernel.KERNEL_KV_TILE`` KV rows
+    (the JAX package's ``q_chunk``/``kv_chunk`` have no counterpart).  A
+    CPU tensor runs the plain version, ``ref.attention_ref``.
+    """
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    if k.shape != (b, t, kh, d) or v.shape != k.shape or h % kh:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
+    scale = scale if scale is not None else d ** -0.5
+    dev = q.device
+    if dev.type == "cpu":
+        return _ref.attention_ref(q, k, v, scale=scale, causal=causal,
+                                  window=window, softcap=softcap).to(q.dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"flash_attention kernel takes f32 or bf16 q, got "
+                        f"{q.dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    _check(q, q.dtype, (b, s, h, d), dev, "q", "flash_attention")
+    _check(k, q.dtype, (b, t, kh, d), dev, "k", "flash_attention")
+    _check(v, q.dtype, (b, t, kh, d), dev, "v", "flash_attention")
+    if t < 1:
+        raise ValueError("flash_attention kernel needs at least one key")
+    out = torch.empty_like(q)
+    fn = _build.library("flash_attention").launch_flash_attention
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, s, t, h, kh, d, int(causal),
+                    window if window is not None else 0, scale,
+                    softcap if softcap is not None else 0.0,
+                    int(q.dtype == torch.bfloat16), dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,15 +1,63 @@
-"""Plain PyTorch version of the paged flash-decode kernel (K4).
+"""Plain PyTorch versions of the flash-attention kernels: dense softmax
+attention (K5, ``attention_ref``) and paged decode (K4,
+``paged_decode_attention_ref``).
 
-``paged_decode_attention_ref`` gathers the page pool back into a dense
-cache and applies the decode masks in one f32 softmax: the CPU runs it,
-and ``chip_smoke.py`` holds the kernel against it on the card.  GQA-native:
-the ``H // KH`` query heads of a KV head share it by reshape, not repeat.
+Each computes its kernel's function in one f32 softmax over the whole
+score block: the CPU runs them, and ``chip_smoke.py`` holds the kernels
+against them on the card.  GQA-native: the ``H // KH`` query heads of a KV
+head share it by reshape, not repeat.  ``paged_decode_attention_ref``
+gathers the page pool back into a dense cache first.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -2.3819763e38
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: float | None = None, causal: bool = True,
+                  window: int | None = None,
+                  softcap: float | None = None) -> torch.Tensor:
+    """q (B, S, H, D); k, v (B, T, KH, D) → (B, S, H, D) in v's dtype: the
+    ``flash_attention`` wrapper's layout.
+
+    f32 scores; key t is visible to query s where ``t <= s`` (causal) and
+    ``t > s - window``; softcap through tanh; a fully masked row gives 0.
+    The probabilities ``p / l`` are rounded to v's dtype and their products
+    with v summed in f32.  The score block is updated in place: it is the
+    whole (B, H, S, T) f32 block, the largest tensor here.
+    """
+    b, s_len, h, d = q.shape
+    t_len, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, s_len, kh, g, d)
+    s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    s.mul_(scale)
+    if softcap is not None:
+        # a tensor divisor: on CUDA a Python scalar one becomes a multiply
+        # by its reciprocal, not the IEEE quotient the kernel computes
+        s.div_(torch.full((), softcap, device=s.device)).tanh_().mul_(softcap)
+    mask = None
+    if causal or window is not None:
+        sq = torch.arange(s_len, device=q.device)[:, None]
+        tk = torch.arange(t_len, device=q.device)[None, :]
+        mask = torch.ones((s_len, t_len), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= tk <= sq
+        if window is not None:
+            mask &= tk > sq - window
+        s.masked_fill_(~mask, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    s.sub_(m).exp_()                                    # s now holds p
+    if mask is not None:
+        s.masked_fill_(~mask, 0.0)
+    l = torch.clamp(s.sum(dim=-1, keepdim=True), min=1e-37)
+    p = s.div_(l).to(v.dtype)
+    del s
+    o = torch.einsum("bkgst,btkd->bskgd", p.float(), v.float())
+    return o.to(v.dtype).reshape(b, s_len, h, d)
 
 
 def paged_gather(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,22 @@
 """Attention: MHA/GQA/MQA with RoPE variants, sliding window, softcap,
-QK-norm, and a dense or paged KV cache.
+QK-norm, a dense or paged KV cache, and blockwise (flash-style) execution.
 
 The Q/K/V projections — the paper's target bottleneck — route through
 ``core.qkv_fusion.apply_fused_qkv`` (the persistent-A / update_A mechanism)
 or ``core.quantized_linear.apply_linear`` under the config's ``quant_proj``
-mode.  On the dense cache (and without a cache) scores are computed in f32
-over the whole (S, T) block (``_attend_dense``); on the paged cache every
-step goes through the paged flash-decode kernel K4 (``_attend_paged``).
-Not ported yet: cross-attention (ROADMAP queue 1, item 12) and the
-long-prompt blockwise / flash path (item 8: kernel K5), for which
-``apply_attention`` raises ``NotImplementedError``.
+mode.  On the dense cache, and without a cache below
+``cfg.blockwise_attn_threshold``, scores are computed in f32 over the whole
+(S, T) block (``_attend_dense``); on the paged cache every step goes
+through the paged flash-decode kernel K4 (``_attend_paged``).  A cache-less
+forward of ``s >= cfg.blockwise_attn_threshold`` never materializes the
+(S, T) scores: ``cfg.attn_impl`` ``auto`` or ``flash`` runs it through
+``flash_attention`` (the block-sparse kernel K5 on the card, which masks
+gemma2's sliding window in-kernel and skips the KV blocks the window
+hides), ``jnp`` through the double-chunked online softmax
+``_attend_blockwise`` in plain PyTorch, on the CPU only: on the card that
+path raises, so no config value takes a long prompt past K5.  Sequence
+lengths need not divide any tile or chunk size.  Cross-attention is not
+ported yet (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ from torch import nn
 from repro_torch.core.qkv_fusion import apply_fused_qkv
 from repro_torch.core.quantization import quantize_kv
 from repro_torch.core.quantized_linear import Linear, apply_linear, init_linear
-from repro_torch.kernels.flash_attention.ops import paged_decode_attention
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     paged_decode_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Norm, apply_norm, apply_rope,
                                        init_norm, softcap)
@@ -31,6 +39,21 @@ NEG_INF = -2.3819763e38  # finite min-bf16-safe mask value
 # each walking only the pages its own causal horizon exposes
 PAGED_FLASH_MAX_Q = 8
 PAGED_PREFILL_CHUNK_Q = 128
+
+
+def _flash_engine_live(cfg: ModelConfig) -> bool:
+    """Does ``cfg.attn_impl`` select the flash engine (``flash_attention``:
+    K5 on the card, its plain version on the CPU)?  ``auto`` does: the
+    port's kernels are always live."""
+    return cfg.attn_impl in ("auto", "flash")
+
+
+def _run_windowed(fn, cfg: ModelConfig, is_local: bool):
+    """``fn(window)`` with the layer's window: the config's sliding window on
+    a local layer, none on a global one or without a sliding window."""
+    if cfg.sliding_window is None:
+        return fn(None)
+    return fn(cfg.sliding_window if is_local else None)
 
 
 class Attention(nn.Module):
@@ -61,11 +84,15 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def _mask_bias(q_pos, k_pos, *, window, is_local: bool) -> torch.Tensor:
+def _mask_bias(q_pos, k_pos, *, window, is_local: bool,
+               causal: bool = True) -> torch.Tensor:
     """(…, S, T) additive causal (and sliding-window) bias."""
     qp = q_pos[..., :, None]
     kp = k_pos[..., None, :]
-    allowed = kp <= qp
+    allowed = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                         dtype=torch.bool, device=qp.device)
+    if causal:
+        allowed &= kp <= qp
     if window is not None and is_local:
         allowed &= kp > qp - window
     return torch.where(allowed, 0.0, NEG_INF).float()
@@ -87,6 +114,54 @@ def _attend_dense(q, k, v, q_pos, k_pos, *, scale, cap, window, is_local):
     # probabilities rounded to v's dtype, products summed in f32
     o = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype).float(), v.float())
     return o.to(v.dtype)
+
+
+def _attend_blockwise(q, k, v, q_offset, *, scale, cap, causal, window,
+                      is_local: bool, q_chunk, kv_chunk):
+    """Double-chunked online-softmax attention (flash-style, plain PyTorch).
+
+    q (B,S,K,G,hd); k,v (B,T,K,hd) → (B,S,K,G,hd) in q's dtype.  Never
+    holds more than (B,K,G,q_chunk,kv_chunk) scores, in f32; the math is
+    softmax attention's.  The last chunk of q or KV may be partial: it is
+    sliced shorter, where the JAX package pads it and masks the padding.
+    CPU tensors only: on the card the blockwise path is K5.
+    """
+    if q.device.type != "cpu":
+        raise ValueError(
+            f"attn_impl='jnp' runs plain PyTorch on the CPU only, got "
+            f"{q.device}; on the card use 'auto' or 'flash' (kernel K5)")
+    b, s_len, kh, g, hd = q.shape
+    t_len = k.shape[1]
+    q_chunk = min(q_chunk, s_len)
+    kv_chunk = min(kv_chunk, t_len)
+    dev = q.device
+    out = torch.empty_like(q)
+    for q0 in range(0, s_len, q_chunk):
+        qc = q[:, q0:q0 + q_chunk].float()
+        n = qc.shape[1]
+        q_pos = q_offset + q0 + torch.arange(n, device=dev)
+        acc = torch.zeros((b, kh, g, n, hd), dtype=torch.float32, device=dev)
+        m = torch.full((b, kh, g, n), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, kh, g, n), dtype=torch.float32, device=dev)
+        for k0 in range(0, t_len, kv_chunk):
+            kc = k[:, k0:k0 + kv_chunk].float()
+            vc = v[:, k0:k0 + kv_chunk].float()
+            k_pos = k0 + torch.arange(kc.shape[1], device=dev)
+            s = torch.einsum("bskgh,btkh->bkgst", qc, kc) * scale
+            s = softcap(s, cap)
+            s = s + _mask_bias(q_pos, k_pos, window=window,
+                               is_local=is_local, causal=causal)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkh->bkgsh", p, vc)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-37)[..., None]
+        out[:, q0:q0 + n] = o.to(q.dtype).permute(0, 3, 1, 2, 4)
+    return out
 
 
 def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
@@ -141,6 +216,11 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     """Causal self-attention over x (B, S, D), without a cache or with a
     dense or paged one (the bidirectional encoder path comes with item 12).
 
+    Without a cache, ``s >= cfg.blockwise_attn_threshold`` takes the
+    blockwise path: ``flash_attention`` (K5) or, for ``attn_impl="jnp"`` on
+    the CPU, ``_attend_blockwise``, with the sliding window on local
+    layers.
+
     With ``cache`` = (k, v), each (B, S_max, K, hd), the new keys and values
     are written **in place** into the cache tensors at ``cache_pos``, a (B,)
     int vector of per-sequence write positions (mixed-length batches), and
@@ -154,12 +234,6 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     kh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     hd = cfg.head_dim
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
-
-    if cache is None and s >= cfg.blockwise_attn_threshold:
-        raise NotImplementedError(
-            f"no-cache attention at s={s} >= blockwise_attn_threshold "
-            f"({cfg.blockwise_attn_threshold}) takes the blockwise / flash "
-            "path: ROADMAP queue 1, item 8 (kernel K5)")
 
     if cfg.fuse_qkv:
         q, k, v = apply_fused_qkv(params.wq, params.wk, params.wv, x,
@@ -198,10 +272,27 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         k_pos = positions
 
-    q = q.reshape(b, s, kh, g, hd)
-    o = _attend_dense(q, k, v, positions, k_pos, scale=scale,
-                      cap=cfg.attn_logit_softcap, window=cfg.sliding_window,
-                      is_local=is_local)
+    use_blockwise = cache is None and s >= cfg.blockwise_attn_threshold
+    if use_blockwise and _flash_engine_live(cfg):
+        # q, k, v may be views of one concatenated projection
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+
+        def _flash(window):
+            return flash_attention(q, k, v, scale=scale, causal=True,
+                                   window=window,
+                                   softcap=cfg.attn_logit_softcap)
+
+        o = _run_windowed(_flash, cfg, is_local)
+    elif use_blockwise:
+        o = _attend_blockwise(
+            q.reshape(b, s, kh, g, hd), k, v, 0, scale=scale,
+            cap=cfg.attn_logit_softcap, causal=True,
+            window=cfg.sliding_window, is_local=is_local,
+            q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv)
+    else:
+        o = _attend_dense(q.reshape(b, s, kh, g, hd), k, v, positions, k_pos,
+                          scale=scale, cap=cfg.attn_logit_softcap,
+                          window=cfg.sliding_window, is_local=is_local)
     o = o.reshape(b, s, cfg.q_dim)
     y = apply_linear(params.wo, o, mode=cfg.quant_proj)
     return y, new_cache

@@ -1,5 +1,11 @@
-"""Serving engine: prefill → decode handoff and the batched decode loop.
+"""Serving engine: the cache-less prefill, the prefill → decode handoff and
+the batched decode loop.
 
+  * ``prefill_step`` is the cache-less forward of a prompt batch: logits
+    for every position, no cache written.  Prompts of at least
+    ``cfg.blockwise_attn_threshold`` tokens attend blockwise (the
+    block-sparse flash kernel K5 on the card), never holding the whole
+    (S, S) score block.
   * ``prefill`` runs the whole (right-padded) prompt batch through the
     cache-writing path — one pass, or fixed-size chunks (``chunk=``) —
     committing prompt KV into the cache (dense rows or paged pools) and
@@ -25,6 +31,25 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model, apply_model
 from repro_torch.serving.cache import PAGE_STATE_KEYS
+
+
+def prefill_step(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
+                 frontend_embeds=None, encoder_frames=None):
+    """Cache-less forward pass producing logits for a prompt batch.
+
+    tokens (B, S) int.  Returns (logits f32 (B, S, V), aux).  This is the
+    throughput-shape entry of long-prompt prefill; the serving handoff that
+    also commits KV is ``prefill``.  Vision frontends (``frontend_embeds``)
+    and encoder-decoder models (``encoder_frames``) come with their
+    families: ROADMAP queue 1, item 12.
+    """
+    if frontend_embeds is not None or encoder_frames is not None:
+        raise NotImplementedError(
+            "prefill_step: frontend_embeds / encoder_frames belong to the "
+            "vision and encoder-decoder families, not ported yet (ROADMAP "
+            "queue 1, item 12)")
+    logits, _, aux = apply_model(model, tokens, cfg)
+    return logits, aux
 
 
 def validate_decode_cache(cache: dict, cfg: ModelConfig) -> None:

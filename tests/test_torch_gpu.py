@@ -6,16 +6,19 @@ Without a card every test here skips (the card is checked in a fixture).
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.quantization import quantize, quantize_kv
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import ref as paged_ref
-from repro_torch.kernels.flash_attention.ops import paged_decode_attention
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     paged_decode_attention)
 from repro_torch.kernels.fused_qkv import ref as fused_ref
 from repro_torch.kernels.fused_qkv.ops import fused_qkv
 from repro_torch.kernels.quant_act import ref as quant_ref
 from repro_torch.kernels.quant_act.ops import quant_act
 from repro_torch.kernels.tiled_matmul import ref as matmul_ref
 from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+from repro_torch.models.transformer import apply_model, init_model
 from repro_torch.serving.cache import default_page_table
 
 pytestmark = pytest.mark.gpu
@@ -88,6 +91,7 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(matmul_ref, "tiled_matmul_ref", refuse)
     monkeypatch.setattr(fused_ref, "fused_qkv_ref", refuse)
     monkeypatch.setattr(paged_ref, "paged_decode_attention_ref", refuse)
+    monkeypatch.setattr(paged_ref, "attention_ref", refuse)
     reset_launch_counts()
     a = quant_act(_randn((8, 64), 0, cuda))
     _, ws = _operands(8, 64, [64, 32, 32], cuda)
@@ -95,9 +99,11 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     fused_qkv(a, *ws)
     c = _paged_case(2, 32, 4, 2, 64, 8, [20, 9], cuda)
     paged_decode_attention(c["q"], c["k"], c["v"], c["table"], c["lens"])
+    flash_attention(*_flash_case(1, 70, 70, 4, 2, 64, cuda))
     torch.cuda.synchronize()
     assert launch_counts() == {"quant_act": 1, "fused_qkv": 1,
-                               "tiled_matmul": 1, "paged_decode": 1}
+                               "tiled_matmul": 1, "paged_decode": 1,
+                               "flash_attention": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -119,6 +125,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):                 # int8 pools need scales
         paged_decode_attention(c["q"], c["k"].to(torch.int8),
                                c["v"].to(torch.int8), c["table"], c["lens"])
+    q, k, v = _flash_case(1, 16, 16, 4, 2, 64, cuda)
+    for i, bad, err in ((0, q.half(), TypeError),                  # dtype
+                        (1, k.to(torch.bfloat16), TypeError),      # mixed
+                        (2, v.transpose(1, 2).contiguous()
+                         .transpose(1, 2), ValueError),           # layout
+                        (1, k.cpu(), ValueError)):                 # device
+        args = [q, k, v]
+        args[i] = bad
+        with pytest.raises(err):
+            flash_attention(*args)
+    with pytest.raises(ValueError):                # head_dim above 128
+        flash_attention(*_flash_case(1, 8, 8, 2, 2, 136, cuda))
 
 
 def _paged_case(b, t, h, kh, d, page, lens, dev, *, qs=1, alloc="striped",
@@ -195,3 +213,67 @@ def test_paged_decode_kernel_bitwise_invariants(cuda):
                                 c["lens"], window=20)
     torch.cuda.synchronize()
     assert torch.equal(got, fp)
+
+
+def _flash_case(b, s, t, h, kh, d, dev, dtype=torch.float32, seed=0):
+    """q (B, S, H, D) and k, v (B, T, KH, D), normal, on ``dev``."""
+    return tuple(_randn(shape, seed + i, dev).to(dtype)
+                 for i, shape in enumerate(((b, s, h, d), (b, t, kh, d),
+                                            (b, t, kh, d))))
+
+
+# b, s, t, h, kh, d, options: GQA causal at qwen2.5's head shape, MHA at
+# distilbert's, MQA with softcap, gemma2-style window + softcap, partial S
+# and T, non-causal with a window (rows that see nothing), S != T, head_dim
+# not a multiple of the 16-byte load
+FLASH_CASES = {
+    "gqa8_d128": (1, 200, 200, 16, 2, 128, {}),
+    "mha_d64": (2, 130, 130, 12, 12, 64, {}),
+    "mqa_softcap": (2, 128, 128, 4, 1, 64, dict(softcap=30.0)),
+    "window_softcap": (1, 300, 300, 8, 4, 128, dict(window=70, softcap=50.0)),
+    "partial": (1, 77, 77, 4, 4, 64, {}),
+    "noncausal_window": (1, 160, 40, 4, 2, 32, dict(causal=False, window=48)),
+    "s_ne_t": (1, 100, 200, 4, 4, 16, dict(causal=False, softcap=50.0)),
+    "odd_d": (1, 90, 90, 4, 2, 18, dict(window=20)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    b, s, t, h, kh, d, opts = FLASH_CASES[case]
+    q, k, v = _flash_case(b, s, t, h, kh, d, cuda, dtype)
+    reset_launch_counts()
+    out = flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    want = paged_ref.attention_ref(q, k, v, **opts)
+    assert out.shape == want.shape and out.dtype == want.dtype
+    if dtype == torch.bfloat16:
+        # the kernel rounds the unnormalised p to bf16, the plain version p/l
+        err = ((out.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        assert err <= 1e-2, err
+    else:
+        torch.testing.assert_close(out, want, atol=5e-6, rtol=1e-5)
+
+
+def test_flash_attention_kernel_is_deterministic(cuda):
+    q, k, v = _flash_case(1, 300, 300, 8, 4, 128, cuda, torch.bfloat16)
+    a = flash_attention(q, k, v, window=70, softcap=50.0)
+    b = flash_attention(q, k, v, window=70, softcap=50.0)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_jnp_blockwise_path_raises_on_the_card(cuda):
+    """``attn_impl="jnp"`` is the CPU's plain path: on the card a long
+    prompt goes through K5 or nowhere."""
+    cfg = get_smoke_config("qwen2_5_3b").replace(dtype="float32",
+                                                 attn_impl="jnp")
+    model = init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                       device=cuda)
+    toks = torch.zeros((1, cfg.blockwise_attn_threshold), dtype=torch.long,
+                       device=cuda)
+    with pytest.raises(ValueError, match="CPU only"):
+        apply_model(model, toks, cfg)

@@ -89,16 +89,6 @@ def test_apply_model_matches_jax(arch, mode):
     assert float(aux["load_balance_loss"]) == 0.0
 
 
-def test_long_no_cache_prompt_is_not_ported_yet():
-    """At s >= blockwise_attn_threshold the reference takes the blockwise /
-    flash path, which this port does not have yet: raise, never compute."""
-    cfg = get_smoke_config("qwen2_5_3b").replace(dtype="float32")
-    model = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
-    toks = torch.zeros((1, cfg.blockwise_attn_threshold), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        apply_model(model, toks, cfg)
-
-
 @pytest.mark.parametrize("arch", [
     "qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "mamba2_370m", "zamba2_7b",
     "seamless_m4t_medium", "phi3_vision_4_2b"])
