@@ -14,7 +14,12 @@
    attention) within the same limits at the served shapes (qwen2.5-3b
    causal, gemma2-27b local and global) in bf16 and in f32, and at
    further f32 ones (non-causal windowed, partial tiles, distilbert's
-   width).
+   width).  K4's verify mode (``new_lens``, speculative decode) at the
+   served shape (4 x 5 rows, qwen2.5-3b's 16/2 heads of 128, contexts to
+   560, an idle slot) and at the JAX package's test shapes, in f32, bf16
+   and int8 pools at the same limits, dead rows exactly 0; a one-row
+   verify launch bitwise the plain launch; live rows of a variable-row
+   launch against exact-width launches per sequence.
 4. The main paths: ``distilbert_paper`` (w8a8, bf16) at full width from a
    seeded generator, 4 requests of 64/48/33/17 prompt tokens through
    ``prefill`` then 32 steps of ``greedy_decode``, each with exact kernel
@@ -34,6 +39,19 @@
    prefill time is printed.  Then gemma2-27b (w8a8, bf16) at full width,
    2 layers (one local with the 4096 window, one global; softcap 50), the
    same way.
+   The continuous-batching path: qwen2.5-3b (w8a8, bf16) at full width
+   and depth through the ``Scheduler`` (4 slots of 512 tokens, a dynamic
+   pool of 40 16-token pages, prefix sharing, bucket 16, an EOS id) on a
+   trace of 8 requests (prompts of 40-300 tokens, three sharing a
+   100-token prefix; budgets 16-48; arrivals over 12 ticks), five ways:
+   plain decode on bf16 and int8 pools, speculative decode with the
+   first 2 layers as the draft on both, and with the target as its own
+   draft (n_draft 4).  Each run is made twice: first with every K4 call
+   held against the plain version on its own operands as it is made (dead
+   verify rows 0) and the logit gaps recorded, then counted (launch
+   counts exact from the request log) and timed, with one tick under
+   ``torch.profiler``; the two must give equal tokens.  Speculative
+   tokens equal the plain run's, or first differ at a near tie of it.
 5. Card against CPU in f32, same weights, with exact launch counts on the
    card: unquantized (``none``) at full depth within rel-err 1e-5 on the
    dense cache and on the paged cache (one pass and chunked prefill);
@@ -42,7 +60,11 @@
    qwen2.5-3b and of gemma2-27b at full width, 2 layers, 1024 tokens, in
    ``none``, with ``blockwise_attn_threshold=1024`` so K5 is on the path
    (and gemma2's window cut to 256 so it bites): within rel-err 1e-5,
-   argmax agreement >= 0.99.
+   argmax agreement >= 0.99.  The Scheduler at qwen2.5-3b's width, 2
+   layers, f32 ``none``: one ``spec_step`` from the same committed state
+   (verify logits within rel-err 1e-5; pred, m, acc equal), and the
+   phase 4 trace's plain and self_trunc runs (tokens equal, or first
+   different at a near tie of the CPU run).
 6. Timings at the slices' shapes: each kernel, its plain version and a
    library yardstick (``torch._int_mm`` plus the epilogue, A zero-padded
    to M=32 at decode; ``scaled_dot_product_attention`` over the gathered
@@ -346,6 +368,108 @@ def check_paged(dev):
     return worst_abs, worst_rel
 
 
+# name, b, t, h, kh, d, page, committed lengths, new_lens, options: the
+# served verify pass (qwen2.5-3b's heads, n_draft 4 so 5 rows, an idle
+# slot), the JAX package's own verify-test shapes, a window
+VERIFY_Q = 5
+VERIFY_LENS = [45, 205, 365, 560]          # the timed verify launch
+VERIFY_CHECKS = [
+    ("served", 4, 576, 16, 2, 128, PAGE, [40, 300, 200, 555], [5, 5, 0, 5],
+     {}),
+    ("served all live", 4, 576, 16, 2, 128, PAGE, [40, 200, 360, 555],
+     [5] * 4, {}),
+    ("reference", 2, 64, 4, 2, 16, 8, [36, 20], [3, 1], {}),
+    ("window", 3, 128, 8, 1, 64, PAGE, [100, 10, 60], [2, 4, 1],
+     dict(window=20)),
+]
+
+
+def verify_inputs(name, kv, q_dtype, dev, seed=0):
+    """One VERIFY_CHECKS case's operands: lengths are the committed
+    lengths plus the live rows."""
+    _, b, t, h, kh, d, page, committed, new_lens, opts = next(
+        c for c in VERIFY_CHECKS if c[0] == name)
+    lens = [c + n for c, n in zip(committed, new_lens)]
+    c = paged_inputs(b, t, h, kh, d, lens, dev, qs=VERIFY_Q, page=page,
+                     kv=kv, q_dtype=q_dtype, seed=seed)
+    c["new_lens"] = torch.tensor(new_lens, dtype=torch.int32, device=dev)
+    return c, dict(opts)
+
+
+def dead_rows_zero(out, new_lens):
+    return all(not out[b, n:].any() for b, n in enumerate(new_lens.tolist()))
+
+
+def check_verify(dev):
+    """K4's verify mode (``new_lens``) against its plain version on the same
+    CUDA tensors at phase 3's limits, dead rows (and an idle slot) exactly
+    0; a one-row verify launch bitwise the plain launch; live rows of a
+    variable-row launch against exact-width launches per sequence.
+    Returns (max |err| under the f32 limits, max rel-err under the bf16
+    limit)."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ref import \
+        paged_decode_attention_ref
+    worst_abs = worst_rel = 0.0
+    for name, b, t, h, kh, d, page, committed, new_lens, _ in VERIFY_CHECKS:
+        for kv, q_dtype in PAGED_MODES:
+            c, opts = verify_inputs(name, kv, q_dtype, dev, seed=b * t + h)
+            got = paged_decode_attention(**c, **opts)
+            want = paged_decode_attention_ref(**c, **opts)
+            torch.cuda.synchronize()
+            ok, err, rel, limit = attention_agrees(got, want)
+            ok = ok and dead_rows_zero(got, c["new_lens"])
+            what = (f"paged_decode verify {name} kv={kv} q="
+                    f"{str(q_dtype)[6:]} ({b}x{VERIFY_Q}x{h}x{d}, KH={kh}, "
+                    f"page {page}, committed {committed}, new_lens "
+                    f"{new_lens}{', ' + str(opts) if opts else ''})")
+            if q_dtype == torch.float32:
+                worst_abs = max(worst_abs, err)
+            else:
+                worst_rel = max(worst_rel, rel)
+            print(f"  {'ok' if ok else 'FAIL'} {what}: max |err| {err:.3e}, "
+                  f"per-row rel-err {rel:.3e} ({limit}), dead rows 0")
+            if not ok:
+                fail(f"{what}: kernel differs from its plain version")
+
+    # one live row: bitwise the plain launch, every pool type, window
+    # on and off, at the served heads
+    for kv, q_dtype in PAGED_MODES:
+        for window in (None, 20):
+            c = paged_inputs(4, 576, 16, 2, 128, [45, 301, 201, 560], dev,
+                             kv=kv, q_dtype=q_dtype, seed=5)
+            plain = paged_decode_attention(**c, window=window)
+            one = paged_decode_attention(
+                **c, window=window, new_lens=torch.ones_like(c["lengths"]))
+            torch.cuda.synchronize()
+            if not torch.equal(plain, one):
+                fail(f"paged_decode verify: new_lens=1 differs from the plain "
+                     f"launch (kv={kv}, q={q_dtype}, window={window})")
+    print("  ok paged_decode verify: new_lens = 1 is bitwise the plain launch "
+          "(f32, bf16, int8 pools; window none and 20)")
+
+    # variable rows against exact-width launches per sequence, f32
+    for name in ("served", "reference"):
+        c, _ = verify_inputs(name, "f32", torch.float32, dev, seed=7)
+        got = paged_decode_attention(**c)
+        worst = 0.0
+        for b, n in enumerate(c["new_lens"].tolist()):
+            if n == 0:
+                continue
+            want = paged_decode_attention(
+                c["q"][b:b + 1, :n].contiguous(), c["k_pages"], c["v_pages"],
+                c["page_table"][b:b + 1], c["lengths"][b:b + 1])
+            ok, err, _, limit = attention_agrees(got[b:b + 1, :n], want)
+            worst = max(worst, err)
+            if not ok:
+                fail(f"paged_decode verify {name}: sequence {b}'s live rows "
+                     f"differ from its exact-width launch ({err:.3e})")
+        print(f"  ok paged_decode verify {name}: live rows against "
+              f"exact-width launches per sequence, max |err| {worst:.3e} "
+              f"({limit})")
+    return worst_abs, worst_rel
+
+
 def flash_inputs(b, s, t, h, kh, d, dev, dtype, seed):
     """q (B, S, H, D) and k, v (B, T, KH, D), normal, drawn on ``dev``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -476,17 +600,20 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def layer_launches(cfg, *, paged=False, flash=False) -> dict:
+def layer_launches(cfg, *, paged=False, flash=False, verify=False) -> dict:
     """One layer's kernel launches in one forward of ``cfg``.  Under w8a8
     each projection is one quant_act and one GEMM: the fused QKV one
     fused_qkv, wo and the FFN's up and down (and gate, in a gated FFN)
     one tiled_matmul each; unquantized, none.  One attention launch:
-    paged_decode on the paged cache, flash_attention on a cache-less
-    prompt of at least ``blockwise_attn_threshold`` tokens."""
+    paged_decode on the paged cache (paged_decode_verify in a speculative
+    verify pass), flash_attention on a cache-less prompt of at least
+    ``blockwise_attn_threshold`` tokens."""
     w8a8 = int(cfg.quant_proj == "w8a8")
     ffn = 3 if cfg.ffn_type in ("swiglu", "geglu") else 2
     return {"quant_act": (2 + ffn) * w8a8, "fused_qkv": w8a8,
-            "tiled_matmul": (1 + ffn) * w8a8, "paged_decode": int(paged),
+            "tiled_matmul": (1 + ffn) * w8a8,
+            "paged_decode": int(paged and not verify),
+            "paged_decode_verify": int(verify),
             "flash_attention": int(flash)}
 
 
@@ -696,10 +823,10 @@ def check_served_k5(what, calls, n):
     return worst_rel
 
 
-def device_breakdown(fn, top=10):
-    """One more ``fn()`` under ``torch.profiler`` (CUDA activity): device
-    time by kernel name, the sum, and the device's idle share of the
-    run's host-clock time."""
+def device_breakdown(fn, top=10, label="one more run"):
+    """``fn()`` (one more run, or what ``label`` says) under
+    ``torch.profiler`` (CUDA activity): device time by kernel name, the
+    sum, and the device's idle share of the run's host-clock time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -713,7 +840,7 @@ def device_breakdown(fn, top=10):
     if not rows:
         print("  torch.profiler saw no device time (not measured)")
         return
-    print(f"  device time by kernel (torch.profiler, one more run of "
+    print(f"  device time by kernel (torch.profiler, {label}: "
           f"{wall_ms:.3f} ms on the host clock): total {total:.3f} ms, so "
           f"the device idles {1 - total / wall_ms:.3f} of the run")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
@@ -984,6 +1111,500 @@ def card_vs_cpu_long(dev):
 
 
 # ---------------------------------------------------------------------------
+# 4-5. the continuous-batching Scheduler with speculative decode
+# ---------------------------------------------------------------------------
+# qwen2.5-3b served through the Scheduler: 4 slots of 512 tokens over a
+# dynamic pool of 40 16-token pages, prefix sharing, bucket 16, an EOS id
+# (qwen2.5's <|endoftext|>); drafts of N_DRAFT tokens.  The trace's first
+# two requests reserve 12 + 20 pages and the fork at tick 2 four more, so
+# of the 39 usable pages 3 are free when the fourth request (4 pages)
+# arrives at tick 3: admission waits for a retire in every run
+SCHED_SLOTS, SCHED_MAX_LEN, SCHED_POOL, SCHED_BUCKET = 4, 512, 40, 16
+SCHED_EOS = 151643
+N_DRAFT = 4
+DRAFT_LAYERS = 2
+# the ticks profiled with torch.profiler in the timed plain and
+# speculative runs (the speculative trace drains in ~4x fewer ticks)
+PROFILE_TICK_PLAIN, PROFILE_TICK_SPEC = 16, 6
+# a near tie: the plain run's top-2 logit gap below this share of the
+# row's largest |logit|.  Spec and plain runs differ in the rows per step
+# (4 against 20), so cuBLAS's f32 logits GEMM and PyTorch's reductions
+# (RMSNorm's mean) may sum in another order; under w8a8 such a last-bit
+# difference ahead of quant_act flips int8 roundings, which move logits by
+# up to the quantization error (7.7e-3 of the largest logit at 2 layers,
+# PERF.md): the limit allows 2.6x that for 36 layers.  In f32 'none' (card
+# against CPU) only the last bits differ (rel-err 1e-5 at most): 1e-4.
+NEAR_TIE = 2e-2
+NEAR_TIE_F32 = 1e-4
+
+
+def sched_trace(vocab):
+    """8 requests: prompts of 40-300 tokens (three over 128, so their
+    prefill runs K4 in several q blocks), three of them sharing a
+    100-token prefix (not a page multiple: a fork copies the boundary
+    page); budgets of 16-48; arrivals over ticks 0-11."""
+    g = torch.Generator().manual_seed(21)
+
+    def toks(n):
+        return torch.randint(0, vocab, (n,), generator=g)
+
+    prefix = toks(100)
+    prompts = [torch.cat([prefix, toks(40)]), toks(300),
+               torch.cat([prefix, toks(20)]), toks(40), toks(180),
+               torch.cat([prefix, toks(150)]), toks(64), toks(129)]
+    budgets = [48, 16, 32, 24, 40, 20, 48, 16]
+    arrivals = [0, 0, 2, 3, 5, 7, 9, 11]
+    return list(zip(prompts, budgets)), arrivals
+
+
+def truncated(model, n):
+    """The first ``n`` layers of ``model`` with its embed and head."""
+    from repro_torch.models.transformer import Model
+    return Model(model.embed, model.final_norm, list(model.layers[:n]),
+                 model.lm_head)
+
+
+def make_scheduler(model, cfg, dev, kv_quant, draft, dtype):
+    """``draft``: None (plain decode), or (draft model, draft cfg)."""
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.scheduler import Scheduler, SpecConfig
+    spec = None if draft is None else SpecConfig(*draft, n_draft=N_DRAFT)
+    return Scheduler(model, cfg, slots=SCHED_SLOTS, max_len=SCHED_MAX_LEN,
+                     config=CacheConfig(layout="paged", alloc="dynamic",
+                                        page_size=PAGE,
+                                        pool_pages=SCHED_POOL,
+                                        kv_quant=kv_quant),
+                     share_prefix=True, bucket=SCHED_BUCKET,
+                     eos_id=SCHED_EOS, dtype=dtype, spec=spec, device=dev)
+
+
+def drive(sched, trace, profile_tick=None):
+    """Serve ``trace`` to the end; returns (host s, the ms of each tick,
+    the ticks whose admission stopped at a full pool with a request
+    queued and a slot free).  Each tick ends in a synchronize.  With
+    ``profile_tick``, stop instead at the first tick from it on that
+    admits nothing (nothing queued, or no slot free) and run that tick
+    under ``torch.profiler``."""
+    reqs, arrivals = trace
+    i, tick_ms, page_waits = 0, [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while i < len(reqs) or sched.queue or sched.n_active:
+        while i < len(reqs) and arrivals[i] <= sched._ticks:
+            sched.submit(*reqs[i])
+            i += 1
+        if (profile_tick is not None and sched._ticks >= profile_tick
+                and (not sched.queue or None not in sched.slots)):
+            print(f"  tick {sched._ticks} ({sched.n_active} live rows) of "
+                  "the same run again:")
+            device_breakdown(sched.step, top=14, label="this tick")
+            break
+        # _admit pops the queue in order until no slot is free or the
+        # pool cannot cover the head: fewer admissions than both allow
+        # means it waited for pages
+        can = min(len(sched.queue), sched.slots.count(None))
+        queued = len(sched.queue)
+        t = time.perf_counter()
+        sched.step()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        page_waits += queued - len(sched.queue) < can
+        if sched._ticks > 1000:
+            fail("the scheduler did not drain in 1000 ticks")
+    return time.perf_counter() - t0, tick_ms, page_waits
+
+
+def decode_ticks(sched):
+    """Ticks that ran a decode step, from the request log: a request sits
+    in its slot from its admission tick through its last token's tick."""
+    ticks = set()
+    for log in sched.request_log.values():
+        ticks.update(range(log["admitted"], log["token_ticks"][-1] + 1))
+    return len(ticks)
+
+
+def sched_launches(cfg, draft_cfg, n_admit, n_ticks):
+    """Each kernel's launches in a scheduler run: per admission the
+    target's prefill forward (and the draft's, dense: K1-K3 only); per
+    plain tick one forward; per spec tick N_DRAFT draft forwards and one
+    target verify forward (K4 in verify mode)."""
+    want = dict.fromkeys(layer_launches(cfg), 0)
+
+    def add(per_layer, times):
+        for k, n in per_layer.items():
+            want[k] += n * times
+
+    add(layer_launches(cfg, paged=True), n_admit * cfg.n_layers)
+    if draft_cfg is None:
+        add(layer_launches(cfg, paged=True), n_ticks * cfg.n_layers)
+    else:
+        add(layer_launches(draft_cfg),
+            (n_admit + n_ticks * N_DRAFT) * draft_cfg.n_layers)
+        add(layer_launches(cfg, paged=True, verify=True),
+            n_ticks * cfg.n_layers)
+    return want
+
+
+@contextlib.contextmanager
+def recorded_gaps(sched, gaps, top2):
+    """Within the block, the top-2 logit gap (over the row's largest
+    |logit|) and the top-2 tokens of every token ``sched`` emits, keyed
+    (rid, index): from its prefills (index 0; requests are admitted in
+    submission order), its plain decode steps and its verify passes."""
+    sched_mod = importlib.import_module("repro_torch.serving.scheduler")
+    engine = importlib.import_module("repro_torch.serving.engine")
+    saved = (sched_mod.prefill, sched_mod.serve_step, engine.apply_model)
+    admitted = [0]
+
+    def record(logits, keys):
+        vals, idx = logits.float().topk(2, dim=-1)
+        rel = ((vals[..., 0] - vals[..., 1])
+               / logits.float().abs().amax(-1)).tolist()
+        for key, r, i in zip(keys, rel, idx.tolist()):
+            if key is not None:
+                gaps[key], top2[key] = r, i
+
+    def live_keys(offset=0):
+        return [None if s is None else (s.req.rid, len(s.generated) + offset)
+                for s in sched.slots]
+
+    def prefill(*args, **kwargs):
+        next_logits, view = saved[0](*args, **kwargs)
+        record(next_logits, [(admitted[0], 0)])
+        admitted[0] += 1
+        return next_logits, view
+
+    def serve_step(*args, **kwargs):
+        logits, cache = saved[1](*args, **kwargs)
+        record(logits[:, -1], live_keys())
+        return logits, cache
+
+    def apply_model(*args, **kwargs):
+        out = saved[2](*args, **kwargs)
+        if kwargs.get("n_valid") is not None:       # the verify pass
+            for r in range(out[0].shape[1]):
+                record(out[0][:, r], live_keys(r))
+        return out
+
+    sched_mod.prefill, sched_mod.serve_step = prefill, serve_step
+    engine.apply_model = apply_model
+    try:
+        yield
+    finally:
+        sched_mod.prefill, sched_mod.serve_step, engine.apply_model = saved
+
+
+@contextlib.contextmanager
+def checked_k4_calls(stats):
+    """Within the block, every K4 call is held, as it is made, against the
+    plain version on its own operands (the pools change in place after
+    it), at phase 3's limits; a verify call's dead rows must be 0."""
+    from repro_torch.kernels.flash_attention.ref import \
+        paged_decode_attention_ref
+    mod = importlib.import_module("repro_torch.models.attention")
+    wrapper = mod.paged_decode_attention
+
+    def check(*args, **kwargs):
+        out = wrapper(*args, **kwargs)
+        ok, err, rel, limit = attention_agrees(
+            out, paged_decode_attention_ref(*args, **kwargs))
+        new_lens = kwargs.get("new_lens")
+        verify = new_lens is not None
+        if verify and not dead_rows_zero(out, new_lens):
+            fail(f"served K4 verify call {stats['calls']}: dead rows not 0")
+        if not ok:
+            fail(f"served K4 call {stats['calls']} (q {tuple(args[0].shape)}"
+                 f", verify={verify}) differs from its plain version: max "
+                 f"|err| {err:.3e}, per-row rel-err {rel:.3e} ({limit})")
+        stats["calls"] += 1
+        stats["verify"] += int(verify)
+        stats["multi_block"] += int(args[0].shape[1] > 128)
+        stats["err"] = max(stats["err"], err)
+        stats["rel"] = max(stats["rel"], rel)
+        stats["limit"] = limit
+        return out
+
+    mod.paged_decode_attention = check
+    try:
+        yield
+    finally:
+        mod.paged_decode_attention = wrapper
+
+
+def first_divergence(a, b):
+    """First index where token lists differ or one ends; None if equal."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def near_tie_rule(what, ref, other, gaps, top2, limit):
+    """Each request's tokens in ``other`` equal ``ref``'s, or first differ
+    where ``ref`` had a near tie (top-2 gap below ``limit`` of the largest
+    |logit|) and ``other`` took ``ref``'s second choice.  Returns the share
+    of identical requests."""
+    same, notes = 0, []
+    for rid, toks in ref.items():
+        i = first_divergence(toks.tolist(), other[rid].tolist())
+        if i is None:
+            same += 1
+            continue
+        gap = gaps.get((rid, i))
+        took = other[rid][i].item() if i < len(other[rid]) else None
+        if gap is None or gap >= limit or took != top2[(rid, i)][1]:
+            fail(f"{what}: request {rid} first differs at token {i} (took "
+                 f"{took}, top-2 {top2.get((rid, i))}), where the top-2 gap "
+                 f"was {gap} of the largest |logit| (near tie below {limit})")
+        notes.append(f"request {rid} at token {i}, gap {gap:.3e}")
+    share = same / len(ref)
+    below = sum(g < limit for g in gaps.values()) / len(gaps)
+    print(f"  {what}: {same} of {len(ref)} requests identical ({share:.3f})"
+          f"{'; near ties at ' + ', '.join(notes) if notes else ''} (a "
+          f"near tie: top-2 gap < {limit} of the largest |logit|; "
+          f"{below:.3f} of the reference run's tokens are one)")
+    return share
+
+
+def sched_run(what, model, cfg, dev, kv_quant, draft, dtype, trace, *,
+              ref=None, profile_tick=None):
+    """One scheduler run of ``trace``: first with every K4 call held
+    against the plain version and the logit gaps recorded, then the same
+    run again, counted and timed, whose tokens must equal the first's
+    (launch counts exact, the pool back to the scratch page); then, with
+    ``profile_tick``, once more up to that tick, which is profiled.
+    ``ref``: (finished, gaps, top2) of the plain run to hold a speculative
+    run to by the near-tie rule.  Returns (finished, gaps, top2, the
+    run's numbers)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    gaps, top2 = {}, {}
+    stats = dict(calls=0, verify=0, multi_block=0, err=0.0, rel=0.0,
+                 limit="")
+    sched = make_scheduler(model, cfg, dev, kv_quant, draft, dtype)
+    with checked_k4_calls(stats), recorded_gaps(sched, gaps, top2):
+        drive(sched, trace)
+    first = sched.finished
+    sched = make_scheduler(model, cfg, dev, kv_quant, draft, dtype)
+    reset_launch_counts()
+    seconds, tick_ms, page_waits = drive(sched, trace)
+    counts = launch_counts()
+    n_ticks = decode_ticks(sched)
+    draft_cfg = None if draft is None else draft[1]
+    want = sched_launches(cfg, draft_cfg, len(trace[0]), n_ticks)
+    st = sched.spec_stats
+    if draft is not None and st["ticks"] != n_ticks:
+        fail(f"{what}: {st['ticks']} spec ticks, {n_ticks} from the log")
+    print(f"{what}: launches {counts} (expected {want})")
+    if counts != want:
+        fail(f"{what}: launch counts {counts} != {want}")
+    if stats["calls"] != counts["paged_decode"] + \
+            counts["paged_decode_verify"]:
+        fail(f"{what}: {stats['calls']} K4 calls checked, "
+             f"{counts['paged_decode']} + {counts['paged_decode_verify']} "
+             "launched")
+    for rid, toks in first.items():
+        if not torch.equal(torch.as_tensor(toks),
+                           torch.as_tensor(sched.finished[rid])):
+            fail(f"{what}: two runs of the same trace differ (request "
+                 f"{rid})")
+    print(f"  each of its {stats['calls']} K4 calls ({stats['verify']} "
+          f"verify, {stats['multi_block']} prefill calls of more than 128 "
+          f"rows) against the plain version on the call's own operands: "
+          f"worst max |err| {stats['err']:.3e}, worst per-row rel-err "
+          f"{stats['rel']:.3e} ({stats['limit']})")
+    occ = sched.pool_occupancy()
+    if occ.used != 1:
+        fail(f"{what}: {occ.used} pages held after the run (scratch only: 1)")
+    for rid, toks in sched.finished.items():
+        if len(toks) < 1 or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab_size:
+            fail(f"{what}: request {rid} tokens out of range")
+    n_tok = sum(len(v) for v in sched.finished.values())
+    out = {"ticks": sched._ticks, "decode_ticks": n_ticks, "tokens": n_tok,
+           "seconds": seconds, "tok_s": n_tok / seconds,
+           "ms_per_tick": sum(tick_ms) / len(tick_ms),
+           "pages_peak": max(sched.occupancy_log),
+           "page_wait_ticks": page_waits,
+           "k4_plain": counts["paged_decode"],
+           "k4_verify": counts["paged_decode_verify"],
+           "acceptance": (st["accepted"] / st["proposed"]
+                          if st["proposed"] else None)}
+    print(f"  {out['ticks']} ticks ({n_ticks} decoding), {n_tok} tokens in "
+          f"{seconds * 1e3:.3f} ms = {out['tok_s']:.1f} tok/s, "
+          f"{out['ms_per_tick']:.3f} ms per tick (host clock after "
+          f"torch.cuda.synchronize()), pages_peak {out['pages_peak']} of "
+          f"{SCHED_POOL}, admission waited for pages in {page_waits} "
+          f"ticks; acceptance "
+          + ("-" if draft is None else
+             f"{st['accepted']} / {st['proposed']} = {out['acceptance']:.3f}")
+          + f"; K4 launches: {out['k4_verify']} verify, {out['k4_plain']} "
+          "plain")
+    if not page_waits:
+        fail(f"{what}: admission never waited for pages (pool of "
+             f"{SCHED_POOL}): the trace no longer drives admission control")
+    if ref is not None:
+        near_tie_rule(f"{what} against the plain run", ref[0],
+                      sched.finished, ref[1], ref[2],
+                      NEAR_TIE if cfg.quant_proj == "w8a8" else NEAR_TIE_F32)
+    if profile_tick is not None:
+        drive(make_scheduler(model, cfg, dev, kv_quant, draft, dtype), trace,
+              profile_tick)
+    return sched.finished, gaps, top2, out
+
+
+def scheduler_paths(dev):
+    """Phase 4: qwen2.5-3b (w8a8, bf16, fused QKV) at full width and depth,
+    weights drawn on the card from a seeded generator, serving one trace
+    through the Scheduler five ways: plain decode on bf16 and on int8
+    pools, speculative decode with the first DRAFT_LAYERS target layers as
+    the draft on both, and with the target as its own draft on bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize_params import quantize_model_params
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("qwen2_5_3b").replace(quant_proj="w8a8")
+    master = init_model(torch.Generator(device=dev).manual_seed(5), cfg,
+                        device=dev)
+    model = quantize_model_params(master)
+    del master
+    torch.cuda.empty_cache()
+    trace = sched_trace(cfg.vocab_size)
+    print(f"scheduler: {cfg.name} {cfg.quant_proj} {cfg.dtype}, "
+          f"{cfg.n_layers} layers, d={cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}x{cfg.head_dim}; {len(trace[0])} requests, "
+          f"prompts {[len(p) for p, _ in trace[0]]}, budgets "
+          f"{[n for _, n in trace[0]]}, arrivals {trace[1]}; {SCHED_SLOTS} "
+          f"slots x {SCHED_MAX_LEN} tokens, {SCHED_POOL} pages of {PAGE}, "
+          f"n_draft {N_DRAFT}")
+    trunc = (truncated(model, DRAFT_LAYERS),
+             cfg.replace(n_layers=DRAFT_LAYERS))
+    runs = {}
+    for kv in ("none", "int8"):
+        pool = "bf16" if kv == "none" else "int8"
+        plain = sched_run(f"scheduler plain, {pool} pools", model, cfg, dev,
+                          kv, None, torch.bfloat16, trace,
+                          profile_tick=PROFILE_TICK_PLAIN if kv == "none"
+                          else None)
+        runs[f"plain-{pool}"] = plain[3]
+        spec = sched_run(f"scheduler self_trunc ({DRAFT_LAYERS}-layer draft), "
+                         f"{pool} pools", model, cfg, dev, kv, trunc,
+                         torch.bfloat16, trace, ref=plain[:3],
+                         profile_tick=PROFILE_TICK_SPEC if kv == "none"
+                         else None)
+        runs[f"self_trunc-{pool}"] = spec[3]
+        if kv == "none":
+            full = sched_run("scheduler self_full (the target as its draft), "
+                             "bf16 pools", model, cfg, dev, kv, (model, cfg),
+                             torch.bfloat16, trace, ref=plain[:3])
+            runs["self_full-bf16"] = full[3]
+    del model, trunc
+    torch.cuda.empty_cache()
+    return runs
+
+
+def card_vs_cpu_scheduler(dev):
+    """Phase 5 for the Scheduler: qwen2.5-3b at full width, CHECK_LAYERS
+    layers, f32 'none', the draft its first layer.  One ``spec_step`` from
+    the same committed state on both sides (verify logits within rel-err
+    1e-5; pred, m and acc equal), then the whole plain and self_trunc runs
+    of the phase 4 trace on both (launch counts exact on the card; tokens
+    equal, or first different at a near tie of the CPU run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.engine import spec_step
+    cfg = get_config("qwen2_5_3b").replace(
+        n_layers=CHECK_LAYERS, quant_proj="none", dtype="float32")
+    cpu = torch.device("cpu")
+    model_cpu = init_model(torch.Generator().manual_seed(6), cfg,
+                           device="cpu")
+    model = copy.deepcopy(model_cpu).to(dev)
+    dcfg = cfg.replace(n_layers=1)
+    trace = sched_trace(cfg.vocab_size)
+    what = (f"card vs CPU: scheduler {cfg.name} f32 'none', {cfg.n_layers} "
+            f"layers, 1-layer draft")
+
+    # a committed state: the CPU serves the trace's first 3 ticks
+    sched = make_scheduler(model_cpu, cfg, cpu, "none",
+                           (truncated(model_cpu, 1), dcfg), torch.float32)
+    reqs, arrivals = trace
+    i = 0
+    while sched._ticks < 3:
+        while arrivals[i] <= sched._ticks:
+            sched.submit(*reqs[i])
+            i += 1
+        sched.step()
+    active = torch.tensor([s is not None for s in sched.slots])
+    tok = torch.tensor([[s.last_token if s else 0] for s in sched.slots])
+    budget = torch.tensor([s.req.max_new_tokens - len(s.generated) if s
+                           else 0 for s in sched.slots])
+    engine = importlib.import_module("repro_torch.serving.engine")
+    wrapped = engine.apply_model
+    results = {}
+    for side, d, m in (("card", dev, model), ("cpu", cpu, model_cpu)):
+        cache = {k: v.clone().to(d) for k, v in sched.cache.items()}
+        dense = {k: v.clone().to(d) for k, v in sched.draft_cache.items()}
+        verify = []
+
+        def capture(*args, **kwargs):
+            out = wrapped(*args, **kwargs)
+            if kwargs.get("n_valid") is not None:      # the verify pass
+                verify.append(out[0])
+            return out
+
+        engine.apply_model = capture
+        try:
+            pred, mm, acc, cache, _ = spec_step(
+                m, truncated(m, 1), cache, dense, tok.to(d), budget.to(d),
+                active.to(d), cfg, dcfg, n_draft=N_DRAFT, eos_id=SCHED_EOS)
+        finally:
+            engine.apply_model = wrapped
+        results[side] = [x.cpu() for x in (verify[0], pred, mm, acc,
+                                           cache["seq_lens"])]
+    card, host = results["card"], results["cpu"]
+    live = active.nonzero().flatten()
+    err = rel_err(card[0][live], host[0][live])
+    same = torch.equal(card[1][live], host[1][live]) and all(
+        torch.equal(a, b) for a, b in zip(card[2:], host[2:]))
+    print(f"{what}: one spec_step from the same committed state (after 3 "
+          f"ticks, {int(active.sum())} live rows): verify logits rel-err "
+          f"{err:.3e} (limit {TOL_NONE}); live rows' pred, m, acc, seq_lens "
+          f"{'equal' if same else 'DIFFER'} (m {host[2].tolist()}, acc "
+          f"{host[3].tolist()})")
+    if err > TOL_NONE or not same:
+        fail(f"{what}: spec_step on the card and the CPU disagree")
+    del sched
+    shares = {}
+
+    for label, draft in (("plain", None), ("self_trunc", 1)):
+        outs = {}
+        for side, d, m in (("cpu", cpu, model_cpu), ("card", dev, model)):
+            sched = make_scheduler(
+                m, cfg, d, "none",
+                None if draft is None else (truncated(m, draft), dcfg),
+                torch.float32)
+            gaps, top2 = {}, {}
+            reset_launch_counts()
+            with recorded_gaps(sched, gaps, top2):
+                seconds, _, _ = drive(sched, trace)
+            if side == "card":
+                counts = launch_counts()
+                want = sched_launches(cfg, None if draft is None else dcfg,
+                                      len(reqs), decode_ticks(sched))
+                if counts != want:
+                    fail(f"{what}, {label}: launch counts {counts} != {want}")
+            outs[side] = (sched.finished, gaps, top2, sched._ticks, seconds)
+        share = near_tie_rule(
+            f"{what}, {label} run, card against CPU ({outs['cpu'][3]} / "
+            f"{outs['card'][3]} ticks, CPU {outs['cpu'][4]:.1f} s)",
+            outs["cpu"][0], outs["card"][0], outs["cpu"][1], outs["cpu"][2],
+            NEAR_TIE_F32)
+        shares[label] = share
+    del model, model_cpu
+    torch.cuda.empty_cache()
+    return shares
+
+
+# ---------------------------------------------------------------------------
 # 6. timings
 # ---------------------------------------------------------------------------
 def device_ms(fn, sets, launches=200, replays=5):
@@ -1114,9 +1735,12 @@ def sdpa_gathered(q, k, v, mask):
 
 
 def time_paged(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
-               q_dtype=None, q_chunk=None, window=None, launches=200):
+               q_dtype=None, q_chunk=None, window=None, launches=200,
+               new_lens=None):
     """K4 at one shape: kernel, plain version and library yardstick, and
-    the bound from the K/V rows this run's lengths make visible."""
+    the bound from the K/V rows this run's lengths make visible.  With
+    ``new_lens`` (a list) the verify launch, whose rows past the live
+    count see nothing (and a sequence with none reads nothing)."""
     from repro_torch.kernels.flash_attention.decode import (
         flash_decode_schedule, pages_touched)
     from repro_torch.kernels.flash_attention.ops import paged_decode_attention
@@ -1124,24 +1748,34 @@ def time_paged(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
         dequantize_gathered, paged_decode_attention_ref, paged_gather,
         paged_gather_scales)
     elt = {"f32": 4, "bf16": 2, "int8": 1}[kv]
-    q_elt = 2 if (q_dtype or (torch.bfloat16 if kv == "bf16"
-                              else torch.float32)) == torch.bfloat16 else 4
+    q_dt = q_dtype or (torch.bfloat16 if kv == "bf16" else torch.float32)
+    q_elt = 2 if q_dt == torch.bfloat16 else 4
+    # the products run at the rate of q's type (int8 pages meet a bf16 q)
+    peak = BF16_OPS_PER_S if q_dt == torch.bfloat16 else F32_OPS_PER_S
     # the K/V rows some new row of a sequence sees, once per KV head: its
     # whole context, or with a window its last window + qs - 1 rows; and
     # the table entries of their pages (the one-block schedule's walk)
-    kv_rows = sum(min(n, window + qs - 1) if window else n for n in lens)
-    pages = pages_touched(lens, flash_decode_schedule(
-        t // page, page, q_len=qs, window=window))
+    live = [qs] * b if new_lens is None else list(new_lens)
+    kv_rows = sum(min(n, window + nl - 1) if window else n
+                  for n, nl in zip(lens, live) if nl)
+    pages = pages_touched([n for n, nl in zip(lens, live) if nl],
+                          flash_decode_schedule(t // page, page, q_len=qs,
+                                                window=window))
     nbytes = (kv_rows * kh * (2 * d * elt + (8 if kv == "int8" else 0))
-              + 2 * b * qs * h * d * q_elt + 4 * pages + 4 * b)
-    # QK and PV: 4·d flops per (query head, row, visible key)
-    visible = sum(min(n - qs + r + 1, window or t)
-                  for n in lens for r in range(qs))
-    b_ms, by = bound(nbytes, 4 * d * h * visible, F32_OPS_PER_S)
+              + 2 * b * qs * h * d * q_elt + 4 * pages
+              + 4 * b * (1 if new_lens is None else 2))
+    # QK and PV: 4·d flops per (query head, live row, visible key)
+    visible = sum(min(n - nl + r + 1, window or t)
+                  for n, nl in zip(lens, live) for r in range(nl))
+    b_ms, by = bound(nbytes, 4 * d * h * visible, peak)
     opts = dict(q_chunk=q_chunk, window=window)
     sets = [(paged_inputs(b, t, h, kh, d, lens, dev, qs=qs, page=page, kv=kv,
                           q_dtype=q_dtype, seed=i),)
             for i in range(n_copies(nbytes))]
+    if new_lens is not None:
+        for (c,) in sets:
+            c["new_lens"] = torch.tensor(new_lens, dtype=torch.int32,
+                                         device=dev)
 
     def library_operands(c):
         k, v = (paged_gather(c[f"{n}_pages"], c["page_table"])
@@ -1151,9 +1785,12 @@ def time_paged(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
                                                            c["page_table"]))
             v = dequantize_gathered(v, paged_gather_scales(c["v_scales"],
                                                            c["page_table"]))
-        q_pos = c["lengths"].long()[:, None] - qs + torch.arange(qs, device=dev)
+        n_live = c.get("new_lens", torch.full_like(c["lengths"], qs)).long()
+        rows = torch.arange(qs, device=dev)
+        q_pos = c["lengths"].long()[:, None] - n_live[:, None] + rows
         k_pos = torch.arange(k.shape[1], device=dev)
         mask = k_pos <= q_pos[..., None]                   # (B, qs, T)
+        mask &= (rows < n_live[:, None])[..., None]        # dead rows
         if window is not None:
             mask &= k_pos > q_pos[..., None] - window
         dt = c["q"].dtype
@@ -1278,6 +1915,16 @@ def timings(cfg, dev):
                      time_paged(8, 4096, hh, kk, dd, [4096] * 8, dev,
                                 page=64, kv="bf16", launches=50)))
     shapes["paged_decode"] = rows
+    # K4's verify mode: one launch per layer of a spec tick's verify pass,
+    # at the served shape (qwen2.5-3b's heads, 4 sequences of 5 rows over
+    # contexts of 45-560 tokens), bf16 and int8 pools
+    shapes["paged_decode_verify"] = [
+        (f"verify{'' if pool == 'bf16' else '-int8'}",
+         f"4x{VERIFY_Q} H16 KH2 D128 {pool} lens {VERIFY_LENS}", 1,
+         time_paged(4, 576, 16, 2, 128, VERIFY_LENS, dev, qs=VERIFY_Q,
+                    kv=pool, q_dtype=torch.bfloat16,
+                    new_lens=[VERIFY_Q] * 4))
+        for pool in ("bf16", "int8")]
     # K5: one launch per layer of prefill_step at the served shapes
     shapes["flash_attention"] = [
         ("prefill", f"qwen2.5-3b 1x{LONG_PROMPT} H16 KH2 D128 bf16", 1,
@@ -1335,6 +1982,9 @@ KERNELS = {
 }
 # what each kernel's row times: one layer's launches at prefill
 WORK = {"paged_decode": "one prefill layer: 4 x 64 rows over bf16 pages"}
+VERIFY_KERNEL = ("src/repro_torch/csrc/paged_decode.cu",
+                 "src/repro/kernels/flash_attention/decode.py:178 (the "
+                 "has_new_lens branch, :181 and :232)")
 FLASH_KERNEL = ("src/repro_torch/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:133")
 
@@ -1356,6 +2006,7 @@ def main():
           "limits):")
     errs = check_kernels(dev)
     errs["paged_decode"], paged_rel_bf16 = check_paged(dev)
+    errs["paged_decode_verify"], verify_rel_bf16 = check_verify(dev)
     errs["flash_attention"], flash_rel_bf16 = check_flash(dev)
 
     cfg = get_config("distilbert_paper")
@@ -1372,8 +2023,10 @@ def main():
             model, cfg, dev, toks, cache)
         del cache
         qwen, gemma = long_prompt_paths(dev)
+        sched_runs = scheduler_paths(dev)
         card_vs_cpu(model_cpu, master, cfg, dev)
         card_vs_cpu_long(dev)
+        sched_check = card_vs_cpu_scheduler(dev)
     counts["paged_decode"] = paged_counts["paged_decode"]
     shapes = timings(cfg, dev)
 
@@ -1412,6 +2065,36 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for phase in ("local", "global")},
     })
+    ver = {phase: r for phase, _, _, r in shapes["paged_decode_verify"]}
+    kernels.append({
+        "name": "paged_decode_verify", "route": "cuda",
+        "source": VERIFY_KERNEL[0], "replaces": VERIFY_KERNEL[1],
+        "launches": sum(r["k4_verify"] for r in sched_runs.values()),
+        "max_abs_err": errs["paged_decode_verify"],
+        "ms": ver["verify"]["ms"], "plain_ms": ver["verify"]["plain_ms"],
+        "bound_ms": ver["verify"]["bound_ms"],
+        "bound_by": ver["verify"]["bound_by"],
+        "library_ms": ver["verify"]["library_ms"],
+        "work": f"one verify launch of a qwen2.5-3b spec tick: 4 x "
+                f"{VERIFY_Q} rows, H16/KH2, D128, bf16 pages, lengths "
+                f"{VERIFY_LENS}",
+        "max_row_rel_err_bf16": verify_rel_bf16,
+        "int8": {k: ver["verify-int8"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "launches_per_run": {k: r["k4_verify"]
+                             for k, r in sched_runs.items()},
+    })
+    for k, r in sched_runs.items():
+        accept = ("-" if r["acceptance"] is None
+                  else f"{r['acceptance']:.3f}")
+        print(f"scheduler {k} (qwen2.5-3b w8a8 bf16, 36 layers): "
+              f"{r['ticks']} ticks, {r['tok_s']:.1f} tok/s, "
+              f"{r['ms_per_tick']:.3f} ms/tick, acceptance {accept}, "
+              f"pages_peak {r['pages_peak']} of {SCHED_POOL}, page waits "
+              f"{r['page_wait_ticks']} ticks, K4 {r['k4_verify']} verify + "
+              f"{r['k4_plain']} plain")
+    print(f"card vs CPU scheduler (2 layers f32): identical share "
+          f"{sched_check}")
     print(f"serve: dense prefill_ms={t_prefill * 1e3:.3f} "
           f"decode_tok_s={tps:.1f}; paged prefill_ms="
           f"{paged_prefill * 1e3:.3f} decode_tok_s={paged_tps:.1f}")

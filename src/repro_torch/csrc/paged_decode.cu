@@ -1,8 +1,8 @@
 // Paged flash attention over a KV page pool (K4) for sm_90a.
 //
 // Replaces: src/repro/kernels/flash_attention/decode.py, _decode_kernel
-//           (launched by paged_decode_kernel), in its plain mode and its
-//           int8 mode; the speculative verify mode (new_lens) is not here.
+//           (launched by paged_decode_kernel), in its plain mode, its
+//           int8 mode and its speculative verify mode (new_lens).
 // Computes: for each sequence b, KV head kh and new row t of the step,
 //           out[b, t, h] = softmax(q·K^T · scale [softcap]) · V over the
 //           sequence's pages, with h = kh·g + gi for the g = H / KH query
@@ -14,6 +14,13 @@
 //           step's new rows.  Row t sits at q_pos = lengths[b] - q_len + t
 //           and sees k_pos <= q_pos (and k_pos > q_pos - window); a row
 //           that sees nothing gives 0.  The softmax is online, in f32.
+//           Verify mode (new_lens (B,) int32, non-null): only rows
+//           t < new_lens[b] are live, at q_pos = lengths[b] - new_lens[b]
+//           + t; dead rows see nothing and so give exact zeros.  The plain
+//           launch is the verify launch with new_lens[b] = q_len: one code
+//           path, in which new_lens changes only the rows' base position
+//           and their liveness, so a verify launch of one live row is
+//           bitwise the plain launch of one row.
 // Bound:    bytes.  Each K/V element is read once from device memory and
 //           used for 2 flops per query row: at decode (g = 1, one row) that
 //           is 0.5-2 flops per byte, far below the card's ~20 f32 flops per
@@ -27,8 +34,9 @@
 //           block walk the same pages, the second from L2.  Each block
 //           reads lengths[b] and the page table itself, computes the q
 //           block's page range [j_lo, j_hi] as flash_decode_schedule's
-//           _page_bounds does, and walks only those pages: per page, K and
-//           V are staged in shared memory as f32 with 16-byte loads
+//           _page_bounds does (from the live rows' base; a q block with
+//           no live row walks nothing), and walks only those pages: per
+//           page, K and V are staged in shared memory as f32 with 16-byte loads
 //           (dequantized there in int8 mode; V rows past the context
 //           zeroed), one thread per (row, key) dot product, one warp per
 //           row for the running max and sum, one thread per (row, d) for
@@ -59,6 +67,7 @@ struct Params {
   const float* v_scales;
   const int* page_table;
   const int* lengths;
+  const int* new_lens;        // verify mode only; null: all q_len rows live
   void* out;
   int q_len, n_heads, n_kv, d, page, max_pages, q_chunk, group, window;
   float scale, softcap;       // softcap <= 0: none; window <= 0: none
@@ -146,13 +155,15 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
   int* pos_s = reinterpret_cast<int*>(a_s + kRows);
   int* tok_s = pos_s + kRows;                    // new-row index, -1: none
   int* head_s = tok_s + kRows;
+  int* live_s = head_s + kRows;                  // the row belongs to a token
 
   const int b = blockIdx.x / p.n_kv, kh = blockIdx.x % p.n_kv;
   const int i = blockIdx.y;                      // q block
   const int row0 = blockIdx.z * kRows;           // first of the group's rows
   const int nr = min(kRows, p.group * qc - row0);
   const int ctx = p.lengths[b];
-  const int base = ctx - p.q_len;
+  const int n_live = p.new_lens ? p.new_lens[b] : p.q_len;
+  const int base = ctx - n_live;
 
   // rows of the group are laid out (g, q_chunk): row r is query head
   // kh·g + r / q_chunk at new row i·q_chunk + r % q_chunk
@@ -168,6 +179,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
     }
     tok_s[r] = tok;
     head_s[r] = head;
+    live_s[r] = tok >= 0 && tok < n_live;
     pos_s[r] = base + tok;
     m_s[r] = kNegInf;
     l_s[r] = 0.0f;
@@ -182,11 +194,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
                                 static_cast<int64_t>(head_s[r]) * d + c]);
   }
 
-  // the q block's pages, as _page_bounds computes them
+  // the q block's pages, as _page_bounds computes them; none for a block
+  // whose rows are all dead (verify mode)
   const int last = min(base + (i + 1) * qc - 1, ctx - 1);
-  const int j_hi = min(max(last, 0) / ps, p.max_pages - 1);
+  int j_hi = min(max(last, 0) / ps, p.max_pages - 1);
   int j_lo = 0;
   if (p.window > 0) j_lo = min(max(base + i * qc - p.window + 1, 0) / ps, j_hi);
+  if (i * qc >= n_live) j_hi = j_lo - 1;
 
   float acc[kAcc];
 #pragma unroll
@@ -209,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
       for (int e = 0; e < d; ++e) dot = __fmaf_rn(qr[e], kr[e], dot);
       float s = __fmul_rn(dot, p.scale);
       if (p.softcap > 0.0f) s = __fmul_rn(p.softcap, tanhf(__fdiv_rn(s, p.softcap)));
-      const bool ok = tok_s[r] >= 0 && visible(j * ps + c, pos_s[r], p.window);
+      const bool ok = live_s[r] && visible(j * ps + c, pos_s[r], p.window);
       p_s[idx] = ok ? s : kNegInf;
     }
     __syncthreads();
@@ -227,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
       float sum = 0.0f;
       for (int c = lane; c < ps; c += 32) {
         // rows with nothing visible yet have m_new == NEG_INF: re-mask
-        const bool ok = tok_s[r] >= 0 && visible(j * ps + c, pos_s[r], p.window);
+        const bool ok = live_s[r] && visible(j * ps + c, pos_s[r], p.window);
         const float e = ok ? expf(__fsub_rn(sr[c], m_new)) : 0.0f;
         sum = __fadd_rn(sum, e);
         sr[c] = round_p<TKV>(e);
@@ -286,7 +300,7 @@ int launch(Params p, int batch, int device, cudaStream_t stream) {
           reinterpret_cast<uintptr_t>(p.v) % 16 == 0;
   const size_t smem = sizeof(float) * (p.page * (2 * p.d + 1) + kRows * p.d +
                                        kRows * p.page + 3 * kRows) +
-                      sizeof(int) * 3 * kRows;
+                      sizeof(int) * 4 * kRows;
   static size_t opted_in = 48 * 1024;           // per instantiation
   if (smem > opted_in) {
     err = cudaFuncSetAttribute(paged_decode_kernel<TQ, TKV>,
@@ -306,11 +320,13 @@ int launch(Params p, int batch, int device, cudaStream_t stream) {
 
 // q_bf16: q and out are bf16 (else f32).  kv_int8: int8 pools with scale
 // pools (else pools of q's dtype).  window <= 0 and softcap <= 0: none.
+// new_lens null: the plain launch; else the verify launch.
 extern "C" int launch_paged_decode(const void* q, const void* k, const void* v,
                                    const void* k_scales, const void* v_scales,
                                    const void* page_table, const void* lengths,
-                                   void* out, int batch, int q_len, int n_heads,
-                                   int n_kv, int d, int page, int max_pages,
+                                   const void* new_lens, void* out, int batch,
+                                   int q_len, int n_heads, int n_kv, int d,
+                                   int page, int max_pages,
                                    int q_chunk, int window, float scale,
                                    float softcap, int q_bf16, int kv_int8,
                                    int device, cudaStream_t stream) {
@@ -322,6 +338,7 @@ extern "C" int launch_paged_decode(const void* q, const void* k, const void* v,
   p.v_scales = kv_int8 ? static_cast<const float*>(v_scales) : nullptr;
   p.page_table = static_cast<const int*>(page_table);
   p.lengths = static_cast<const int*>(lengths);
+  p.new_lens = static_cast<const int*>(new_lens);
   p.out = out;
   p.q_len = q_len;
   p.n_heads = n_heads;

@@ -99,7 +99,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            softcap: float | None = None,
                            q_chunk: int | None = None,
                            k_scales: torch.Tensor | None = None,
-                           v_scales: torch.Tensor | None = None
+                           v_scales: torch.Tensor | None = None,
+                           new_lens: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """Causal attention over a paged KV cache.
 
@@ -112,6 +113,12 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (B, q_len, H, D) in q's dtype.  ``q_chunk`` bounds the rows of one
     kernel q block (default: all of q_len); it changes the blocking, not
     the result.
+
+    ``new_lens`` (B,) int32 selects the verify mode (speculative decode):
+    row ``t`` of sequence ``b`` is live iff ``t < new_lens[b]``, at
+    position ``lengths[b] - new_lens[b] + t``; dead rows give exact
+    zeros.  Its launches count in ``verify_launches``, the plain ones in
+    ``launches``.
     """
     b, qs, h, d = q.shape
     p_total, page, kh, dk = k_pages.shape
@@ -126,7 +133,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return _ref.paged_decode_attention_ref(
             q, k_pages, v_pages, page_table, lengths, scale=scale,
             window=window, softcap=softcap, k_scales=k_scales,
-            v_scales=v_scales)
+            v_scales=v_scales, new_lens=new_lens)
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {dev}")
     if q.dtype not in _Q_DTYPES:
@@ -143,6 +150,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check(page_table, torch.int32, (b, page_table.shape[1]), dev,
            "page_table")
     _check(lengths, torch.int32, (b,), dev, "lengths")
+    verify = new_lens is not None
+    if verify:
+        _check(new_lens, torch.int32, (b,), dev, "new_lens")
     if quant:
         _check(k_scales, torch.float32, (p_total, page, kh), dev, "k_scales")
         _check(v_scales, torch.float32, (p_total, page, kh), dev, "v_scales")
@@ -153,6 +163,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     k_scales.data_ptr() if quant else None,
                     v_scales.data_ptr() if quant else None,
                     page_table.data_ptr(), lengths.data_ptr(),
+                    new_lens.data_ptr() if verify else None,
                     out.data_ptr(), b, qs, h, kh, d, page,
                     page_table.shape[1], min(q_chunk or qs, qs),
                     window if window is not None else 0, scale,
@@ -160,8 +171,12 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     int(q.dtype == torch.bfloat16), int(quant),
                     dev.index, torch.cuda.current_stream(dev).cuda_stream),
                  "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    if verify:
+        paged_decode_attention.verify_launches += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.verify_launches = 0

@@ -92,7 +92,8 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                softcap: float | None = None,
                                q_chunk: int | None = None,
                                k_scales: torch.Tensor | None = None,
-                               v_scales: torch.Tensor | None = None
+                               v_scales: torch.Tensor | None = None,
+                               new_lens: torch.Tensor | None = None
                                ) -> torch.Tensor:
     """Dense oracle over a paged cache, with the wrapper's interface.
 
@@ -103,6 +104,10 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     it, and a fully masked row gives 0.  ``k_scales``/``v_scales``
     (P, page, KH) f32 select int8 pools, dequantized row by row.
     ``q_chunk`` is the kernel's blocking and changes nothing here.
+
+    ``new_lens`` (B,) int32 is the verify mode: row r of sequence b is
+    live iff ``r < new_lens[b]``, at position ``lengths[b] - new_lens[b]
+    + r``; dead rows are fully masked (0 output).
     """
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     b, qs, h, d = q.shape
@@ -119,10 +124,15 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     s = torch.einsum("bkgsd,btkd->bkgst", qg.float(), k.float()) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    q_pos = (lengths.long()[:, None] - qs
-             + torch.arange(qs, device=q.device)[None, :])     # (B, qs)
+    rows = torch.arange(qs, device=q.device)
+    n_live = (torch.full_like(lengths, qs) if new_lens is None
+              else new_lens).long()
+    q_pos = lengths.long()[:, None] - n_live[:, None] + rows[None, :]  # (B, qs)
     k_pos = torch.arange(t_len, device=q.device)
     mask = k_pos[None, None, :] <= q_pos[:, :, None]            # (B, qs, T)
+    if new_lens is not None:
+        # rows past the live count belong to no token
+        mask &= (rows[None, :] < n_live[:, None])[:, :, None]
     if window is not None:
         mask &= k_pos[None, None, :] > q_pos[:, :, None] - window
     mask = mask[:, None, None]                                  # (B,1,1,qs,T)

@@ -165,7 +165,8 @@ def _attend_blockwise(q, k, v, q_offset, *, scale, cap, causal, window,
 
 
 def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
-                  cache_pos, page_table, is_local: bool, scale, b, s):
+                  cache_pos, page_table, is_local: bool, scale, b, s,
+                  n_new=None):
     """Paged-cache step: scatter the new K/V into their pages, attend
     through K4, project.
 
@@ -175,13 +176,25 @@ def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
     scales; the new rows are written in place (int8 pools get their
     ``quantize_kv`` values and scales through the same indices).
     ``cache_pos`` (B,) are the per-sequence lengths before the write.
+
+    ``n_new`` (B,) int is the speculative verify mode: of the S rows only
+    rows ``r < n_new[b]`` are live; dead rows, and rows whose position
+    falls past the table's reach, write to the allocator's scratch page
+    (the logical page is clipped into the table before it is looked up)
+    and read back 0 from K4's verify launch.
     """
     quant = len(cache) == 4
     ck, cv = cache[0], cache[1]
     page = ck.shape[1]
-    tok_pos = cache_pos[:, None] + torch.arange(s, device=q.device)  # (B, S)
-    pidx = torch.gather(page_table, 1, tok_pos // page).long()
-    slot = tok_pos % page
+    rows = torch.arange(s, device=q.device)
+    tok_pos = cache_pos[:, None] + rows                              # (B, S)
+    if n_new is None:
+        pidx = torch.gather(page_table, 1, tok_pos // page).long()
+        slot = tok_pos % page
+    else:
+        from repro_torch.serving.cache import page_slots
+        pidx, slot = page_slots(page_table, tok_pos,
+                                rows[None, :] < n_new[:, None], page)
     cks = cvs = None
     if quant:
         cks, cvs = cache[2], cache[3]
@@ -194,14 +207,16 @@ def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
     else:
         ck[pidx, slot] = k.to(ck.dtype)
         cv[pidx, slot] = v.to(cv.dtype)
-    lengths = (cache_pos + s).to(torch.int32)
+    lengths = (cache_pos + (s if n_new is None else n_new)).to(torch.int32)
     q_chunk = None if s <= PAGED_FLASH_MAX_Q else PAGED_PREFILL_CHUNK_Q
     window = cfg.sliding_window if is_local else None
     # q is a view of the projection when Q/K/V come from one matmul
     o = paged_decode_attention(q.contiguous(), ck, cv, page_table, lengths,
                                scale=scale,
                                window=window, softcap=cfg.attn_logit_softcap,
-                               q_chunk=q_chunk, k_scales=cks, v_scales=cvs)
+                               q_chunk=q_chunk, k_scales=cks, v_scales=cvs,
+                               new_lens=None if n_new is None
+                               else n_new.to(torch.int32))
     o = o.reshape(b, s, cfg.q_dim)
     y = apply_linear(params.wo, o, mode=cfg.quant_proj)
     return y, tuple(cache)
@@ -212,7 +227,8 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     is_local: bool = False,
                     cache: tuple | None = None,
                     cache_pos: torch.Tensor | None = None,
-                    page_table: torch.Tensor | None = None):
+                    page_table: torch.Tensor | None = None,
+                    n_new: torch.Tensor | None = None):
     """Causal self-attention over x (B, S, D), without a cache or with a
     dense or paged one (the bidirectional encoder path comes with item 12).
 
@@ -226,7 +242,7 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     int vector of per-sequence write positions (mixed-length batches), and
     attention runs over the whole cache with per-sequence causal masking.
     With ``page_table`` the cache is one layer's page pools
-    (``_attend_paged``).
+    (``_attend_paged``; ``n_new`` selects its verify mode).
 
     Returns (y, the layer's cache tuple or None).
     """
@@ -257,7 +273,8 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     if cache is not None and page_table is not None:
         return _attend_paged(params, q, k, v, cfg, cache=cache,
                              cache_pos=cache_pos, page_table=page_table,
-                             is_local=is_local, scale=scale, b=b, s=s)
+                             is_local=is_local, scale=scale, b=b, s=s,
+                             n_new=n_new)
 
     new_cache = None
     if cache is not None:

@@ -13,7 +13,8 @@ Cache convention (decode) — see serving/cache.py:
           {"k_scales","v_scales"}: (L, P, page, KVH) f32 (kv_quant="int8"),
           {"page_table"}: (B, max_pages) int32, {"seq_lens"}: (B,) int32;
           layer i attends through the views of its pools, written in
-          place, and ``apply_model`` sets seq_lens to cache_pos + S.
+          place, and ``apply_model`` sets seq_lens to cache_pos + S (or
+          cache_pos + n_valid in the speculative verify mode).
 """
 from __future__ import annotations
 
@@ -96,12 +97,13 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
 
 
 def _decoder_block(p: DecoderBlock, x, cfg: ModelConfig, *, positions,
-                   is_local, cache_kv, cache_pos, page_table=None):
+                   is_local, cache_kv, cache_pos, page_table=None,
+                   n_new=None):
     h = apply_norm(p.norm_attn, x, cfg)
     a_out, new_kv = apply_attention(p.attn, h, cfg, positions=positions,
                                     is_local=is_local, cache=cache_kv,
                                     cache_pos=cache_pos,
-                                    page_table=page_table)
+                                    page_table=page_table, n_new=n_new)
     if p.norm_attn_post is not None:
         a_out = apply_norm(p.norm_attn_post, a_out, cfg)
     x = x + cfg.residual_multiplier * a_out.to(x.dtype)
@@ -123,7 +125,8 @@ def _local_flags(cfg: ModelConfig) -> list[bool]:
 
 def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
                 cache: dict | None = None,
-                cache_pos: torch.Tensor | int | None = None):
+                cache_pos: torch.Tensor | int | None = None,
+                n_valid: torch.Tensor | None = None):
     """Returns (logits f32 (B, S, V), cache, aux).
 
     tokens: (B, S) int decoder tokens.  ``cache``/``cache_pos``: the dense
@@ -132,8 +135,21 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     (B,) int vector of per-sequence positions.  A paged cache comes back
     with ``seq_lens = cache_pos + S``.  DistilBERT runs causally here, as
     in the JAX package.
+
+    ``n_valid`` (B,) int runs the paged cache in the speculative verify
+    mode: of the S tokens only the first ``n_valid[b]`` of row b are
+    committed; the others write to the allocator's scratch page and
+    attend to nothing, and ``seq_lens`` comes back as ``cache_pos +
+    n_valid``.  It needs a paged cache that carries the allocator.
     """
     check_supported(cfg)
+    paged = cache is not None and "k_pages" in cache
+    if n_valid is not None:
+        if not paged:
+            raise NotImplementedError(
+                "n_valid (speculative verify) needs the paged cache layout")
+        from repro_torch.serving.allocator import require_allocator
+        require_allocator(cache, "apply_model(n_valid=)")
     x = embed_tokens(model.embed, tokens, cfg)
     b, s, _ = x.shape
     dev = x.device
@@ -148,7 +164,6 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
         pe = sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
         x = x + (pe[None] if positions.dim() == 1 else pe)
 
-    paged = cache is not None and "k_pages" in cache
     # each layer's slice of the cache: dense k/v, or the paged pools (and
     # the int8 layout's scale pools, which travel with their pages)
     kv_keys = [key for key in ("k", "v", "k_pages", "v_pages", "k_scales",
@@ -158,9 +173,11 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
         cache_kv = tuple(cache[key][i] for key in kv_keys) or None
         x, _ = _decoder_block(layer, x, cfg, positions=positions,
                               is_local=flag, cache_kv=cache_kv,
-                              cache_pos=cache_pos, page_table=page_table)
+                              cache_pos=cache_pos, page_table=page_table,
+                              n_new=n_valid)
     if paged:
-        cache["seq_lens"] = (cache_pos + s).to(torch.int32)
+        cache["seq_lens"] = (cache_pos + (s if n_valid is None
+                                          else n_valid)).to(torch.int32)
 
     x = apply_norm(model.final_norm, x, cfg)
     logits = unembed(model.embed, x, cfg, model.lm_head)

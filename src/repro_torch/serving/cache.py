@@ -11,8 +11,12 @@ Two layouts behind one ``init_cache``, as in the JAX package:
                     only: per-(page-slot, kv-head) absmax scales of the
                     int8 pools, addressed through the same page table
   page_table        (B, max_pages) int32 — physical page of logical page j
-                    of sequence b; distinct sequences own disjoint pages
+                    of sequence b; distinct sequences never write the same
+                    page (a read-only shared prefix page may appear in
+                    several rows, its references counted by the allocator)
   seq_lens          (B,) int32 — tokens committed per sequence
+  alloc_*           (``alloc="dynamic"`` only) the free-list allocator's
+                    state — see ``serving/allocator.py``
 
 Token position ``p`` of sequence ``b`` lives at
 ``(page_table[b, p // page_size], p % page_size)``; only the first
@@ -21,10 +25,9 @@ prefill padding, masked until decode overwrites it).  The serving engine
 and ``models/attention.py`` write new keys and values into these tensors
 in place.
 
-Not ported yet: the free-list allocator (``alloc="dynamic"``,
-``pool_pages``; ROADMAP queue 1, item 9) and mesh sharding (item 13).
-SSM and hybrid state come with item 12, and until then ``init_cache``
-refuses their configs as ``init_model`` does.
+Not ported yet: mesh sharding and per-shard free lists (ROADMAP queue
+1, item 13).  SSM and hybrid state come with item 12, and until then
+``init_cache`` refuses their configs as ``init_model`` does.
 """
 from __future__ import annotations
 
@@ -43,6 +46,10 @@ DEFAULT_PAGE_SIZE = 64
 # moves these together (scale rows travel with their int8 pages)
 PAGE_STATE_KEYS = ("k_pages", "v_pages", "k_scales", "v_scales")
 
+# the dynamic allocator's reserved sink page: never allocated, so masked
+# writes may land there (on a static table it is sequence 0's first page)
+SCRATCH_PAGE = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
@@ -51,13 +58,18 @@ class CacheConfig:
       layout:    ``"dense"`` | ``"paged"``.
       page_size: tokens per KV page (paged only).
       alloc:     static page tables, ``"contiguous"`` or ``"striped"``
-                 (``default_page_table``).
+                 (``default_page_table``), or ``"dynamic"``: the embedded
+                 free-list allocator hands pages out at admission.
+      pool_pages: physical pool size (paged; default ``batch *
+                 ceil(max_len / page_size)``; below that only with
+                 ``alloc="dynamic"``).
       kv_quant:  ``"none"`` | ``"int8"`` (int8 pools + f32 scale rows;
                  paged only).
     """
     layout: str = "dense"
     page_size: int = DEFAULT_PAGE_SIZE
     alloc: str = "contiguous"
+    pool_pages: int | None = None
     kv_quant: str = "none"
 
 
@@ -80,9 +92,9 @@ def default_page_table(batch: int, max_pages: int,
         return b * max_pages + j
     if alloc == "striped":
         return j * batch + b
-    raise ValueError(f"unknown page allocation {alloc!r} (the port has "
-                     "'contiguous' and 'striped'; 'dynamic' comes with the "
-                     "allocator, ROADMAP queue 1, item 9)")
+    raise ValueError(f"unknown page allocation {alloc!r} (static tables "
+                     "are 'contiguous' or 'striped'; 'dynamic' tables come "
+                     "from serving/allocator.py)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -95,7 +107,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     and f32 scales instead).  ``config`` selects the layout (default: the
     dense one).  Returns a dict of tensors, shapes in the module
     docstring; the paged dict also carries ``page_table`` and
-    ``seq_lens``.
+    ``seq_lens``, and under ``alloc="dynamic"`` the allocator's state,
+    with every table row pointing at the reserved scratch page.
     """
     config = config or CacheConfig()
     if config.layout not in ("dense", "paged"):
@@ -117,8 +130,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     page = config.page_size
     max_pages = ceil_div(max_len, page)
-    table = default_page_table(batch, max_pages, config.alloc)
-    n_pages = batch * max_pages
+    n_pages = (config.pool_pages if config.pool_pages is not None
+               else batch * max_pages)
+    dynamic = config.alloc == "dynamic"
+    if not dynamic:
+        table = default_page_table(batch, max_pages, config.alloc)
+        if n_pages < batch * max_pages:
+            raise ValueError(
+                f"static page tables need batch*max_pages = "
+                f"{batch * max_pages} pages; pool has {n_pages} (use "
+                "alloc='dynamic' to oversubscribe)")
     quant = config.kv_quant == "int8"
     pool = (n_layers, n_pages, page, kvh, hd)
     pool_dtype = torch.int8 if quant else dtype
@@ -130,6 +151,60 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                         device=dev)
         cache["v_scales"] = torch.zeros(pool[:-1], dtype=torch.float32,
                                         device=dev)
-    cache["page_table"] = table.to(dev)
     cache["seq_lens"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if dynamic:
+        from repro_torch.serving.allocator import attach_allocator
+        # every row starts unallocated, pointing at the reserved scratch page
+        cache["page_table"] = torch.full((batch, max_pages), SCRATCH_PAGE,
+                                         dtype=torch.int32, device=dev)
+        return attach_allocator(cache, n_pages)
+    cache["page_table"] = table.to(dev)
     return cache
+
+
+def page_slots(page_table: torch.Tensor, tok_pos: torch.Tensor,
+               keep: torch.Tensor, page: int):
+    """(physical page, slot within it) of each logical token position
+    ``tok_pos`` (B, S): a masked write's indices.  Positions outside
+    ``keep`` (B, S) bool, and those past the table's reach, go to
+    ``(SCRATCH_PAGE, 0)``; the logical page is clipped into the table
+    before it is looked up, so no index faults."""
+    width = page_table.shape[1]
+    keep = keep & (tok_pos < width * page)
+    pidx = torch.gather(page_table, 1,
+                        (tok_pos // page).clamp(0, width - 1)).long()
+    return (torch.where(keep, pidx, SCRATCH_PAGE),
+            torch.where(keep, tok_pos % page, 0))
+
+
+def invalidate_token_rows(cache: dict, tok_pos: torch.Tensor,
+                          inv: torch.Tensor) -> dict:
+    """Zero, in place, the page-state rows holding the selected token
+    positions: speculative rollback's page-state half.
+
+    ``tok_pos`` (B, S) logical token positions per sequence; ``inv``
+    (B, S) bool selects which to zero, in every ``PAGE_STATE_KEYS`` array
+    (an int8 pool's scale rows with its values), so nothing that later
+    aliases the page (a fork, a shared prefix) sees rejected draft state.
+    Deselected entries and positions past the table's reach are sent to
+    the allocator's reserved scratch page, so the cache must carry the
+    allocator: on a static table page 0 is sequence 0's first page, and
+    the redirected writes would zero its committed rows.
+    """
+    from repro_torch.serving.allocator import require_allocator
+    require_allocator(cache, "invalidate_token_rows")
+    pidx, slot = page_slots(cache["page_table"], tok_pos.long(), inv,
+                            cache["k_pages"].shape[2])
+    for key in PAGE_STATE_KEYS:
+        if key in cache:
+            cache[key][:, pidx, slot] = 0
+    return cache
+
+
+def page_nbytes(cache: dict) -> int:
+    """Device bytes one physical page occupies across all layers: K and V
+    values plus, in the int8 layout, their scale rows."""
+    n_pages = cache["k_pages"].shape[1]
+    total = sum(cache[k].numel() * cache[k].element_size()
+                for k in PAGE_STATE_KEYS if k in cache)
+    return total // n_pages

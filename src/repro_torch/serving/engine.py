@@ -17,12 +17,17 @@ the batched decode loop.
     ``serve_step`` that updates the cache in place (the JAX package runs a
     jitted scan with the cache donated).
 
+  * ``spec_step`` is one speculative draft-and-verify tick: the draft
+    model proposes ``n_draft`` greedy tokens per row from its dense
+    cache, the target verifies them in one pass through K4's verify mode,
+    and acceptance and rollback run on the device.
+
 Per-sequence positions (``pos`` as a (B,) int vector, or the paged
 cache's own ``seq_lens``) make mixed-length batches exact: prefill padding
 beyond a short prompt is written but not committed, masked until the
-decode loop overwrites it, one slot per step.  Prefill onto a committed
-prefix (``start_pos=``, with the allocator: ROADMAP queue 1, item 9),
-cross-attention ``memory=`` and ``spec_step`` are not ported yet.
+decode loop overwrites it, one slot per step.  ``prefill(start_pos=)``
+prefills a suffix onto a committed prefix (a prefix-shared admission).
+Cross-attention ``memory=`` is not ported yet (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model, apply_model
-from repro_torch.serving.cache import PAGE_STATE_KEYS
+from repro_torch.serving.allocator import require_allocator
+from repro_torch.serving.cache import PAGE_STATE_KEYS, invalidate_token_rows
 
 
 def prefill_step(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -105,7 +111,7 @@ def cache_capacity(cache: dict) -> int:
 
 def prefill(model: Model, cache: dict, prompts: torch.Tensor,
             prompt_lens: torch.Tensor, cfg: ModelConfig, *,
-            chunk: int | None = None):
+            chunk: int | None = None, start_pos: int = 0):
     """Prefill → decode handoff: commit prompt KV, return first logits.
 
     prompts (B, S_pad) int, right-padded to the longest prompt; prompt_lens
@@ -114,6 +120,11 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
     past ``prompt_lens[b]`` hold padding that decode masks per sequence
     until it overwrites them.  ``chunk`` commits the prompt in chunks of
     that many positions, each attending over what earlier chunks wrote.
+    ``start_pos > 0`` prefills a suffix: the first ``start_pos``
+    positions are already committed (a prefix-shared admission,
+    ``allocator.fork_sequence``), ``prompts`` holds the tokens from there
+    on and the run sits at positions ``start_pos..``; ``prompt_lens``
+    stays absolute (prefix and suffix).
 
     Returns (next_logits (B, V) f32 at each sequence's last real prompt
     token, the cache — updated in place, a paged one with ``seq_lens =
@@ -122,28 +133,29 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
     b, s_pad = prompts.shape
     validate_decode_cache(cache, cfg)
     capacity = cache_capacity(cache)
-    if s_pad > capacity:
+    if start_pos + s_pad > capacity:
         # past capacity the page-table lookup would fault on the card
-        raise ValueError(f"prompt width {s_pad} exceeds cache capacity "
-                         f"{capacity} tokens")
+        raise ValueError(f"prompt width {start_pos + s_pad} exceeds cache "
+                         f"capacity {capacity} tokens")
     dev = prompts.device
     prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.long, device=dev)
     rows = torch.arange(b, device=dev)
     if chunk is None or s_pad <= chunk:
         logits, cache, _ = apply_model(model, prompts, cfg, cache=cache,
-                                       cache_pos=0)
-        next_logits = logits[rows, prompt_lens - 1]
+                                       cache_pos=start_pos)
+        next_logits = logits[rows, prompt_lens - 1 - start_pos]
     else:
         next_logits = None
         for c0 in range(0, s_pad, chunk):
             cs = min(chunk, s_pad - c0)
             logits, cache, _ = apply_model(model, prompts[:, c0:c0 + cs],
-                                           cfg, cache=cache, cache_pos=c0)
+                                           cfg, cache=cache,
+                                           cache_pos=start_pos + c0)
             if next_logits is None:
                 next_logits = torch.zeros((b, logits.shape[-1]),
                                           dtype=logits.dtype, device=dev)
             # each sequence's last prompt token lies in exactly one chunk
-            rel = prompt_lens - 1 - c0
+            rel = prompt_lens - 1 - start_pos - c0
             inside = (rel >= 0) & (rel < cs)
             got = logits[rows, rel.clamp(0, cs - 1)]
             next_logits = torch.where(inside[:, None], got, next_logits)
@@ -217,3 +229,81 @@ def greedy_decode(model: Model, cache: dict, first_token: torch.Tensor,
         out.append(tok)
         pos = pos + 1
     return torch.cat(out, dim=1), cache
+
+
+def spec_step(model: Model, draft_model: Model, cache: dict,
+              draft_cache: dict, tokens: torch.Tensor,
+              budget_left: torch.Tensor, active: torch.Tensor,
+              cfg: ModelConfig, draft_cfg: ModelConfig, *, n_draft: int,
+              eos_id: int | None = None):
+    """One speculative draft-and-verify tick.
+
+    ``tokens`` (B, 1) int: each live row's last emitted token;
+    ``budget_left`` (B,) int: tokens each row may still emit; ``active``
+    (B,) bool.  ``cache`` is the target's paged cache, which must carry
+    the allocator (the verify pass and the rollback send masked writes to
+    its scratch page); ``draft_cache`` the draft's dense cache.
+
+    With committed lengths ``c``, the draft proposes ``n_draft`` greedy
+    tokens ``d_1..d_n`` at positions ``c..c+n-1``; the target runs
+    ``[x0, d_1..d_n]`` at ``c..c+n`` in one pass (K4's verify mode: idle
+    rows are all dead) and ``pred[r]`` is its greedy token after position
+    ``c+r``.  With ``k`` the drafts' leading agreement with ``pred``, a
+    row emits ``m = min(k+1, n)`` tokens (not ``n+1``: the draft cache
+    holds KV only through ``c+n-1``), capped at the first emitted EOS and
+    at ``budget_left``; 0 for idle rows.  Rollback: ``seq_lens = c + m``
+    and the written-but-rejected rows are zeroed in every page array
+    (``invalidate_token_rows``).  Both caches are updated in place.  All
+    of it runs on the device: nothing is read back here.
+
+    Returns ``(pred (B, n_draft+1), m (B,), acc (B,) = min(k, m) — how
+    many of the emitted tokens were draft proposals, cache, draft_cache)``.
+    """
+    validate_decode_cache(cache, cfg)
+    require_allocator(cache, "spec_step")
+    if n_draft < 1:
+        raise ValueError(f"spec_step needs n_draft >= 1, got {n_draft}")
+    dev = tokens.device
+    c = cache["seq_lens"].long()
+    s = n_draft + 1
+    drafts = []
+    dtok = tokens
+    for t in range(n_draft):
+        lg, draft_cache = serve_step(draft_model, draft_cache, dtok, c + t,
+                                     draft_cfg)
+        dtok = torch.argmax(lg[:, -1, :], dim=-1)[:, None].to(tokens.dtype)
+        drafts.append(dtok)
+    drafts = torch.cat(drafts, dim=1)                       # (B, n_draft)
+    verify = torch.cat([tokens, drafts], dim=1)             # (B, S)
+    active = active.to(dev)
+    n_valid = torch.where(active, s, 0).to(torch.int32)
+    logits, cache, _ = apply_model(model, verify, cfg, cache=cache,
+                                   cache_pos=c, n_valid=n_valid)
+    pred = torch.argmax(logits, dim=-1)                     # (B, S)
+    match = (pred[:, :n_draft] == drafts).to(torch.int32)
+    k = torch.cumprod(match, dim=1).sum(dim=1)              # leading agrees
+    m = torch.clamp(k + 1, max=n_draft)
+    if eos_id is not None:
+        eos_hit = pred == eos_id
+        first = eos_hit.to(torch.int32).argmax(dim=1) + 1
+        m = torch.where(eos_hit.any(dim=1), torch.minimum(m, first), m)
+    m = torch.minimum(m, budget_left.to(dev).long())
+    m = torch.where(active, m, 0)
+    row = torch.arange(s, device=dev)[None, :]
+    rejected = (row >= m[:, None]) & (row < n_valid[:, None])
+    invalidate_token_rows(cache, c[:, None] + row, rejected)
+    cache["seq_lens"] = torch.where(active, c + m, 0).to(torch.int32)
+    return pred, m, torch.minimum(k, m), cache, draft_cache
+
+
+def draft_prefill_row(draft_model: Model, draft_cache: dict,
+                      prompts: torch.Tensor, prompt_len: int, start_pos: int,
+                      slot: int, draft_cfg: ModelConfig) -> dict:
+    """Commit a prompt (1, S_pad), from position ``start_pos``, into row
+    ``slot`` of the dense draft cache, in place: the prefill writes
+    through views of that row alone.  The draft's logits are discarded
+    (the first spec tick drafts from the target's first token)."""
+    view = {key: draft_cache[key][:, slot:slot + 1] for key in ("k", "v")}
+    prefill(draft_model, view, prompts, torch.tensor([prompt_len]),
+            draft_cfg, start_pos=start_pos)
+    return draft_cache

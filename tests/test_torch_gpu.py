@@ -99,10 +99,13 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     fused_qkv(a, *ws)
     c = _paged_case(2, 32, 4, 2, 64, 8, [20, 9], cuda)
     paged_decode_attention(c["q"], c["k"], c["v"], c["table"], c["lens"])
+    paged_decode_attention(c["q"], c["k"], c["v"], c["table"], c["lens"],
+                           new_lens=torch.ones_like(c["lens"]))
     flash_attention(*_flash_case(1, 70, 70, 4, 2, 64, cuda))
     torch.cuda.synchronize()
     assert launch_counts() == {"quant_act": 1, "fused_qkv": 1,
                                "tiled_matmul": 1, "paged_decode": 1,
+                               "paged_decode_verify": 1,
                                "flash_attention": 1}
 
 
@@ -215,6 +218,92 @@ def test_paged_decode_kernel_bitwise_invariants(cuda):
     assert torch.equal(got, fp)
 
 
+# b, t, h, kh, d, page, committed lens, new_lens, options: the served
+# shape (qwen2.5-3b's heads, n_draft 4), the reference test's, a window
+VERIFY_CASES = {
+    "served": (4, 576, 16, 2, 128, 16, [40, 300, 120, 555], [5, 5, 0, 5],
+               {}),
+    "reference": (2, 64, 4, 2, 16, 8, [36, 20], [3, 1], {}),
+    "window": (3, 64, 8, 1, 64, 16, [48, 10, 30], [2, 4, 1],
+               dict(window=12)),
+}
+
+
+def _verify_case(case, mode, dev):
+    b, t, h, kh, d, page, committed, new_lens, opts = VERIFY_CASES[case]
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    lens = [c + n for c, n in zip(committed, new_lens)]
+    c = _paged_case(b, t, h, kh, d, page, lens, dev, qs=5, dtype=dtype)
+    opts = dict(opts)
+    if mode == "int8":
+        (c["k"], opts["k_scales"]), (c["v"], opts["v_scales"]) = (
+            quantize_kv(c["k"]), quantize_kv(c["v"]))
+    c["new_lens"] = torch.tensor(new_lens, dtype=torch.int32, device=dev)
+    return c, opts
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", list(VERIFY_CASES))
+def test_paged_verify_kernel_matches_plain(cuda, case, mode):
+    """Verify mode against the plain version: live rows within the limits
+    (bf16: each row at 1e-2 of its own largest value), dead rows exactly
+    0."""
+    c, opts = _verify_case(case, mode, cuda)
+    args = (c["q"], c["k"], c["v"], c["table"], c["lens"])
+    reset_launch_counts()
+    out = paged_decode_attention(*args, new_lens=c["new_lens"], **opts)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_decode_verify"] == 1
+    want = paged_ref.paged_decode_attention_ref(*args, new_lens=c["new_lens"],
+                                                **opts)
+    for b, n in enumerate(c["new_lens"].tolist()):
+        assert torch.equal(out[b, n:], torch.zeros_like(out[b, n:]))
+    if mode == "bf16":
+        diff = (out.float() - want.float()).abs().amax(-1)
+        size = want.float().abs().amax(-1)
+        assert bool((diff <= 1e-2 * size).all())
+    else:
+        torch.testing.assert_close(out, want, atol=5e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 20])
+def test_paged_verify_one_row_is_the_plain_launch(cuda, mode, window):
+    """new_lens of all ones is bitwise the plain 1-row launch."""
+    b, t, h, kh, d, page, lens = 4, 80, 16, 2, 128, 16, [65, 49, 34, 18]
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    c = _paged_case(b, t, h, kh, d, page, lens, cuda, dtype=dtype)
+    opts = dict(window=window)
+    if mode == "int8":
+        (c["k"], opts["k_scales"]), (c["v"], opts["v_scales"]) = (
+            quantize_kv(c["k"]), quantize_kv(c["v"]))
+    args = (c["q"], c["k"], c["v"], c["table"], c["lens"])
+    plain = paged_decode_attention(*args, **opts)
+    verify = paged_decode_attention(*args, new_lens=torch.ones_like(c["lens"]),
+                                    **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, verify)
+
+
+def test_paged_verify_variable_rows(cuda):
+    """Live rows agree with an exact-width launch per sequence in f32; an
+    idle sequence (new_lens 0) gives zeros."""
+    c, opts = _verify_case("reference", "f32", cuda)
+    args = (c["q"], c["k"], c["v"], c["table"], c["lens"])
+    out = paged_decode_attention(*args, new_lens=c["new_lens"])
+    for b, n in enumerate(c["new_lens"].tolist()):
+        want = paged_decode_attention(c["q"][b:b + 1, :n].contiguous(),
+                                      c["k"], c["v"],
+                                      c["table"][b:b + 1],
+                                      c["lens"][b:b + 1])
+        torch.testing.assert_close(out[b, :n], want[0], atol=5e-6,
+                                   rtol=1e-5)
+    idle = paged_decode_attention(c["q"], c["k"], c["v"], c["table"],
+                                  c["lens"] * 0, new_lens=c["new_lens"] * 0)
+    torch.cuda.synchronize()
+    assert not idle.any()
+
+
 def _flash_case(b, s, t, h, kh, d, dev, dtype=torch.float32, seed=0):
     """q (B, S, H, D) and k, v (B, T, KH, D), normal, on ``dev``."""
     return tuple(_randn(shape, seed + i, dev).to(dtype)
@@ -277,3 +366,38 @@ def test_jnp_blockwise_path_raises_on_the_card(cuda):
                        device=cuda)
     with pytest.raises(ValueError, match="CPU only"):
         apply_model(model, toks, cfg)
+
+
+def test_scheduler_spec_serve_on_the_card(cuda):
+    """The Scheduler's speculative serve on the card at smoke size: every
+    target forward of a spec tick is one K4 verify launch per layer, and
+    each admission's prefill a plain one."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.scheduler import Scheduler, SpecConfig
+    cfg = get_smoke_config("qwen2_5_3b").replace(quant_proj="none",
+                                                 dtype="float32")
+    model = init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                       device=cuda)
+    draft = Model(model.embed, model.final_norm, list(model.layers[:1]),
+                  model.lm_head)
+    sched = Scheduler(model, cfg, slots=3, max_len=64, bucket=8, eos_id=5,
+                      config=CacheConfig(layout="paged", alloc="dynamic",
+                                         page_size=4, pool_pages=30),
+                      spec=SpecConfig(draft, cfg.replace(n_layers=1), 3),
+                      device=cuda)
+    g = torch.Generator().manual_seed(1)
+    for n, budget in ((7, 6), (12, 9), (5, 4), (20, 8)):
+        sched.submit(torch.randint(0, cfg.vocab_size, (n,), generator=g),
+                     budget)
+    reset_launch_counts()
+    out = sched.run(max_ticks=60)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["paged_decode_verify"] == sched.spec_stats["ticks"] * 3
+    assert counts["paged_decode"] == len(out) * 3        # one prefill each
+    assert sched.spec_stats["emitted"] == sum(len(v) - 1
+                                              for v in out.values())
+    for toks in out.values():
+        assert toks.min() >= 0 and toks.max() < cfg.vocab_size
+    assert sched.pool_occupancy().used == 1

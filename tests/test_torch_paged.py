@@ -189,7 +189,7 @@ def test_init_cache_errors():
                    device="cpu")
     with pytest.raises(ValueError, match="allocation"):
         init_cache(cfg, 2, 40, config=CacheConfig(layout="paged",
-                                                  alloc="dynamic"),
+                                                  alloc="buddy"),
                    device="cpu")
 
 
