@@ -5,7 +5,11 @@
 
 1. Device: name, count, power limit; TF32 off.
 2. Build: every CUDA kernel from ``src/repro_torch/csrc`` with nvcc for
-   sm_90a, printing ptxas' register and shared-memory lines.
+   sm_90a, printing ptxas' register, shared-memory and spill lines (and
+   any performance warning, such as serialized wgmmas), and
+   each attention kernel's tensor-core (HGMMA, HMMA) and FFMA counts from
+   ``cuobjdump -sass``: K5's bf16 kernels must hold HGMMA, its f32 kernel
+   none.
 3. Kernels against their plain PyTorch versions on the card at the main
    paths' shapes (and a few more): K1-K3 bitwise; K4 (paged attention)
    within atol 5e-6 / rtol 1e-5 in f32 and int8 pools, rel-err 1e-2 in
@@ -19,7 +23,11 @@
    560, an idle slot) and at the JAX package's test shapes, in f32, bf16
    and int8 pools at the same limits, dead rows exactly 0; a one-row
    verify launch bitwise the plain launch; live rows of a variable-row
-   launch against exact-width launches per sequence.
+   launch against exact-width launches per sequence.  K4 at contexts of
+   ~4096 tokens whose page walks span many splits (pages of 16 and 64,
+   plain and verify, every pool type): the same limits, and the four
+   bitwise contracts (two launches, striped and contiguous tables, one-row
+   verify against plain, int8 against pre-dequantized f32).
 4. The main paths: ``distilbert_paper`` (w8a8, bf16) at full width from a
    seeded generator, 4 requests of 64/48/33/17 prompt tokens through
    ``prefill`` then 32 steps of ``greedy_decode``, each with exact kernel
@@ -71,7 +79,11 @@
    K/V for K4, and on the same q/k/v for K5 where it computes the same
    function: not with a softcap), beside the kernel's bound (for K4, the
    bytes of the K/V rows the lengths make visible; for K5, the flops of
-   the visible (q, k) pairs at the bf16 tensor-core peak).  Times are
+   the visible (q, k) pairs at the tensor-core or f32 peak of the dtype;
+   K5 also in f32 at qwen2.5-3b's shape).  K4's rows
+   include the Scheduler's plain decode launch and name their split of
+   the page walk; the profiler breakdowns of phase 4 sum K4's two kernels
+   (the split walk and the combine) and K5's.  Times are
    device times: CUDA graphs of many launches, timed with CUDA events,
    over enough input copies that each launch finds its operands outside
    L2 (K5's plain version, which allocates GBs, eagerly between events).
@@ -156,9 +168,55 @@ def build_kernels():
     for name, path in paths.items():
         print(f"  {path.relative_to(ROOT)}")
         for line in _build.ptxas_log(name).splitlines():
-            if "Compiling entry" in line or "registers" in line:
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill" in line or "Performance Loss" in line):
                 print(f"    {line.strip()}")
         _build.library(name)
+    check_sass()
+
+
+def sass_counts(name):
+    """Per kernel function of library ``name``: its tensor-core (HGMMA:
+    wgmma, HMMA: mma.sync) and f32 ALU (FFMA) instructions in ``cuobjdump
+    -sass``; None without cuobjdump beside nvcc."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    listing = subprocess.run(
+        [str(tool), "-sass", str(_build.library_path(name))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += f" {op}." in line or f" {op} " in line
+    return counts
+
+
+def check_sass():
+    """K5's bf16 kernels must run their products on the tensor cores
+    (HGMMA in their SASS) and its f32 kernel on the ALUs (no tensor-core
+    instruction: no TF32)."""
+    for name in ("flash_attention", "paged_decode"):
+        counts = sass_counts(name)
+        if counts is None:
+            print(f"  sass {name}: cuobjdump not found (not listed)")
+            continue
+        for fn, c in counts.items():
+            print(f"  sass {name}: {fn[:72]}: HGMMA {c['HGMMA']}, HMMA "
+                  f"{c['HMMA']}, FFMA {c['FFMA']}")
+            if "flash_attention_bf16" in fn and not c["HGMMA"]:
+                fail(f"{fn}: no HGMMA, K5's bf16 path is not on the tensor "
+                     "cores")
+            if "flash_attention_f32" in fn and (c["HGMMA"] or c["HMMA"]):
+                fail(f"{fn}: tensor-core instructions in K5's f32 path")
+        if name == "flash_attention" and not any(
+                "flash_attention_bf16" in fn for fn in counts):
+            fail("K5's bf16 kernel not found in the SASS listing")
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +528,94 @@ def check_verify(dev):
     return worst_abs, worst_rel
 
 
+# K4's walk split over blocks: contexts of ~4096 tokens (qwen2.5-3b's
+# heads) in pages of 16 and of 64, plain (1 row) and verify (5 rows, 5 and
+# 3 live)
+SPLIT_LENS = [4096, 3001]
+SPLIT_NEW_LENS = [5, 3]
+
+
+def check_paged_splits(dev):
+    """K4 at contexts whose walks span several splits, every pool type,
+    plain and verify: within phase 3's limits of the plain version, dead
+    rows 0, and its four bitwise contracts (two launches agree, striped and
+    contiguous tables agree, a one-row verify launch is the plain launch,
+    int8 pools are their f32 pools dequantized beforehand).  Returns (max
+    |err| under the f32 limits, max rel-err under the bf16 limit)."""
+    from repro_torch.kernels.flash_attention.decode import (
+        flash_decode_schedule, split_plan)
+    from repro_torch.kernels.flash_attention.ops import paged_decode_attention
+    from repro_torch.kernels.flash_attention.ref import \
+        paged_decode_attention_ref
+    worst_abs = worst_rel = 0.0
+    b, t, h, kh, d = 2, 4096, 16, 2, 128
+    for page in (16, 64):
+        for qs in (1, VERIFY_Q):
+            plan = split_plan(b, kh, h // kh, flash_decode_schedule(
+                t // page, page, q_len=qs))
+            if plan.n_splits < 2:
+                fail(f"paged_decode splits page {page}: {plan} is one split")
+            for kv, q_dtype in PAGED_MODES:
+                def inputs(alloc, seed=3):
+                    c = paged_inputs(b, t, h, kh, d, SPLIT_LENS, dev, qs=qs,
+                                     page=page, kv=kv, q_dtype=q_dtype,
+                                     alloc=alloc, seed=seed)
+                    if qs > 1:
+                        c["new_lens"] = torch.tensor(
+                            SPLIT_NEW_LENS, dtype=torch.int32, device=dev)
+                    return c
+                c = inputs("striped")
+                got = paged_decode_attention(**c)
+                again = paged_decode_attention(**c)
+                other = paged_decode_attention(**inputs("contiguous"))
+                one = {k: v for k, v in c.items() if k != "new_lens"}
+                one["q"] = c["q"][:, :1].contiguous()
+                plain = paged_decode_attention(**one)
+                verify = paged_decode_attention(
+                    **one, new_lens=torch.ones_like(c["lengths"]))
+                want = paged_decode_attention_ref(**c)
+                torch.cuda.synchronize()
+                what = (f"paged_decode splits page {page} kv={kv} q="
+                        f"{str(q_dtype)[6:]} ({b}x{qs}x{h}x{d}, KH={kh}, "
+                        f"lens {SPLIT_LENS}"
+                        + (f", new_lens {SPLIT_NEW_LENS}" if qs > 1 else "")
+                        + f"; {plan.n_splits} splits of "
+                        f"{plan.pages_per_split} pages)")
+                ok, err, rel, limit = attention_agrees(got, want)
+                if qs > 1:
+                    ok = ok and dead_rows_zero(got, c["new_lens"])
+                if not ok:
+                    fail(f"{what}: kernel differs from its plain version: "
+                         f"max |err| {err:.3e}, per-row rel-err {rel:.3e}")
+                if not torch.equal(got, again):
+                    fail(f"{what}: two launches differ")
+                if not torch.equal(got, other):
+                    fail(f"{what}: striped and contiguous tables differ")
+                if not torch.equal(plain, verify):
+                    fail(f"{what}: a one-row verify launch differs from the "
+                         "plain launch")
+                if kv == "int8" and q_dtype == torch.float32:
+                    ks, vs = c.pop("k_scales"), c.pop("v_scales")
+                    fp = paged_decode_attention(**dict(
+                        c, k_pages=c["k_pages"].float() * ks[..., None],
+                        v_pages=c["v_pages"].float() * vs[..., None]))
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, fp):
+                        fail(f"{what}: int8 pools differ from the f32 launch "
+                             "on the pools dequantized beforehand")
+                if q_dtype == torch.float32:
+                    worst_abs = max(worst_abs, err)
+                else:
+                    worst_rel = max(worst_rel, rel)
+                print(f"  ok {what}: max |err| {err:.3e}, per-row rel-err "
+                      f"{rel:.3e} ({limit}); bitwise: repeat, striped == "
+                      "contiguous, one-row verify == plain"
+                      + (", int8 == pre-dequantized f32"
+                         if kv == "int8" and q_dtype == torch.float32
+                         else ""))
+    return worst_abs, worst_rel
+
+
 def flash_inputs(b, s, t, h, kh, d, dev, dtype, seed):
     """q (B, S, H, D) and k, v (B, T, KH, D), normal, drawn on ``dev``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -706,6 +852,17 @@ def recorded_k4_calls(calls):
         mod.paged_decode_attention = wrapper
 
 
+def readings(rels):
+    """The per-row rel-err of every call of a run, summarised: count, min,
+    median, max, and how many exceed 8e-3."""
+    if not rels:
+        return "no calls"
+    r = sorted(rels)
+    return (f"per-row rel-err of each of its {len(r)} calls: min {r[0]:.3e}"
+            f", median {r[len(r) // 2]:.3e}, max {r[-1]:.3e}, above 8e-3: "
+            f"{sum(x > 8e-3 for x in r)}")
+
+
 def check_served_k4(what, calls, n):
     """Each of a serve's K4 calls against the plain version on that call's
     own operands, at phase 3's limits; returns the worst rel-err."""
@@ -714,6 +871,7 @@ def check_served_k4(what, calls, n):
     if len(calls) != n:
         fail(f"{what}: {len(calls)} K4 calls recorded, {n} launched")
     worst_err = worst_rel = 0.0
+    rels = []
     for i, (args, kwargs, out) in enumerate(calls):
         ok, err, rel, limit = attention_agrees(
             out, paged_decode_attention_ref(*args, **kwargs))
@@ -723,9 +881,11 @@ def check_served_k4(what, calls, n):
                  f"rel-err "
                  f"{rel:.3e} ({limit})")
         worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
+        rels.append(rel)
     print(f"  each of its {n} K4 calls against the plain version on the "
           f"call's own operands: worst max |err| {worst_err:.3e}, worst "
           f"per-row rel-err {worst_rel:.3e} ({limit})")
+    print(f"  {readings(rels)}")
     return worst_rel
 
 
@@ -808,6 +968,7 @@ def check_served_k5(what, calls, n):
     if len(calls) != n:
         fail(f"{what}: {len(calls)} K5 calls recorded, {n} launched")
     worst_err = worst_rel = 0.0
+    rels = []
     for i, (args, kwargs, out) in enumerate(calls):
         ok, err, rel, limit = attention_agrees(
             out, attention_ref(*args, **kwargs), "flash_attention")
@@ -817,9 +978,11 @@ def check_served_k5(what, calls, n):
                  f"rel-err "
                  f"{rel:.3e} ({limit})")
         worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
+        rels.append(rel)
     print(f"  each of its {n} K5 calls against the plain version on the "
           f"call's own operands: worst max |err| {worst_err:.3e}, worst "
           f"per-row rel-err {worst_rel:.3e} ({limit})")
+    print(f"  {readings(rels)}")
     return worst_rel
 
 
@@ -845,6 +1008,15 @@ def device_breakdown(fn, top=10, label="one more run"):
           f"the device idles {1 - total / wall_ms:.3f} of the run")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
         print(f"    {ms:10.3f} ms {ms / total:6.3f} x{count:<5d} {key[:90]}")
+    # K4 runs as two kernels (the split walk, then the combine): both count
+    for label, name in (("K4 (paged_decode_kernel + paged_decode_combine)",
+                         "paged_decode"), ("K5 (flash_attention_*)",
+                                           "flash_attention")):
+        sel = [(count, ms) for key, count, ms in rows if name in key]
+        if sel:
+            ms = sum(m for _, m in sel)
+            print(f"    {label}: {ms:.3f} ms {ms / total:.3f}, "
+                  f"{sum(c for c, _ in sel)} kernel launches")
 
 
 def long_prompt_path(arch, dev, n_layers=None):
@@ -1321,6 +1493,7 @@ def checked_k4_calls(stats):
         stats["multi_block"] += int(args[0].shape[1] > 128)
         stats["err"] = max(stats["err"], err)
         stats["rel"] = max(stats["rel"], rel)
+        stats["rels"].append(rel)
         stats["limit"] = limit
         return out
 
@@ -1379,7 +1552,7 @@ def sched_run(what, model, cfg, dev, kv_quant, draft, dtype, trace, *,
     from repro_torch.kernels import launch_counts, reset_launch_counts
     gaps, top2 = {}, {}
     stats = dict(calls=0, verify=0, multi_block=0, err=0.0, rel=0.0,
-                 limit="")
+                 rels=[], limit="")
     sched = make_scheduler(model, cfg, dev, kv_quant, draft, dtype)
     with checked_k4_calls(stats), recorded_gaps(sched, gaps, top2):
         drive(sched, trace)
@@ -1412,6 +1585,7 @@ def sched_run(what, model, cfg, dev, kv_quant, draft, dtype, trace, *,
           f"rows) against the plain version on the call's own operands: "
           f"worst max |err| {stats['err']:.3e}, worst per-row rel-err "
           f"{stats['rel']:.3e} ({stats['limit']})")
+    print(f"  {readings(stats['rels'])}")
     occ = sched.pool_occupancy()
     if occ.used != 1:
         fail(f"{what}: {occ.used} pages held after the run (scratch only: 1)")
@@ -1742,7 +1916,7 @@ def time_paged(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
     ``new_lens`` (a list) the verify launch, whose rows past the live
     count see nothing (and a sequence with none reads nothing)."""
     from repro_torch.kernels.flash_attention.decode import (
-        flash_decode_schedule, pages_touched)
+        flash_decode_schedule, pages_touched, split_plan)
     from repro_torch.kernels.flash_attention.ops import paged_decode_attention
     from repro_torch.kernels.flash_attention.ref import (
         dequantize_gathered, paged_decode_attention_ref, paged_gather,
@@ -1797,7 +1971,10 @@ def time_paged(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
         return (c["q"].transpose(1, 2), k.transpose(1, 2).to(dt),
                 v.transpose(1, 2).to(dt), mask[:, None])
 
-    row = {"ms": device_ms(lambda c: paged_decode_attention(**c, **opts),
+    plan = split_plan(b, kh, h // kh, flash_decode_schedule(
+        t // page, page, q_len=qs, window=window, q_chunk=q_chunk))
+    row = {"splits": f"{plan.n_splits} x {plan.pages_per_split} pages",
+           "ms": device_ms(lambda c: paged_decode_attention(**c, **opts),
                            sets, launches),
            "plain_ms": device_ms(
                lambda c: paged_decode_attention_ref(**c, **opts), sets,
@@ -1910,6 +2087,11 @@ def timings(cfg, dev):
         rows.append((f"decode{sfx}", f"lens {first_step} {pool}", 1,
                      time_paged(len(BATCH_LENS), t, h, kh, hd, first_step,
                                 dev, kv=pool, q_dtype=torch.bfloat16)))
+    # the Scheduler's plain decode launch (qwen2.5-3b's heads, 4 x 1 row
+    # over the verify row's contexts)
+    rows.append(("sched-decode", f"4x1 H16 KH2 D128 bf16 lens {VERIFY_LENS}",
+                 1, time_paged(4, 576, 16, 2, 128, VERIFY_LENS, dev,
+                               kv="bf16")))
     for label, hh, kk, dd in (("long", 12, 12, 64), ("long-gqa", 16, 2, 128)):
         rows.append((label, f"8x4096 H{hh} KH{kk} D{dd} bf16 page 64", 1,
                      time_paged(8, 4096, hh, kk, dd, [4096] * 8, dev,
@@ -1935,6 +2117,10 @@ def timings(cfg, dev):
         ("global", f"gemma2-27b 1x{LONG_PROMPT} H32 KH16 cap50", 1,
          time_flash(1, LONG_PROMPT, 32, 16, 128, dev, scale=144 ** -0.5,
                     softcap=50.0)),
+        # the f32 path (the ALUs; phase 5's card-vs-CPU runs take it)
+        ("prefill-f32", f"qwen2.5-3b 1x{LONG_PROMPT} H16 KH2 D128 f32", 1,
+         time_flash(1, LONG_PROMPT, 16, 2, 128, dev, dtype=torch.float32,
+                    launches=4)),
     ]
 
     print("timings (device ms per launch; bound = max(bytes / 3.35 TB/s, "
@@ -1947,6 +2133,8 @@ def timings(cfg, dev):
                    else f"{r['library_ms']:.5f}")
             note = f" (library {r['library_note']})" if "library_note" in r \
                 else ""
+            if "splits" in r:
+                note += f"; {r['splits']}"
             print(f"  {kname:13s} {phase:13s} {desc:38s} {times:2d} "
                   f"{r['ms']:9.5f} {r['plain_ms']:9.5f} {lib:>9s} "
                   f"{r['bound_ms']:9.5f} {r['bound_by']}{note}")
@@ -2007,6 +2195,9 @@ def main():
     errs = check_kernels(dev)
     errs["paged_decode"], paged_rel_bf16 = check_paged(dev)
     errs["paged_decode_verify"], verify_rel_bf16 = check_verify(dev)
+    split_abs, split_rel = check_paged_splits(dev)
+    errs["paged_decode"] = max(errs["paged_decode"], split_abs)
+    paged_rel_bf16 = max(paged_rel_bf16, split_rel)
     errs["flash_attention"], flash_rel_bf16 = check_flash(dev)
 
     cfg = get_config("distilbert_paper")
@@ -2047,6 +2238,10 @@ def main():
                        if k in dec},
         })
     kernels[-1]["max_row_rel_err_bf16"] = paged_rel_bf16
+    pd = {phase: r for phase, _, _, r in shapes["paged_decode"]}
+    kernels[-1]["scheduler_decode"] = {
+        k: pd["sched-decode"][k]
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     fa = {phase: r for phase, _, _, r in shapes["flash_attention"]}
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_KERNEL[0],
@@ -2064,6 +2259,8 @@ def main():
         "gemma2": {phase: {k: fa[phase][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for phase in ("local", "global")},
+        "f32": {k: fa["prefill-f32"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
     ver = {phase: r for phase, _, _, r in shapes["paged_decode_verify"]}
     kernels.append({

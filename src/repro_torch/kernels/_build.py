@@ -43,7 +43,7 @@ SIGNATURES = {
         "launch_fused_qkv": [_P] * 11 + [_I] * 6 + [_P],
     },
     "paged_decode": {
-        "launch_paged_decode": [_P] * 9 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P],
+        "launch_paged_decode": [_P] * 10 + [_I] * 11 + [_F, _F] + [_I] * 3 + [_P],
     },
     "flash_attention": {
         "launch_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 2 + [_P],

@@ -7,7 +7,10 @@ in q blocks of ``q_chunk`` rows, and block ``i`` of a sequence with
 ``ctx`` committed tokens (the step's rows included) walks only the
 logical pages ``[j_lo, j_hi]`` its causal horizon and sliding window
 expose.  The CUDA kernel (``csrc/paged_decode.cu``) computes the same
-bounds per block; ``pages_touched`` counts the pages it streams.
+bounds per block; ``pages_touched`` counts the pages it streams.  The
+kernel cuts each block's walk over several CUDA blocks (flash-decoding):
+``split_plan`` sizes that cut from the launch's shapes alone, and
+``split_bounds`` gives each split's pages.
 
 Pure Python, the same arithmetic as the JAX package's schedule, so the
 two are held equal value for value.
@@ -17,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 
 __all__ = ["FlashDecodeSchedule", "flash_decode_schedule", "pages_touched",
-           "ceil_div"]
+           "ceil_div", "SplitPlan", "split_plan", "split_bounds"]
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -100,3 +103,51 @@ def pages_touched(lengths, sched: FlashDecodeSchedule) -> int:
                                       window=sched.window)
             total += j_hi - j_lo + 1
     return total
+
+
+# The CUDA kernel's split of the page walk: q rows per CUDA block (kRows in
+# csrc/paged_decode.cu); a split walks whole pages, at least
+# SPLIT_MIN_KEYS keys and, where the walk is long, about SPLIT_MAX_KEYS;
+# short walks split further until the grid has SPLIT_FILL_BLOCKS blocks
+# (two per SM of an H100's 132).
+SPLIT_ROW_TILE = 16
+SPLIT_MIN_KEYS = 64
+SPLIT_MAX_KEYS = 256
+SPLIT_FILL_BLOCKS = 264
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """Each q block's walk ``[j_lo, j_hi]`` runs as ``n_splits`` chunks of
+    ``pages_per_split`` logical pages from ``j_lo`` (the last chunk takes
+    the rest); ``n_splits == 1`` writes the output directly, more write
+    partials that a second kernel combines."""
+
+    pages_per_split: int
+    n_splits: int
+
+
+def split_plan(batch: int, n_kv: int, group: int,
+               sched: FlashDecodeSchedule) -> SplitPlan:
+    """The split of one launch, from its shapes alone (``batch`` sequences,
+    ``n_kv`` KV heads of ``group`` query heads each, the schedule's page
+    budget ``max_steps``), never from the lengths: equal shapes give equal
+    splits, whatever the pools' dtype, the page ids or the verify mode."""
+    span = sched.max_steps
+    blocks = max(1, batch * n_kv * sched.num_q_blocks
+                 * ceil_div(group * sched.q_chunk, SPLIT_ROW_TILE))
+    most = ceil_div(span, ceil_div(SPLIT_MIN_KEYS, sched.page_size))
+    want = max(ceil_div(SPLIT_FILL_BLOCKS, blocks),
+               ceil_div(span * sched.page_size, SPLIT_MAX_KEYS))
+    pages = ceil_div(span, max(1, min(most, want)))
+    return SplitPlan(pages_per_split=pages, n_splits=ceil_div(span, pages))
+
+
+def split_bounds(j_lo: int, j_hi: int, split: int,
+                 plan: SplitPlan) -> tuple[int, int]:
+    """Inclusive logical pages of ``split`` within a q block's walk
+    ``[j_lo, j_hi]``; empty (hi < lo) for a split past ``j_hi``."""
+    lo = j_lo + split * plan.pages_per_split
+    hi = (j_hi if split == plan.n_splits - 1
+          else min(lo + plan.pages_per_split - 1, j_hi))
+    return lo, hi

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import decode as _decode
 from repro_torch.kernels.flash_attention import ref as _ref
 
 __all__ = ["flash_attention", "paged_decode_attention"]
@@ -119,6 +120,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     position ``lengths[b] - new_lens[b] + t``; dead rows give exact
     zeros.  Its launches count in ``verify_launches``, the plain ones in
     ``launches``.
+
+    A CUDA tensor launches K4 (``csrc/paged_decode.cu``), whose page walk
+    is split over CUDA blocks as ``decode.split_plan`` says from the
+    shapes; with more than one split, f32 partials go to scratch
+    allocated here and a second kernel of the same call combines them.
     """
     b, qs, h, d = q.shape
     p_total, page, kh, dk = k_pages.shape
@@ -156,7 +162,18 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if quant:
         _check(k_scales, torch.float32, (p_total, page, kh), dev, "k_scales")
         _check(v_scales, torch.float32, (p_total, page, kh), dev, "v_scales")
+    if qs < 1 or page_table.shape[1] < 1:
+        raise ValueError(f"paged_decode_attention kernel needs q rows and "
+                         f"table pages, got q_len {qs}, max_pages "
+                         f"{page_table.shape[1]}")
     scale = scale if scale is not None else d ** -0.5
+    sched = _decode.flash_decode_schedule(page_table.shape[1], page,
+                                          q_len=qs, window=window,
+                                          q_chunk=q_chunk)
+    plan = _decode.split_plan(b, kh, h // kh, sched)
+    partial = (torch.empty(b * qs * h * plan.n_splits * (d + 2),
+                           dtype=torch.float32, device=dev)
+               if plan.n_splits > 1 else None)
     out = torch.empty((b, qs, h, d), dtype=q.dtype, device=dev)
     fn = _build.library("paged_decode").launch_paged_decode
     _build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -164,9 +181,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_scales.data_ptr() if quant else None,
                     page_table.data_ptr(), lengths.data_ptr(),
                     new_lens.data_ptr() if verify else None,
-                    out.data_ptr(), b, qs, h, kh, d, page,
-                    page_table.shape[1], min(q_chunk or qs, qs),
-                    window if window is not None else 0, scale,
+                    out.data_ptr(),
+                    partial.data_ptr() if partial is not None else None,
+                    b, qs, h, kh, d, page, page_table.shape[1],
+                    sched.q_chunk, window if window is not None else 0,
+                    plan.pages_per_split, plan.n_splits, scale,
                     softcap if softcap is not None else 0.0,
                     int(q.dtype == torch.bfloat16), int(quant),
                     dev.index, torch.cuda.current_stream(dev).cuda_stream),

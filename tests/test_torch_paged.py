@@ -12,6 +12,8 @@ import torch
 from repro.kernels.flash_attention.decode import (
     flash_decode_schedule as jax_flash_decode_schedule)
 from repro.kernels.flash_attention.decode import \
+    _page_bounds as jax_page_bounds
+from repro.kernels.flash_attention.decode import \
     pages_touched as jax_pages_touched
 from repro.kernels.flash_attention.ops import \
     paged_decode_attention as jax_paged_decode_attention
@@ -23,7 +25,9 @@ from repro.serving.engine import prefill as jax_prefill
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention.decode import (flash_decode_schedule,
-                                                        pages_touched)
+                                                        pages_touched,
+                                                        split_bounds,
+                                                        split_plan)
 from repro_torch.kernels.flash_attention.ops import paged_decode_attention
 from repro_torch.kernels.flash_attention.ref import paged_gather
 from repro_torch.models.transformer import init_model
@@ -140,6 +144,88 @@ def test_schedule_and_pages_touched_equal_jax(max_pages, page, q_len, window,
                  [37, 5, 128], [min(cap, q_len + 63)]):
         lens = [min(max(n, q_len), cap) for n in lens]
         assert pages_touched(lens, sched) == jax_pages_touched(lens, jsched)
+
+
+# batch, KV heads, group, then SCHEDULES' max_pages, page, q_len, window,
+# q_chunk: the served verify and the Scheduler's decode (qwen2.5-3b's
+# heads), ~4096-token contexts in pages of 16 and 64, a window, chunked
+# prefill, pages of 4
+SPLITS = [(4, 2, 8, 36, 16, 5, None, None), (4, 2, 8, 32, 16, 1, None, None),
+          (2, 2, 8, 256, 16, 1, None, None), (2, 2, 8, 64, 64, 5, None, None),
+          (8, 12, 1, 64, 64, 1, None, None), (2, 2, 8, 64, 16, 3, 100, None),
+          (2, 12, 1, 13, 16, 200, None, 128), (3, 4, 2, 16, 4, 26, 5, 8),
+          (1, 1, 1, 1, 16, 1, None, None)]
+
+
+@pytest.mark.parametrize("b,kh,g,max_pages,page,q_len,window,q_chunk",
+                         SPLITS)
+def test_split_plan_covers_each_walk_once(b, kh, g, max_pages, page, q_len,
+                                          window, q_chunk):
+    """K4's split of each q block's walk: the splits' pages are the JAX
+    schedule's [j_lo, j_hi], each page once and in order, for every
+    context and q block; the plan comes from the shapes alone."""
+    sched = flash_decode_schedule(max_pages, page, q_len=q_len,
+                                  window=window, q_chunk=q_chunk)
+    plan = split_plan(b, kh, g, sched)
+    assert plan.pages_per_split >= 1
+    assert ((plan.n_splits - 1) * plan.pages_per_split < sched.max_steps
+            <= plan.n_splits * plan.pages_per_split)
+    for ctx in range(q_len, max_pages * page + 1):
+        for i in range(sched.num_q_blocks):
+            j_lo, j_hi = jax_page_bounds(ctx, i, q_len=q_len,
+                                         q_chunk=sched.q_chunk,
+                                         page_size=page, window=window,
+                                         _min=min, _max=max)
+            walked = []
+            for split in range(plan.n_splits):
+                lo, hi = split_bounds(j_lo, j_hi, split, plan)
+                assert hi - lo + 1 <= plan.pages_per_split
+                walked += range(lo, hi + 1)
+            assert walked == list(range(j_lo, j_hi + 1))
+
+
+@pytest.mark.parametrize("max_pages,page,window", [(36, 16, None),
+                                                   (256, 16, None),
+                                                   (64, 64, 20)])
+def test_split_plan_equal_for_plain_and_one_row_verify(max_pages, page,
+                                                       window):
+    """A one-row verify launch (new_lens = 1) is the plain launch of one
+    row: the same plan, and for every context the same pages per split
+    (the verify rows' base, lengths - new_lens, is the plain one,
+    lengths - q_len)."""
+    sched = flash_decode_schedule(max_pages, page, q_len=1, window=window)
+    plan = split_plan(4, 2, 8, sched)
+    assert plan == split_plan(4, 2, 8, flash_decode_schedule(
+        max_pages, page, q_len=1, window=window, q_chunk=1))
+    for ctx in range(1, max_pages * page + 1):
+        plain = jax_page_bounds(ctx, 0, q_len=1, q_chunk=1, page_size=page,
+                                window=window, _min=min, _max=max)
+        n_live = 1
+        verify = jax_page_bounds(ctx, 0, q_len=n_live, q_chunk=1,
+                                 page_size=page, window=window, _min=min,
+                                 _max=max)
+        assert [split_bounds(*plain, s, plan) for s in range(plan.n_splits)] \
+            == [split_bounds(*verify, s, plan)
+                for s in range(plan.n_splits)]
+
+
+def test_split_plan_at_the_served_shapes():
+    """The plans the card runs: the served verify (4 x 5 rows, H16/KH2,
+    36 pages of 16), the Scheduler's decode (32 pages of 16), distilbert's
+    first decode step (6 pages of 16), a 4096-token context in pages of 64,
+    and a prefill whose row tiles alone fill the card (one split, no
+    combine)."""
+    def plan(b, kh, g, max_pages, page, q_len):
+        p = split_plan(b, kh, g, flash_decode_schedule(max_pages, page,
+                                                       q_len=q_len))
+        return p.pages_per_split, p.n_splits
+
+    assert plan(4, 2, 8, 36, 16, 5) == (4, 9)
+    assert plan(4, 2, 8, 32, 16, 1) == (4, 8)
+    assert plan(4, 12, 1, 6, 16, 1) == (3, 2)
+    assert plan(8, 12, 1, 64, 64, 1) == (4, 16)
+    assert plan(1, 2, 8, 32, 16, 304) == (16, 2)
+    assert plan(4, 12, 1, 6, 16, 512) == (6, 1)
 
 
 def test_pages_touched_counts():
