@@ -7,11 +7,16 @@
 2. Build: every CUDA kernel from ``src/repro_torch/csrc`` with nvcc for
    sm_90a, printing ptxas' register, shared-memory and spill lines (and
    any performance warning, such as serialized wgmmas), and
-   each attention kernel's tensor-core (HGMMA, HMMA) and FFMA counts from
-   ``cuobjdump -sass``: K5's bf16 kernels must hold HGMMA, its f32 kernel
-   none.
+   each kernel's tensor-core (HGMMA, HMMA, IGMMA, IMMA), IDP4A and FFMA
+   counts from ``cuobjdump -sass``: K5's bf16 kernels must hold HGMMA,
+   its f32 kernel none; K2 / K3's tensor-core variants (``gemm_tma``,
+   every width) int8 tensor-core instructions and no IDP4A.
 3. Kernels against their plain PyTorch versions on the card at the main
-   paths' shapes (and a few more): K1-K3 bitwise; K4 (paged attention)
+   paths' shapes (and a few more): K1-K3 bitwise, K2 / K3 also at
+   qwen2.5-3b's served shapes (M = 4, 20 and 8192 over wo, gate / up,
+   down and the fused 2048 | 256 | 256), at ragged M (5, 20, 129) on the
+   tensor-core variants, bias on and off, bf16 and f32 out, each case
+   naming the variant ``gemm_plan`` took; K4 (paged attention)
    within atol 5e-6 / rtol 1e-5 in f32 and int8 pools, rel-err 1e-2 in
    bf16 (each row against its own largest value), bitwise across page
    tables and against pre-dequantized pools; K5 (block-sparse flash
@@ -60,6 +65,8 @@
    counts exact from the request log) and timed, with one tick under
    ``torch.profiler``; the two must give equal tokens.  Speculative
    tokens equal the plain run's, or first differ at a near tie of it.
+   After each path, every K2 / K3 call it made must have planned onto a
+   tensor-core variant (``wide`` or ``swap``), never the general tile.
 5. Card against CPU in f32, same weights, with exact launch counts on the
    card: unquantized (``none``) at full depth within rel-err 1e-5 on the
    dense cache and on the paged cache (one pass and chunked prefill);
@@ -75,7 +82,10 @@
    different at a near tie of the CPU run).
 6. Timings at the slices' shapes: each kernel, its plain version and a
    library yardstick (``torch._int_mm`` plus the epilogue, A zero-padded
-   to M=32 at decode; ``scaled_dot_product_attention`` over the gathered
+   to M=32 at decode, and ``torch._int_mm`` alone beside it, the
+   library's GEMM core without its unfused epilogue; K2 / K3 also at qwen2.5-3b's decode (M=4), verify
+   (M=20) and 8192-token prefill shapes, 10 launches there and the plain
+   versions timed eagerly; ``scaled_dot_product_attention`` over the gathered
    K/V for K4, and on the same q/k/v for K5 where it computes the same
    function: not with a softcap), beside the kernel's bound (for K4, the
    bytes of the K/V rows the lengths make visible; for K5, the flops of
@@ -91,6 +101,7 @@
 Exits non-zero on any failure.  The last line is a JSON object naming the
 device; the line before it lists each kernel's numbers.
 """
+import collections
 import contextlib
 import copy
 import importlib
@@ -131,6 +142,13 @@ TOL_ARGMAX = 0.99
 # prefill_step (phase 4), and the card-vs-CPU one (phase 5)
 LONG_PROMPT = 8192
 CHECK_PROMPT = 1024
+# qwen2.5-3b's rows of K2 / K3 at decode, verify and the long prefill, and
+# its K2 shapes (K, N): wo, gate / up, down
+QWEN_M = (4, 20, LONG_PROMPT)
+QWEN_GEMMS = ((2048, 2048), (2048, 11008), (11008, 2048))
+# the wgmma widths of K2 / K3's tensor-core variants (wide: 256; swap: the
+# activation rows padded), each built for K2 and for K3
+GEMM_TMA_COLS = (256, 64, 32, 16, 8)
 
 
 def fail(msg: str):
@@ -175,9 +193,15 @@ def build_kernels():
     check_sass()
 
 
+# instruction → its SASS opcode
+SASS_OPS = {"HGMMA": "HGMMA", "HMMA": "HMMA", "IGMMA": "IGMMA",
+            "IMMA": "IMMA", "IDP4A": "IDP.4A", "FFMA": "FFMA"}
+
+
 def sass_counts(name):
-    """Per kernel function of library ``name``: its tensor-core (HGMMA:
-    wgmma, HMMA: mma.sync) and f32 ALU (FFMA) instructions in ``cuobjdump
+    """Per kernel function of library ``name``: its tensor-core (HGMMA /
+    IGMMA: wgmma in bf16 / int8, HMMA / IMMA: mma.sync), int8 ALU dot
+    product (IDP4A) and f32 ALU (FFMA) instructions in ``cuobjdump
     -sass``; None without cuobjdump beside nvcc."""
     from repro_torch.kernels import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -190,25 +214,34 @@ def sass_counts(name):
     for line in listing.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
         elif fn is not None:
-            for op in counts[fn]:
-                counts[fn][op] += f" {op}." in line or f" {op} " in line
+            for op, code in SASS_OPS.items():
+                counts[fn][op] += f" {code}." in line or f" {code} " in line
     return counts
 
 
 def check_sass():
     """K5's bf16 kernels must run their products on the tensor cores
     (HGMMA in their SASS) and its f32 kernel on the ALUs (no tensor-core
-    instruction: no TF32)."""
-    for name in ("flash_attention", "paged_decode"):
+    instruction: no TF32).  K2 / K3's tensor-core variants (``gemm_tma``)
+    must hold int8 tensor-core instructions (IGMMA or IMMA) and no
+    IDP4A."""
+    for name in ("flash_attention", "paged_decode", "int8_gemm"):
         counts = sass_counts(name)
         if counts is None:
+            if name == "int8_gemm":
+                fail("cuobjdump not found: K2 / K3's SASS cannot be checked")
             print(f"  sass {name}: cuobjdump not found (not listed)")
             continue
         for fn, c in counts.items():
-            print(f"  sass {name}: {fn[:72]}: HGMMA {c['HGMMA']}, HMMA "
-                  f"{c['HMMA']}, FFMA {c['FFMA']}")
+            print(f"  sass {name}: {fn[:72]}: " + ", ".join(
+                f"{op} {c[op]}" for op in SASS_OPS if c[op]
+                or op in ("HGMMA", "FFMA")))
+            if "gemm_tma" in fn and (not (c["IGMMA"] or c["IMMA"])
+                                     or c["IDP4A"]):
+                fail(f"{fn}: a K2 / K3 tensor-core variant without int8 "
+                     "tensor-core instructions, or with IDP4A")
             if "flash_attention_bf16" in fn and not c["HGMMA"]:
                 fail(f"{fn}: no HGMMA, K5's bf16 path is not on the tensor "
                      "cores")
@@ -217,15 +250,23 @@ def check_sass():
         if name == "flash_attention" and not any(
                 "flash_attention_bf16" in fn for fn in counts):
             fail("K5's bf16 kernel not found in the SASS listing")
+        if name == "int8_gemm" and sum("gemm_tma" in fn
+                                       for fn in counts) < 2 * len(
+                                           GEMM_TMA_COLS):
+            fail("K2 / K3's tensor-core variants not all in the SASS "
+                 "listing")
 
 
 # ---------------------------------------------------------------------------
 # 3. kernels vs plain versions
 # ---------------------------------------------------------------------------
 def quantized_operands(m, k, ns, dev, seed):
+    """Per-row quantized A and per-channel quantized weights, K-major as
+    the model stores them."""
     from repro_torch.core.quantization import quantize
+    from repro_torch.core.quantized_linear import quantize_weight
     a = quantize(randn((m, k), seed, dev), channel_axes=(0,))
-    ws = [quantize(randn((k, n), seed + 1 + i, dev, 0.05), channel_axes=(1,))
+    ws = [quantize_weight(randn((k, n), seed + 1 + i, dev, 0.05))
           for i, n in enumerate(ns)]
     return a, ws
 
@@ -269,29 +310,52 @@ def check_kernels(dev):
              (4, 768, 768, bf16, False), (4, 768, 3072, bf16, False),
              (4, 3072, 768, bf16, False), (5, 770, 100, f32, True),
              (5, 770, 100, bf16, False)]
+    # qwen2.5-3b's served shapes at decode, verify and an 8192-token
+    # prefill (wo, gate / up, down), then ragged M on the tensor-core
+    # variants; bias on and off, bf16 and f32 out
+    for m in QWEN_M:
+        for k, n in QWEN_GEMMS:
+            gemms.append((m, k, n, bf16, False))
+        gemms.append((m, 2048, 2048, f32, True))
+    gemms += [(5, 2048, 2048, bf16, True), (20, 11008, 2048, f32, False),
+              (129, 2048, 11008, bf16, True), (129, 11008, 2048, f32, False)]
     for m, k, n, out_dtype, bias in gemms:
         a, (b,) = quantized_operands(m, k, [n], dev, seed=m + n)
         bi = randn((n,), 7, dev) if bias else None
         out = tiled_matmul(a, b, bi, out_dtype=out_dtype)
         ref = tiled_matmul_ref(a.values, a.scale, b.values, b.scale, bi,
                                out_dtype)
-        what = f"tiled_matmul ({m},{k})x({k},{n}) {out_dtype} bias={bias}"
+        what = (f"tiled_matmul ({m},{k})x({k},{n}) {out_dtype} bias={bias} "
+                f"[{plan_text(m, [n], k, a, [b])}]")
         errs["tiled_matmul"] = max(errs["tiled_matmul"],
                                    max_err(out, ref, what))
+        del a, b, out, ref
         print(f"  ok {what}")
 
-    for m, k, nq, nkv in [(256, 768, 768, 768), (64, 2048, 2048, 256),
-                          (4, 768, 768, 768)]:
+    qkv = [(256, 768, 768, 768, f32), (64, 2048, 2048, 256, f32),
+           (4, 768, 768, 768, f32)]
+    qkv += [(m, 2048, 2048, 256, dt) for m in QWEN_M + (5, 129)
+            for dt in (f32, bf16)]
+    for m, k, nq, nkv, out_dtype in qkv:
         a, ws = quantized_operands(m, k, [nq, nkv, nkv], dev, seed=m + nq)
-        outs = fused_qkv(a, *ws, out_dtype=f32)
+        outs = fused_qkv(a, *ws, out_dtype=out_dtype)
         refs = fused_qkv_ref(a.values, a.scale, ws[0].values, ws[0].scale,
                              ws[1].values, ws[1].scale, ws[2].values,
-                             ws[2].scale, out_dtype=f32)
-        what = f"fused_qkv ({m},{k})x({k},{nq}|{nkv}|{nkv})"
+                             ws[2].scale, out_dtype=out_dtype)
+        what = (f"fused_qkv ({m},{k})x({k},{nq}|{nkv}|{nkv}) {out_dtype} "
+                f"[{plan_text(m, [nq, nkv, nkv], k, a, ws)}]")
         for o, r in zip(outs, refs):
             errs["fused_qkv"] = max(errs["fused_qkv"], max_err(o, r, what))
         print(f"  ok {what}")
     return errs
+
+
+def plan_text(m, ns, k, a, ws):
+    from repro_torch.kernels.tiled_matmul.ops import gemm_plan, is_aligned
+    plan = gemm_plan(m, ns, k, is_aligned(a.values, *(w.values for w in ws)))
+    if plan.variant == "general":
+        return "general"
+    return f"{plan.variant} n{plan.cols} split {plan.split}"
 
 
 def paged_inputs(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
@@ -986,6 +1050,28 @@ def check_served_k5(what, calls, n):
     return worst_rel
 
 
+def plans_so_far():
+    """K2's and K3's launches by variant since import."""
+    from repro_torch.kernels.fused_qkv.ops import fused_qkv
+    from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+    return {"tiled_matmul": collections.Counter(tiled_matmul.plans),
+            "fused_qkv": collections.Counter(fused_qkv.plans)}
+
+
+def check_served_plans(what, before):
+    """Every K2 / K3 call since ``before`` took a tensor-core variant;
+    returns the counts now."""
+    now = plans_so_far()
+    for name in now:
+        grown = now[name] - before[name]
+        print(f"  {what}: {name} launches by variant "
+              f"{dict(sorted(grown.items()))}")
+        if grown["general"]:
+            fail(f"{what}: {grown['general']} {name} calls planned onto the "
+                 "general (__dp4a) variant")
+    return now
+
+
 def device_breakdown(fn, top=10, label="one more run"):
     """``fn()`` (one more run, or what ``label`` says) under
     ``torch.profiler`` (CUDA activity): device time by kernel name, the
@@ -1008,11 +1094,18 @@ def device_breakdown(fn, top=10, label="one more run"):
           f"the device idles {1 - total / wall_ms:.3f} of the run")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
         print(f"    {ms:10.3f} ms {ms / total:6.3f} x{count:<5d} {key[:90]}")
-    # K4 runs as two kernels (the split walk, then the combine): both count
-    for label, name in (("K4 (paged_decode_kernel + paged_decode_combine)",
-                         "paged_decode"), ("K5 (flash_attention_*)",
-                                           "flash_attention")):
-        sel = [(count, ms) for key, count, ms in rows if name in key]
+    # K4 runs as two kernels (the split walk, then the combine), K2 / K3
+    # with K split as two (the partial products, then their sum and the
+    # epilogue): both count.  K2's kernels take 1 product, K3's 3.
+    for label, names in (
+            ("K4 (paged_decode_kernel + paged_decode_combine)",
+             ("paged_decode",)),
+            ("K5 (flash_attention_*)", ("flash_attention",)),
+            ("K2 (gemm_tma / gemm_kernel + splitk_epilogue, 1 product)",
+             ("Params<1>", "Args<1>")),
+            ("K3 (the same, 3 products)", ("Params<3>", "Args<3>"))):
+        sel = [(count, ms) for key, count, ms in rows
+               if any(name in key for name in names)]
         if sel:
             ms = sum(m for _, m in sel)
             print(f"    {label}: {ms:.3f} ms {ms / total:.3f}, "
@@ -1835,6 +1928,13 @@ def int_mm_epilogue(a, sa, b_cm, sb, out_dtype):
     return (torch._int_mm(a, b_cm).float() * (sa * sb)).to(out_dtype)
 
 
+def int_mm_alone(a, sa, b_cm, sb):
+    """torch._int_mm without the epilogue: the library's GEMM core, timed
+    beside the yardstick (whose unfused epilogue can cost more than its
+    GEMM)."""
+    return torch._int_mm(a, b_cm)
+
+
 # torch._int_mm refuses M <= 16: at decode its yardstick runs on A
 # zero-padded (before timing) to this many rows
 INT_MM_MIN_M = 32
@@ -1844,7 +1944,16 @@ def pad_rows(x, m):
     return torch.cat([x, x.new_zeros((m - x.shape[0],) + x.shape[1:])])
 
 
-def time_gemm(m, k, n, out_dtype, dev):
+def plain_timer(m, launches):
+    """The plain versions' timer: past 1024 rows each call allocates GBs
+    in f64, which a graph of many calls would hold at once, so they run
+    eagerly."""
+    if m > 1024:
+        return eager_ms
+    return lambda fn, sets: device_ms(fn, sets, launches)
+
+
+def time_gemm(m, k, n, out_dtype, dev, launches=200):
     from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
     from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
     out_b = torch.tensor([], dtype=out_dtype).element_size()
@@ -1855,23 +1964,25 @@ def time_gemm(m, k, n, out_dtype, dev):
     plain_sets = [(a.values, a.scale, b.values, b.scale) for a, b in sets]
     b_ms, by = bound(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
     row = {"ms": device_ms(lambda a, b: tiled_matmul(a, b, out_dtype=out_dtype),
-                           sets),
-           "plain_ms": device_ms(
+                           sets, launches),
+           "plain_ms": plain_timer(m, launches)(
                lambda *s: tiled_matmul_ref(*s, out_dtype=out_dtype),
                plain_sets),
            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
     if k % 8 == 0 and n % 8 == 0:
         mp = max(m, INT_MM_MIN_M)
+        # the weights rest K-major: _int_mm's column-major second operand
         lib_sets = [(pad_rows(a.values, mp), pad_rows(a.scale, mp),
-                     b.values.t().contiguous().t(), b.scale) for a, b in sets]
+                     b.values, b.scale) for a, b in sets]
         row["library_ms"] = device_ms(
-            lambda *s: int_mm_epilogue(*s, out_dtype)[:m], lib_sets)
+            lambda *s: int_mm_epilogue(*s, out_dtype)[:m], lib_sets, launches)
+        row["int_mm_ms"] = device_ms(int_mm_alone, lib_sets, launches)
         if mp != m:
             row["library_note"] = f"padded to M={mp}"
     return row
 
 
-def time_fused(m, k, nq, nkv, dev):
+def time_fused(m, k, nq, nkv, dev, launches=200):
     from repro_torch.kernels.fused_qkv.ops import fused_qkv
     from repro_torch.kernels.fused_qkv.ref import fused_qkv_ref
     n_all = nq + 2 * nkv
@@ -1883,8 +1994,9 @@ def time_fused(m, k, nq, nkv, dev):
                                             ()) for a, ws in ops]
     b_ms, by = bound(nbytes, 2 * m * k * n_all, INT8_OPS_PER_S)
     row = {"ms": device_ms(
-               lambda *s: fused_qkv(*s, out_dtype=torch.float32), sets),
-           "plain_ms": device_ms(
+               lambda *s: fused_qkv(*s, out_dtype=torch.float32), sets,
+               launches),
+           "plain_ms": plain_timer(m, launches)(
                lambda *s: fused_qkv_ref(*s, out_dtype=torch.float32),
                plain_sets),
            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
@@ -1894,7 +2006,9 @@ def time_fused(m, k, nq, nkv, dev):
                      torch.cat([w.values for w in ws], 1).t().contiguous().t(),
                      torch.cat([w.scale for w in ws], 1)) for a, ws in ops]
         row["library_ms"] = device_ms(
-            lambda *s: int_mm_epilogue(*s, torch.float32)[:m], lib_sets)
+            lambda *s: int_mm_epilogue(*s, torch.float32)[:m], lib_sets,
+            launches)
+        row["int_mm_ms"] = device_ms(int_mm_alone, lib_sets, launches)
         if mp != m:
             row["library_note"] = f"padded to M={mp}"
     return row
@@ -2069,6 +2183,21 @@ def timings(cfg, dev):
             shapes["tiled_matmul"].append(
                 (phase, f"{name} ({m},{k})x({k},{n}) bf16", 1,
                  time_gemm(m, k, n, bf16, dev)))
+    # qwen2.5-3b's K2 / K3 launches of one layer at decode (M=4), verify
+    # (M=20) and an 8192-token prefill (fewer launches there)
+    for name in ("fused_qkv", "tiled_matmul"):
+        shapes[f"qwen {name}"] = []
+    for phase, m in (("decode", 4), ("verify", 20), ("prefill", LONG_PROMPT)):
+        n = 10 if m == LONG_PROMPT else 200
+        shapes["qwen fused_qkv"].append(
+            (phase, f"({m},2048)x(2048,2048|256|256) f32", 1,
+             time_fused(m, 2048, 2048, 256, dev, launches=n)))
+        for name, k, nn, times in (("wo", 2048, 2048, 1),
+                                   ("gate/up", 2048, 11008, 2),
+                                   ("down", 11008, 2048, 1)):
+            shapes["qwen tiled_matmul"].append(
+                (phase, f"{name} ({m},{k})x({k},{nn}) bf16", times,
+                 time_gemm(m, k, nn, bf16, dev, launches=n)))
     # K4: one launch per layer; the serve's prefill (one 64-row q block)
     # and first decode step, in bf16 and int8 pools; then long contexts
     # whose bound is more than launch latency (bf16 pools, page 64)
@@ -2125,7 +2254,7 @@ def timings(cfg, dev):
 
     print("timings (device ms per launch; bound = max(bytes / 3.35 TB/s, "
           "ops / peak)):")
-    print(f"  {'kernel':13s} {'phase':13s} {'shape':38s} {'x':>2s} "
+    print(f"  {'kernel':18s} {'phase':13s} {'shape':38s} {'x':>2s} "
           f"{'ms':>9s} {'plain_ms':>9s} {'lib_ms':>9s} {'bound_ms':>9s} by")
     for kname, rows in shapes.items():
         for phase, desc, times, r in rows:
@@ -2135,7 +2264,9 @@ def timings(cfg, dev):
                 else ""
             if "splits" in r:
                 note += f"; {r['splits']}"
-            print(f"  {kname:13s} {phase:13s} {desc:38s} {times:2d} "
+            if "int_mm_ms" in r:
+                note += f"; _int_mm alone {r['int_mm_ms']:.5f}"
+            print(f"  {kname:18s} {phase:13s} {desc:38s} {times:2d} "
                   f"{r['ms']:9.5f} {r['plain_ms']:9.5f} {lib:>9s} "
                   f"{r['bound_ms']:9.5f} {r['bound_by']}{note}")
     return shapes
@@ -2209,12 +2340,17 @@ def main():
     model_cpu = quantize_model_params(master)
     model = copy.deepcopy(model_cpu).to(dev)
     with torch.inference_mode():
+        before = plans_so_far()
         counts, t_prefill, tps, toks, cache = main_path(model, cfg, dev)
+        before = check_served_plans("distilbert dense serve", before)
         paged_counts, paged_prefill, paged_tps = paged_paths(
             model, cfg, dev, toks, cache)
+        before = check_served_plans("distilbert paged serves", before)
         del cache
         qwen, gemma = long_prompt_paths(dev)
+        before = check_served_plans("prefill_step", before)
         sched_runs = scheduler_paths(dev)
+        check_served_plans("Scheduler runs", before)
         card_vs_cpu(model_cpu, master, cfg, dev)
         card_vs_cpu_long(dev)
         sched_check = card_vs_cpu_scheduler(dev)
@@ -2237,6 +2373,14 @@ def main():
                                            "library_ms", "library_note")
                        if k in dec},
         })
+        if f"qwen {name}" in shapes:
+            rows = shapes[f"qwen {name}"]
+            kernels[-1]["qwen2_5_3b"] = {
+                "work": "one layer's launches (sum over them)",
+                **{phase: per_layer(rows, phase)
+                   for phase in ("decode", "verify", "prefill")},
+                "shapes": [dict(phase=phase, shape=desc, times=times, **r)
+                           for phase, desc, times, r in rows]}
     kernels[-1]["max_row_rel_err_bf16"] = paged_rel_bf16
     pd = {phase: r for phase, _, _, r in shapes["paged_decode"]}
     kernels[-1]["scheduler_decode"] = {

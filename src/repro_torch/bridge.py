@@ -4,7 +4,8 @@
 nested dict of numpy arrays — each ``QTensor`` given as ``{"values",
 "scale", "bits"}`` — and builds the port's ``Model`` from it, splitting the
 layer-stacked ``(L, …)`` leaves into per-layer modules.  Values are copied
-exactly, so the port and the JAX package run the same weights.
+exactly, so the port and the JAX package run the same weights; quantized
+values are stored K-major, the layout the int8 GEMM kernels read.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.quantization import QTensor
+from repro_torch.core.quantization import QTensor, k_major
 from repro_torch.core.quantized_linear import Linear
 from repro_torch.models.attention import Attention
 from repro_torch.models.config import ModelConfig
@@ -40,8 +41,9 @@ def _linear(node, i) -> Linear | None:
     b = _t(node["b"][i]) if "b" in node else None
     if "w_q" in node:
         q = node["w_q"]
-        return Linear(w_q=QTensor(_t(q["values"][i]), _t(q["scale"][i]),
-                                  int(q.get("bits", 8))), b=b)
+        return Linear(w_q=QTensor(k_major(_t(q["values"][i])),
+                                  _t(q["scale"][i]), int(q.get("bits", 8))),
+                      b=b)
     return Linear(w=_t(node["w"][i]), b=b)
 
 

@@ -3,16 +3,15 @@
 Attention calls this instead of three ``apply_linear`` calls when fusion is
 enabled.  Under ``w8a8`` the activation matrix is quantized once
 (``quant_act``, K1) and contracted against Wq, Wk and Wv inside one kernel
-launch (``fused_qkv``, K3) that stages each activation slab once for all
-three weights.  In 'none'/'w8' modes one concatenated GEMM makes the same
+launch (``fused_qkv``, K3).  In 'none'/'w8' modes one concatenated GEMM makes the same
 single pass over x.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantization import quantize
-from repro_torch.core.quantized_linear import Linear, QuantMode
+from repro_torch.core.quantized_linear import (Linear, QuantMode,
+                                              quantize_weight)
 from repro_torch.kernels.fused_qkv.ops import fused_qkv
 from repro_torch.kernels.quant_act.ops import quant_act
 
@@ -31,8 +30,8 @@ def apply_fused_qkv(pq: Linear, pk: Linear, pv: Linear, x: torch.Tensor, *,
 
     if mode == "w8a8":
         xq = quant_act(x2)
-        wqs = [p.w_q if p.w_q is not None
-               else quantize(p.w, channel_axes=(1,)) for p in (pq, pk, pv)]
+        wqs = [p.w_q if p.w_q is not None else quantize_weight(p.w)
+               for p in (pq, pk, pv)]
         # f32 outputs: the bias is added afterwards, then the cast
         q, k, v = fused_qkv(xq, *wqs, out_dtype=torch.float32)
         return unflatten(q, pq), unflatten(k, pk), unflatten(v, pv)

@@ -18,7 +18,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["QTensor", "quantize", "dequantize", "qmax_for_bits",
-           "quantize_kv"]
+           "quantize_kv", "k_major"]
 
 
 def qmax_for_bits(bits: int) -> int:
@@ -85,6 +85,15 @@ def quantize(x: torch.Tensor, *, channel_axes: Sequence[int] = (),
     q = torch.round(x.float() / scale)
     q = torch.clamp(q, -qmax, qmax).to(torch.int8)
     return QTensor(values=q, scale=scale, bits=bits)
+
+
+def k_major(values: torch.Tensor) -> torch.Tensor:
+    """``values`` (..., K, N) stored K-major: the same (..., K, N) view of
+    an (..., N, K)-contiguous copy.  Quantized weights rest in this layout
+    because the int8 GEMM kernels read them so (wgmma takes 8-bit operands
+    only K-major, and TMA cannot transpose bytes); ``.to()`` and
+    ``copy.deepcopy`` keep it."""
+    return values.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
 def dequantize(q: QTensor, dtype=torch.float32) -> torch.Tensor:

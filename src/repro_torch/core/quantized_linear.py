@@ -13,13 +13,15 @@ config's ``quant_proj``:
 A ``Linear`` module holds either master float weights ``w`` (K, N) or their
 offline quantization ``w_q`` (int8 values + (1, N) f32 scales), and an
 optional f32 bias ``b``; ``quantize_linear`` converts one into the other.
+Quantized values rest K-major (``quantize_weight``): one (N, K)-contiguous
+copy, seen as (K, N), the layout kernel K2 reads.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.core.quantization import QTensor, quantize
+from repro_torch.core.quantization import QTensor, k_major, quantize
 from repro_torch.kernels.quant_act.ops import quant_act
 from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
 
@@ -66,13 +68,18 @@ def weight_channel_axes(w: torch.Tensor) -> tuple[int, ...]:
     return tuple(range(w.dim() - 2)) + (w.dim() - 1,)
 
 
+def quantize_weight(w: torch.Tensor) -> QTensor:
+    """Per-output-channel int8 quantization of a (..., K, N) weight, its
+    values K-major (``k_major``)."""
+    q = quantize(w, channel_axes=weight_channel_axes(w))
+    return QTensor(k_major(q.values), q.scale, q.bits)
+
+
 def quantize_linear(params: Linear) -> Linear:
     """Offline int8 weight quantization (per output channel), keeps bias
     f32."""
-    w = params.w
-    w_q = quantize(w, channel_axes=weight_channel_axes(w))
     b = params.b.float() if params.b is not None else None
-    return Linear(w_q=w_q, b=b)
+    return Linear(w_q=quantize_weight(params.w), b=b)
 
 
 def _add_bias(y: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
@@ -99,7 +106,7 @@ def apply_linear(params: Linear, x: torch.Tensor, *,
 
     wq = params.w_q
     if wq is None:
-        wq = quantize(params.w, channel_axes=weight_channel_axes(params.w))
+        wq = quantize_weight(params.w)
 
     if mode == "w8":
         y = x @ wq.dequantize(x.dtype)

@@ -1,4 +1,7 @@
-// Shared tile core of the int8 GEMM (K2) and the fused QKV GEMM (K3).
+// The general variant of the int8 GEMM (K2) and the fused QKV GEMM (K3):
+// the shapes the tensor-core variants (int8_wgmma.cuh) cannot take, because
+// TMA cannot describe them (a row stride not a multiple of 16 bytes, or a
+// base address not 16-byte aligned).
 //
 // One block owns a BM x BN output tile of up to NMAT products that share the
 // A operand: C_j = dequant(A @ B_j) (+ bias_j).  The K loop runs inside the
@@ -7,11 +10,11 @@
 // That loop replaces both TPU schedules (panel-resident and K-split): Hopper
 // has no sequential grid, so nothing is carried between blocks.
 //
-// Layout: A is (M, K) row-major, so a row's K run is already contiguous.
-// B_j is (K, N_j) row-major; its slab is transposed on the way into shared
-// memory (column-major, K contiguous) so one 32-bit read yields the four K
-// values __dp4a needs.  Rows are padded to BK + 4 bytes (17 words) so the 16
-// distinct columns a warp reads fall in distinct banks.
+// Layout: A is (M, K) row-major and every B_j is stored K-major, (N_j, K)
+// row-major, so a row's K run is contiguous in both and one 32-bit read of
+// a staged row yields the four K values __dp4a needs.  Rows are padded to
+// BK + 4 bytes (17 words) so the 16 distinct rows a warp reads fall in
+// distinct banks.
 //
 // Edges: M, N_j and K need not be tile multiples.  Out-of-range A and B
 // elements are zero-filled on load (they add 0 to the int32 sum) and stores
@@ -36,14 +39,15 @@ constexpr int BK = 64;
 constexpr int kThreads = 256;        // 16 x 16 threads, 4 x 4 outputs each
 constexpr int LDB = BK + 4;          // padded shared row, bytes
 constexpr int LDW = LDB / 4;         // padded shared row, 32-bit words
+static_assert(BM == BN, "load_slab stages A and B tiles alike");
 
 struct Mat {
-  const int8_t* b;        // (K, n) int8
+  const int8_t* b;        // (n, K) int8, K-major
   const float* sb;        // (n,) f32 per-column scale
   const float* bias;      // (n,) f32 or nullptr
   void* out;              // (M, n) f32 or bf16
   int n;
-  int vec;                // n % 4 == 0 and b 4-byte aligned: word loads
+  int vec;                // K % 4 == 0 and b 4-byte aligned: word loads
 };
 
 template <int NMAT>
@@ -59,43 +63,24 @@ struct Args {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-__device__ __forceinline__ void load_a_slab(int8_t* sA, const int8_t* a, int m, int k,
-                                            int m0, int k0, int vec) {
+// stage rows [r0, r0 + BM) x K values [k0, k0 + BK) of a (rows, K)
+// row-major int8 matrix, zero past its edges
+__device__ __forceinline__ void load_slab(int8_t* s, const int8_t* g, int rows, int k, int r0,
+                                          int k0, int vec) {
   const int tid = threadIdx.x;
   if (vec) {
     for (int w = tid; w < BM * BK / 4; w += kThreads) {
       const int r = w / (BK / 4), c = (w % (BK / 4)) * 4;
-      const int gm = m0 + r, gk = k0 + c;
+      const int gr = r0 + r, gk = k0 + c;
       int v = 0;
-      if (gm < m && gk < k) v = *reinterpret_cast<const int*>(a + static_cast<int64_t>(gm) * k + gk);
-      *reinterpret_cast<int*>(sA + r * LDB + c) = v;
+      if (gr < rows && gk < k) v = *reinterpret_cast<const int*>(g + static_cast<int64_t>(gr) * k + gk);
+      *reinterpret_cast<int*>(s + r * LDB + c) = v;
     }
   } else {
     for (int e = tid; e < BM * BK; e += kThreads) {
       const int r = e / BK, c = e % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      sA[r * LDB + c] = (gm < m && gk < k) ? a[static_cast<int64_t>(gm) * k + gk] : int8_t(0);
-    }
-  }
-}
-
-__device__ __forceinline__ void load_b_slab(int8_t* sB, const Mat& mat, int k, int n0, int k0) {
-  const int tid = threadIdx.x;
-  const int n = mat.n;
-  if (mat.vec) {
-    for (int w = tid; w < BK * BN / 4; w += kThreads) {
-      const int r = w / (BN / 4), c = (w % (BN / 4)) * 4;
-      const int gk = k0 + r, gn = n0 + c;
-      int v = 0;
-      if (gk < k && gn < n) v = *reinterpret_cast<const int*>(mat.b + static_cast<int64_t>(gk) * n + gn);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) sB[(c + t) * LDB + r] = static_cast<int8_t>(v >> (8 * t));
-    }
-  } else {
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      sB[c * LDB + r] = (gk < k && gn < n) ? mat.b[static_cast<int64_t>(gk) * n + gn] : int8_t(0);
+      const int gr = r0 + r, gk = k0 + c;
+      s[r * LDB + c] = (gr < rows && gk < k) ? g[static_cast<int64_t>(gr) * k + gk] : int8_t(0);
     }
   }
 }
@@ -123,10 +108,10 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Args<NMAT> args) {
       for (int c = 0; c < 4; ++c) acc[j][r][c] = 0;
 
   for (int k0 = 0; k0 < args.k; k0 += BK) {
-    load_a_slab(sA, args.a, args.m, args.k, m0, k0, args.vec_a);
+    load_slab(sA, args.a, args.m, args.k, m0, k0, args.vec_a);
 #pragma unroll
     for (int j = 0; j < NMAT; ++j)
-      if (live[j]) load_b_slab(sB[j], args.mat[j], args.k, n0, k0);
+      if (live[j]) load_slab(sB[j], args.mat[j].b, args.mat[j].n, args.k, n0, k0, args.mat[j].vec);
     __syncthreads();
 
     const int* wA = reinterpret_cast<const int*>(sA);
@@ -176,12 +161,10 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Args<NMAT> args) {
 inline int aligned4(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3) == 0; }
 
 template <int NMAT>
-int launch(Args<NMAT> args, int out_bf16, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+int launch(Args<NMAT> args, int out_bf16, cudaStream_t stream) {
   args.vec_a = (args.k % 4 == 0) && aligned4(args.a);
   for (int j = 0; j < NMAT; ++j)
-    args.mat[j].vec = (args.mat[j].n % 4 == 0) && aligned4(args.mat[j].b);
+    args.mat[j].vec = (args.k % 4 == 0) && aligned4(args.mat[j].b);
   // mat[0] is the widest product (Nq >= Nkv): the grid covers its columns
   const dim3 grid((args.mat[0].n + BN - 1) / BN, (args.m + BM - 1) / BM);
   if (grid.x > 0 && grid.y > 0) {

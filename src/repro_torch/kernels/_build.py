@@ -39,8 +39,8 @@ SIGNATURES = {
         "launch_quant_act_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "int8_gemm": {
-        "launch_tiled_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "launch_fused_qkv": [_P] * 11 + [_I] * 6 + [_P],
+        "launch_tiled_matmul": [_P] * 7 + [_I] * 9 + [_P],
+        "launch_fused_qkv": [_P] * 12 + [_I] * 10 + [_P],
     },
     "paged_decode": {
         "launch_paged_decode": [_P] * 10 + [_I] * 11 + [_F, _F] + [_I] * 3 + [_P],

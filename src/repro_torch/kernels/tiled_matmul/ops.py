@@ -1,11 +1,33 @@
 """Wrapper for the tiled int8 GEMM: CUDA kernel K2 on the card, the plain
 version on the CPU.
 
-The kernel takes fixed 64 x 64 x 64 tiles and handles ragged M, N and K
-itself (no host-side padding); plan selection comes with the Hopper
-dispatcher (ROADMAP queue 1, item 6).
+The kernel reads the weights K-major: ``b.values`` is the (K, N) view of an
+(N, K)-contiguous tensor, as ``quantize_weight`` stores them at rest (wgmma
+reads 8-bit operands only K-major, and TMA cannot transpose bytes).  A
+row-major B on the card raises; it is never transposed here.
+
+``gemm_plan`` picks the kernel's variant from the shapes and the operands'
+alignment alone, before launch (see ``csrc/int8_gemm.cu``):
+
+* ``wide``: large M (prefill), tensor cores on 128 x 256 output tiles;
+* ``swap``: small M (decode, verify, short prefills), tensor cores with
+  the weights on wgmma's 64-row side and the activation rows on its N
+  side, padded to 8/16/32/64 (tiles of 64 rows past 64), K split over
+  blocks where the tiles leave SMs idle (int32 partials, summed by a
+  second kernel);
+* ``general``: what TMA cannot describe (K not a multiple of 16, a base not
+  16-byte aligned): ``__dp4a`` on 64 x 64 tiles.
+
+``check_plan`` holds the plan to the shapes before launch, and the C
+launcher checks it again against its own tile geometry: a plan that does
+not cover K's k-steps exactly once, or a width the variant is not built
+for, raises rather than returning a partial product.
 """
 from __future__ import annotations
+
+import collections
+import functools
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -13,9 +35,104 @@ from repro_torch.core.quantization import QTensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiled_matmul import ref as _ref
 
-__all__ = ["tiled_matmul", "OUT_DTYPES"]
+__all__ = ["tiled_matmul", "gemm_plan", "check_plan", "GemmPlan",
+           "OUT_DTYPES"]
 
 OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+SMS = 132                       # H100 SXM streaming multiprocessors
+BK = 128                        # K values per pipeline stage (one k-step)
+ROWS = 128                      # wgmma A-side rows per block
+WIDE_COLS = 256                 # the wide variant's output columns per block
+SWAP_COLS = (8, 16, 32, 64)     # the swap variant's padded activation rows
+SWAP_MAX_M = 512                # past this many rows, the wide variant
+MIN_SPLIT_STEPS = 4             # k-steps a split takes at least
+TMA_ALIGN = 16                  # bytes: TMA's base and row-stride alignment
+# the largest K whose int32 sum of int8 products cannot overflow:
+# 127^2 K < 2^31
+MAX_K = (2 ** 31 - 1) // 127 ** 2
+VARIANTS = {"general": 0, "wide": 1, "swap": 2}
+
+
+class GemmPlan(NamedTuple):
+    variant: str                # "wide", "swap" or "general"
+    cols: int                   # wgmma's N: 256, M padded, or 0 (general)
+    split: int                  # blocks along K (> 1: int32 partials)
+    chunk: int                  # k-steps of BK per split
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_plan(m: int, ns: Sequence[int], k: int, aligned: bool) -> GemmPlan:
+    """The kernel variant for A (m, k) times products of widths ``ns``
+    (one for K2; Nq, Nkv, Nkv for K3), from the shapes and whether every
+    operand's base is 16-byte aligned.
+
+    The wide variant takes M > 512, and M > 64 where its tiles fill half
+    the SMs.  The swap variant splits K only where its tiles leave three
+    quarters of the SMs idle, into splits of at least MIN_SPLIT_STEPS
+    k-steps: a split costs a second kernel and M x N int32 partials.  The
+    thresholds come from H100 timings of each choice
+    (`tools/gemm_plan_sweep.py`, PERF.md §6)."""
+    return _gemm_plan(m, tuple(ns), k, aligned)
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_plan(m: int, ns: tuple, k: int, aligned: bool) -> GemmPlan:
+    if not aligned or k % TMA_ALIGN or m == 0 or min(ns) == 0:
+        return GemmPlan("general", 0, 1, 0)
+    nk = _cdiv(k, BK)
+    wide_tiles = _cdiv(m, ROWS) * sum(_cdiv(n, WIDE_COLS) for n in ns)
+    if m > SWAP_MAX_M or (m > SWAP_COLS[-1] and wide_tiles >= SMS // 2):
+        return GemmPlan("wide", WIDE_COLS, 1, nk)
+    cols = next((c for c in SWAP_COLS if c >= m), SWAP_COLS[-1])
+    tiles = _cdiv(m, cols) * sum(_cdiv(n, ROWS) for n in ns)
+    split = 1
+    if tiles <= SMS // 4:
+        split = max(1, min(SMS // tiles, nk // MIN_SPLIT_STEPS))
+    chunk = _cdiv(nk, split)
+    return GemmPlan("swap", cols, _cdiv(nk, chunk), chunk)
+
+
+def check_plan(plan: GemmPlan, m: int, ns: Sequence[int], k: int,
+               aligned: bool) -> None:
+    """Raise unless the kernel takes ``plan`` at these shapes: the general
+    tile unsplit; a tensor-core variant only where TMA reads the operands
+    (K a multiple of 16, aligned bases), at a width it is built for, its
+    splits of ``chunk`` k-steps covering K's k-steps exactly once (the
+    last split not empty), the wide one unsplit."""
+    if plan.variant == "general":
+        ok = plan.split == 1
+    else:
+        nk = _cdiv(k, BK)
+        ok = (aligned and k % TMA_ALIGN == 0 and plan.chunk >= 1
+              and (plan.split - 1) * plan.chunk < nk <= plan.split * plan.chunk
+              and (plan.cols == WIDE_COLS and plan.split == 1
+                   if plan.variant == "wide"
+                   else plan.variant == "swap" and plan.cols in SWAP_COLS))
+    if not ok:
+        raise ValueError(f"{plan} does not fit A ({m}, {k}) times widths "
+                         f"{list(ns)}{'' if aligned else ' (unaligned)'}")
+
+
+def plan_for(m: int, ns: Sequence[int], k: int, *operands) -> GemmPlan:
+    """``gemm_plan``'s variant for these shapes and operands, checked."""
+    aligned = is_aligned(*operands)
+    plan = gemm_plan(m, ns, k, aligned)
+    check_plan(plan, m, ns, k, aligned)
+    return plan
+
+
+def is_aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % TMA_ALIGN == 0 for t in tensors)
+
+
+def check_depth(k: int, what: str) -> None:
+    if k > MAX_K:
+        raise ValueError(f"{what}: K = {k} may overflow the int32 sum "
+                         f"(at most {MAX_K})")
 
 
 def check_operand(t: torch.Tensor, dtype, shape, what: str) -> None:
@@ -25,6 +142,19 @@ def check_operand(t: torch.Tensor, dtype, shape, what: str) -> None:
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: kernel needs a contiguous tensor")
+
+
+def check_weight(t: torch.Tensor, shape, what: str) -> None:
+    """An int8 (K, N) weight stored K-major: the view of an (N, K)-
+    contiguous tensor."""
+    if t.dtype != torch.int8:
+        raise TypeError(f"{what}: expected torch.int8, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.t().is_contiguous():
+        raise ValueError(f"{what}: the kernel reads weights K-major, the (K, N) "
+                         "view of an (N, K)-contiguous tensor "
+                         "(core.quantization.k_major)")
 
 
 def row_scale(a: QTensor) -> torch.Tensor:
@@ -39,18 +169,33 @@ def col_scale(b: QTensor) -> torch.Tensor:
     return torch.broadcast_to(b.scale.float(), (1, n)).contiguous()
 
 
+def split_scratch(plan: GemmPlan, m: int, n_total: int, dev):
+    """The int32 partials (split, M, n_total) of a split K, else None."""
+    if plan.split == 1:
+        return None
+    return torch.empty((plan.split, m, n_total), dtype=torch.int32,
+                       device=dev)
+
+
+def plan_args(plan: GemmPlan) -> tuple:
+    """The launcher's integers for ``plan``."""
+    return VARIANTS[plan.variant], plan.cols, plan.split, plan.chunk
+
+
 def tiled_matmul(a: QTensor, b: QTensor, bias: torch.Tensor | None = None, *,
                  out_dtype=torch.bfloat16) -> torch.Tensor:
     """C = dequant(A_q @ B_q) + bias for quantized operands.
 
     ``a``: QTensor (M, K) with per-row (M,1) / per-tensor scale.
-    ``b``: QTensor (K, N) with per-col (1,N) / per-tensor scale.
+    ``b``: QTensor (K, N) with per-col (1,N) / per-tensor scale; on the
+    card its values K-major.
     ``bias``: (N,) f32 or None.
     """
     m, k = a.values.shape
     k2, n = b.values.shape
     if k != k2:
         raise ValueError(f"tiled_matmul: inner dims differ ({k} vs {k2})")
+    check_depth(k, "tiled_matmul")
     a_scale, b_scale = row_scale(a), col_scale(b)
     dev = a.values.device
     if dev.type == "cpu":
@@ -61,22 +206,30 @@ def tiled_matmul(a: QTensor, b: QTensor, bias: torch.Tensor | None = None, *,
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"tiled_matmul kernel writes f32 or bf16, not {out_dtype}")
     check_operand(a.values, torch.int8, (m, k), "A values")
-    check_operand(b.values, torch.int8, (k, n), "B values")
+    check_weight(b.values, (k, n), "B values")
     if bias is not None:
         check_operand(bias, torch.float32, (n,), "bias")
     for t in (b.values, a_scale, b_scale) + ((bias,) if bias is not None else ()):
         if t.device != dev:
             raise ValueError(f"tiled_matmul: operand on {t.device}, A on {dev}")
+    plan = plan_for(m, (n,), k, a.values, b.values)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    ws = split_scratch(plan, m, n, dev)
     fn = _build.library("int8_gemm").launch_tiled_matmul
     _build.check(fn(a.values.data_ptr(), a_scale.data_ptr(),
                     b.values.data_ptr(), b_scale.data_ptr(),
                     bias.data_ptr() if bias is not None else None,
-                    out.data_ptr(), m, k, n, int(out_dtype == torch.bfloat16),
-                    dev.index, torch.cuda.current_stream(dev).cuda_stream),
+                    out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                    m, k, n, int(out_dtype == torch.bfloat16),
+                    *plan_args(plan), dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream),
                  "tiled_matmul")
     tiled_matmul.launches += 1
+    tiled_matmul.plans[plan.variant] += 1
     return out
 
 
 tiled_matmul.launches = 0
+# launches by variant since import (never reset): the served paths must
+# plan onto the tensor-core variants
+tiled_matmul.plans = collections.Counter()

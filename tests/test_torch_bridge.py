@@ -94,3 +94,40 @@ def test_bridge_copies_every_leaf(arch, quant):
                 np.testing.assert_array_equal(lin.b.numpy(), node["b"][i])
         np.testing.assert_array_equal(layer.norm_ffn.w.numpy(),
                                       tree["layers"]["norm_ffn"]["w"][i])
+
+
+def _projections(model):
+    for layer in model.layers:
+        for name in ("wq", "wk", "wv", "wo"):
+            yield getattr(layer.attn, name)
+        for name in ("gate", "up", "down"):
+            lin = getattr(layer.ffn, name, None)
+            if lin is not None:
+                yield lin
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_bridge_stores_quantized_weights_k_major(arch):
+    """Kernel K2/K3 read weights K-major: the bridge stores each quantized
+    projection once, (N, K)-contiguous, seen as the (K, N) it copies."""
+    _, params, _, model = paired_models(arch, quant_proj="w8a8")
+    tree = numpy_tree(params)
+    for lin in _projections(model):
+        values = lin.w_q.values
+        k, n = values.shape
+        assert values.stride() == (1, k) and values.t().is_contiguous()
+        assert values.untyped_storage().nbytes() == k * n   # one copy
+    np.testing.assert_array_equal(
+        model.layers[0].attn.wq.w_q.values.numpy(),
+        tree["layers"]["attn"]["wq"]["w_q"]["values"][0])
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_quantize_model_params_stores_weights_k_major(arch):
+    from repro_torch.core.quantize_params import quantize_model_params
+    _, _, _, master = paired_models(arch, quant_proj="none")
+    model = quantize_model_params(master)
+    for lin, ref in zip(_projections(model), _projections(master)):
+        values = lin.w_q.values
+        assert values.shape == ref.w.shape
+        assert values.t().is_contiguous() and not values.is_contiguous()

@@ -3,11 +3,14 @@
 Run on a machine with an H100:  python -m pytest -m gpu tests/test_torch_gpu.py
 Without a card every test here skips (the card is checked in a fixture).
 """
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.quantization import quantize, quantize_kv
+from repro_torch.core.quantized_linear import quantize_weight
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import ref as paged_ref
 from repro_torch.kernels.flash_attention.decode import (flash_decode_schedule,
@@ -19,7 +22,10 @@ from repro_torch.kernels.fused_qkv.ops import fused_qkv
 from repro_torch.kernels.quant_act import ref as quant_ref
 from repro_torch.kernels.quant_act.ops import quant_act
 from repro_torch.kernels.tiled_matmul import ref as matmul_ref
-from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+from repro_torch.kernels import _build
+from repro_torch.kernels.tiled_matmul import ops as matmul_ops
+from repro_torch.kernels.tiled_matmul.ops import (GemmPlan, gemm_plan,
+                                                  tiled_matmul)
 from repro_torch.models.transformer import apply_model, init_model
 from repro_torch.serving.cache import default_page_table
 
@@ -50,8 +56,9 @@ def _row_rel_err(got, want):
 
 
 def _operands(m, k, ns, dev, seed=0):
+    """Per-row quantized A and per-channel quantized, K-major weights."""
     a = quantize(_randn((m, k), seed, dev), channel_axes=(0,))
-    ws = [quantize(_randn((k, n), seed + 1 + i, dev, 0.05), channel_axes=(1,))
+    ws = [quantize_weight(_randn((k, n), seed + 1 + i, dev, 0.05))
           for i, n in enumerate(ns)]
     return a, ws
 
@@ -94,6 +101,179 @@ def test_fused_qkv_kernel_bitwise(cuda, m, k, nq, nkv):
                                    out_dtype=torch.float32)
     for o, r in zip(outs, refs):
         assert torch.equal(o, r)
+
+
+# m, k, n and the plan each must take: every variant, split K on both
+# tensor-core forms, ragged M / N / K, qwen2.5-3b's served shapes
+GEMM_VARIANTS = [
+    ((4, 2048, 2048), ("swap", 8, 4)),        # decode wo: split K
+    ((4, 11008, 2048), ("swap", 8, 8)),       # decode down
+    ((20, 2048, 11008), ("swap", 32, 1)),     # verify gate / up
+    ((5, 208, 300), ("swap", 8, 1)),          # ragged N and K
+    ((64, 768, 768), ("swap", 64, 1)),
+    ((129, 2048, 2048), ("swap", 64, 1)),     # ragged M: three row tiles
+    ((192, 2048, 11008), ("wide", 256, 1)),   # wide tiles fill half the SMs
+    ((256, 3072, 768), ("swap", 64, 5)),      # distilbert down
+    ((300, 160, 600), ("swap", 64, 1)),       # ragged everything
+    ((300, 4096, 256), ("swap", 64, 8)),      # five row tiles, split K
+    ((513, 208, 300), ("wide", 256, 1)),      # ragged everything
+    ((1024, 2048, 11008), ("wide", 256, 1)),
+    ((5, 770, 100), ("general", 0, 1)),       # K % 16: no TMA
+]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("shape,plan", GEMM_VARIANTS,
+                         ids=[f"{v[0]}-{m}x{k}x{n}"
+                              for (m, k, n), v in GEMM_VARIANTS])
+def test_tiled_matmul_variants_bitwise(cuda, shape, plan, bias, out_dtype):
+    m, k, n = shape
+    assert gemm_plan(m, [n], k, True)[:3] == plan
+    a, (b,) = _operands(m, k, [n], cuda, seed=m + n)
+    bi = _randn((n,), 9, cuda) if bias else None
+    before = dict(tiled_matmul.plans)
+    out = tiled_matmul(a, b, bi, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tiled_matmul.plans[plan[0]] == before.get(plan[0], 0) + 1
+    ref = matmul_ref.tiled_matmul_ref(a.values, a.scale, b.values, b.scale,
+                                      bi, out_dtype)
+    assert torch.equal(out, ref)
+
+
+# m, k, nq, nkv and the plan: qwen2.5-3b's GQA projection at decode,
+# verify, a ragged prefill chunk and a long prompt; MHA; ragged widths on
+# the wide variant; the general tile
+QKV_VARIANTS = [
+    ((4, 2048, 2048, 256), ("swap", 8, 4)),
+    ((20, 2048, 2048, 256), ("swap", 32, 4)),
+    ((129, 2048, 2048, 256), ("swap", 64, 1)),
+    ((2048, 2048, 2048, 256), ("wide", 256, 1)),
+    ((256, 768, 768, 768), ("swap", 64, 1)),
+    ((600, 2048, 520, 136), ("wide", 256, 1)),    # ragged N
+    ((3, 70, 50, 20), ("general", 0, 1)),
+]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,plan", QKV_VARIANTS,
+                         ids=[f"{v[0]}-{m}x{k}x{nq}-{nkv}"
+                              for (m, k, nq, nkv), v in QKV_VARIANTS])
+def test_fused_qkv_variants_bitwise(cuda, shape, plan, out_dtype):
+    m, k, nq, nkv = shape
+    assert gemm_plan(m, [nq, nkv, nkv], k, True)[:3] == plan
+    a, ws = _operands(m, k, [nq, nkv, nkv], cuda, seed=m + nq)
+    outs = fused_qkv(a, *ws, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    refs = fused_ref.fused_qkv_ref(a.values, a.scale, ws[0].values,
+                                   ws[0].scale, ws[1].values, ws[1].scale,
+                                   ws[2].values, ws[2].scale,
+                                   out_dtype=out_dtype)
+    for o, r in zip(outs, refs):
+        assert torch.equal(o, r)
+
+
+# every variant, forced at one shape (M = 40, K = 2048, ragged widths)
+FORCED_PLANS = [GemmPlan("general", 0, 1, 0), GemmPlan("wide", 256, 1, 16),
+                GemmPlan("swap", 64, 1, 16), GemmPlan("swap", 64, 4, 4),
+                GemmPlan("swap", 32, 3, 6), GemmPlan("swap", 16, 1, 16),
+                GemmPlan("swap", 8, 16, 1)]
+
+
+@pytest.mark.parametrize("plan", FORCED_PLANS,
+                         ids=[f"{p.variant}{p.cols}-split{p.split}"
+                              for p in FORCED_PLANS])
+def test_every_variant_is_the_plain_version(cuda, plan, monkeypatch):
+    """Every variant and split, also where gemm_plan would not take it
+    (more row tiles than one, a wide tile of 40 live rows), is bitwise the
+    plain version."""
+    a, ws = _operands(40, 2048, [520, 136, 136], cuda, seed=3)
+    bias = _randn((520,), 4, cuda)
+    monkeypatch.setattr(matmul_ops, "gemm_plan", lambda *args: plan)
+    out = tiled_matmul(a, ws[0], bias, out_dtype=torch.float32)
+    outs = fused_qkv(a, *ws, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(out, matmul_ref.tiled_matmul_ref(
+        a.values, a.scale, ws[0].values, ws[0].scale, bias, torch.float32))
+    refs = fused_ref.fused_qkv_ref(a.values, a.scale, ws[0].values,
+                                   ws[0].scale, ws[1].values, ws[1].scale,
+                                   ws[2].values, ws[2].scale,
+                                   out_dtype=torch.bfloat16)
+    for o, r in zip(outs, refs):
+        assert torch.equal(o, r)
+
+
+def test_gemm_kernels_are_deterministic(cuda):
+    """Split K sums int32 partials: the same call twice, bit for bit."""
+    a, ws = _operands(4, 11008, [2048, 256, 256], cuda)
+    assert torch.equal(tiled_matmul(a, ws[0]), tiled_matmul(a, ws[0]))
+    for x, y in zip(fused_qkv(a, *ws), fused_qkv(a, *ws)):
+        assert torch.equal(x, y)
+
+
+def test_gemm_wrappers_raise_on_row_major_weights(cuda):
+    """The kernels read weights K-major; a row-major B is refused, never
+    transposed on the way."""
+    a, ws = _operands(8, 64, [64, 32, 32], cuda)
+    row_major = [dataclasses.replace(w, values=w.values.contiguous())
+                 for w in ws]
+    with pytest.raises(ValueError, match="K-major"):
+        tiled_matmul(a, row_major[0])
+    for i in range(3):
+        args = list(ws)
+        args[i] = row_major[i]
+        with pytest.raises(ValueError, match="K-major"):
+            fused_qkv(a, *args)
+
+
+def test_gemm_wrappers_raise_on_shapes_no_variant_takes(cuda, monkeypatch):
+    """Past K = 133,143 an int32 sum of int8 products may overflow; a plan
+    that does not fit the shapes (the wide variant split, splits that miss
+    k-steps, TMA over K % 16 != 0) raises before launch."""
+    a, (b,) = _operands(1, 133_248, [16], cuda)
+    with pytest.raises(ValueError, match="overflow"):
+        tiled_matmul(a, b)
+    with pytest.raises(ValueError, match="overflow"):
+        fused_qkv(a, b, b, b)
+    for shape, plan in (((300, 2048, 256), GemmPlan("wide", 256, 2, 8)),
+                        ((300, 2048, 256), GemmPlan("wide", 256, 1, 4)),
+                        ((4, 2048, 256), GemmPlan("swap", 8, 2, 1)),
+                        ((4, 2048, 256), GemmPlan("swap", 8, 1, 0)),
+                        ((5, 770, 100), GemmPlan("swap", 8, 1, 7))):
+        m, k, n = shape
+        a, ws = _operands(m, k, [n, n, n], cuda)
+        monkeypatch.setattr(matmul_ops, "gemm_plan", lambda *args: plan)
+        with pytest.raises(ValueError, match="does not fit"):
+            tiled_matmul(a, ws[0])
+        with pytest.raises(ValueError, match="does not fit"):
+            fused_qkv(a, *ws)
+
+
+# (variant, cols, split, chunk) the launcher refuses at M = 4, K = 2048
+# (16 k-steps), N = 256: each would otherwise return a partial product
+LAUNCHER_MISFITS = [(1, 256, 1, 4), (1, 256, 2, 8), (2, 8, 2, 1),
+                    (2, 8, 1, 0), (2, 8, 4, 6), (2, 24, 1, 16),
+                    (2, 8, 2, 8), (3, 8, 1, 16), (0, 0, 2, 8)]
+
+
+@pytest.mark.parametrize("plan", LAUNCHER_MISFITS,
+                         ids=["-".join(map(str, p)) for p in LAUNCHER_MISFITS])
+def test_gemm_launcher_refuses_plans_that_do_not_fit(cuda, plan):
+    """The C launcher checks the plan against its own geometry, whatever
+    the wrapper sends: (2, 8, 2, 8) is a valid split with no scratch."""
+    a, (b,) = _operands(4, 2048, [256], cuda)
+    out = torch.zeros((4, 256), dtype=torch.float32, device=cuda)
+    ws = None if plan == (2, 8, 2, 8) else torch.zeros(
+        (16, 4, 256), dtype=torch.int32, device=cuda)
+    sa, sb = matmul_ops.row_scale(a), matmul_ops.col_scale(b)
+    rc = _build.library("int8_gemm").launch_tiled_matmul(
+        a.values.data_ptr(), sa.data_ptr(), b.values.data_ptr(),
+        sb.data_ptr(), None, out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, 4, 2048, 256, 0, *plan,
+        cuda.index, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc != 0
+    assert not out.any()
 
 
 def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):

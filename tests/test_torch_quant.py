@@ -95,3 +95,48 @@ def test_quant_act_rounds_half_to_even():
     assert v.tolist() == [[127, 0, 2, 2, 0, -2]]
     vj, _ = jax_quant_act_ref(jnp.asarray(x.numpy()))
     np.testing.assert_array_equal(v.numpy(), np.asarray(vj))
+
+
+@pytest.mark.parametrize("shape", [(50, 37), (3, 24, 40)])
+def test_quantize_weight_k_major_matches_jax(shape):
+    """Weights rest K-major (the (K, N) view of an (N, K)-contiguous copy),
+    with the JAX package's values and per-channel scales."""
+    from repro.core.quantized_linear import weight_channel_axes as jax_axes
+    from repro_torch.core.quantized_linear import quantize_weight
+    t, j = _pair(shape, torch.float32, seed=len(shape))
+    qt = quantize_weight(t)
+    _assert_same(qt, jax_quantize(j, channel_axes=jax_axes(j)))
+    assert qt.values.transpose(-1, -2).is_contiguous()
+    assert qt.values.stride()[-2:] == (1, shape[-2])
+
+
+def test_quantize_linear_weights_stay_k_major_through_to_and_deepcopy():
+    import copy
+
+    from repro_torch.core.quantized_linear import init_linear, quantize_linear
+    lin = quantize_linear(init_linear(torch.Generator().manual_seed(0), 48,
+                                      80, use_bias=True))
+    for moved in (lin, lin.to("cpu"), lin.to(torch.device("cpu")),
+                  copy.deepcopy(lin), copy.deepcopy(lin).to("cpu")):
+        values = moved.w_q.values
+        assert values.shape == (48, 80) and values.stride() == (1, 48)
+        assert torch.equal(values, lin.w_q.values)
+    # the plain version takes the view as it is: the same product as on a
+    # row-major copy, bit for bit
+    from repro_torch.core.quantized_linear import apply_linear
+    x = torch.randn((5, 48), generator=torch.Generator().manual_seed(1))
+    row_major = quantize_linear(init_linear(torch.Generator().manual_seed(0),
+                                            48, 80, use_bias=True))
+    row_major.w_q_values = row_major.w_q_values.contiguous()
+    assert torch.equal(apply_linear(lin, x, mode="w8a8"),
+                       apply_linear(row_major, x, mode="w8a8"))
+
+
+def test_tensor_to_keeps_k_major_strides():
+    """``Tensor.to`` and ``deepcopy`` keep the strides of a dense view (the
+    card's ``.to(device)`` takes the same preserve_format path)."""
+    import copy
+    v = torch.arange(6 * 10, dtype=torch.int8).reshape(10, 6).t()
+    for w in (v.to(torch.int8), v.to("cpu", copy=True), copy.deepcopy(v),
+              v.clone()):
+        assert w.stride() == (1, 6) and torch.equal(w, v)
