@@ -10,9 +10,20 @@
    each kernel's tensor-core (HGMMA, HMMA, IGMMA, IMMA), IDP4A and FFMA
    counts from ``cuobjdump -sass``: K5's bf16 kernels must hold HGMMA,
    its f32 kernel none; K2 / K3's tensor-core variants (``gemm_tma``,
-   every width) int8 tensor-core instructions and no IDP4A.
+   every width) int8 tensor-core instructions and no IDP4A.  K1's 66
+   instantiations (f32 / bf16, plain / SwiGLU, 8 values or one an access,
+   warp / block / cluster rows, register arrays) with their 16-byte
+   loads, 8-byte stores, exponentials, reciprocals and cluster barriers:
+   every vectorized one must load 16 and store 8 bytes an access.
 3. Kernels against their plain PyTorch versions on the card at the main
-   paths' shapes (and a few more): K1-K3 bitwise, K2 / K3 also at
+   paths' shapes (and a few more): K1 bitwise at distilbert's, qwen2.5-3b's
+   (4 / 20 / 8192 rows over 2048 and 11008) and gemma2-27b's (4 / 8192
+   over 36864) shapes and ragged ones, with a zero row, a row of one huge
+   value and a row on a tiny scale, in bf16 and f32, each case naming the
+   row mapping ``quant_plan`` took; its SwiGLU mode ``quant_act_glu``
+   bitwise its plain version at qwen2.5-3b's d_ff and ragged shapes, and
+   its product h bitwise ``F.silu(gate) * up`` for every finite bf16 gate
+   (u = 1 and u seeded, bf16 and f32).  K2 / K3 bitwise, also at
    qwen2.5-3b's served shapes (M = 4, 20 and 8192 over wo, gate / up,
    down and the fused 2048 | 256 | 256), at ragged M (5, 20, 129) on the
    tensor-core variants, bias on and off, bf16 and f32 out, each case
@@ -66,7 +77,14 @@
    ``torch.profiler``; the two must give equal tokens.  Speculative
    tokens equal the plain run's, or first differ at a near tie of it.
    After each path, every K2 / K3 call it made must have planned onto a
-   tensor-core variant (``wide`` or ``swap``), never the general tile.
+   tensor-core variant (``wide`` or ``swap``), never the general tile, and
+   K1's launches by row mapping are printed.  In qwen2.5-3b's SwiGLU FFN
+   one K1 serves gate and up and ``quant_act_glu`` quantizes silu(gate) *
+   up for the down projection: every such call of ``prefill_step`` and of
+   the Scheduler runs is held bitwise against the plain version on its own
+   operands as it is made, and the profiles of ``prefill_step`` and of a
+   tick must hold no silu or bf16 product kernel of PyTorch's (a control
+   first shows the check finds both in ``F.silu(g) * u``).
 5. Card against CPU in f32, same weights, with exact launch counts on the
    card: unquantized (``none``) at full depth within rel-err 1e-5 on the
    dense cache and on the paged cache (one pass and chunked prefill);
@@ -80,7 +98,12 @@
    (verify logits within rel-err 1e-5; pred, m, acc equal), and the
    phase 4 trace's plain and self_trunc runs (tokens equal, or first
    different at a near tie of the CPU run).
-6. Timings at the slices' shapes: each kernel, its plain version and a
+6. Timings at the slices' shapes: K1 at every row mapping that takes
+   each shape (distilbert's; qwen2.5-3b's decode, verify and prefill rows
+   over 2048 and 11008; gemma2-27b's 36864), each checked bitwise first,
+   ``quant_act_glu`` likewise at qwen2.5-3b's rows over 11008 beside the
+   unfused path it replaces (PyTorch's silu and product, then K1; not a
+   library call); each kernel, its plain version and a
    library yardstick (``torch._int_mm`` plus the epilogue, A zero-padded
    to M=32 at decode, and ``torch._int_mm`` alone beside it, the
    library's GEMM core without its unfused epilogue; K2 / K3 also at qwen2.5-3b's decode (M=4), verify
@@ -106,10 +129,12 @@ import contextlib
 import copy
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -191,6 +216,7 @@ def build_kernels():
                 print(f"    {line.strip()}")
         _build.library(name)
     check_sass()
+    check_k1_sass()
 
 
 # instruction → its SASS opcode
@@ -198,11 +224,11 @@ SASS_OPS = {"HGMMA": "HGMMA", "HMMA": "HMMA", "IGMMA": "IGMMA",
             "IMMA": "IMMA", "IDP4A": "IDP.4A", "FFMA": "FFMA"}
 
 
-def sass_counts(name):
-    """Per kernel function of library ``name``: its tensor-core (HGMMA /
-    IGMMA: wgmma in bf16 / int8, HMMA / IMMA: mma.sync), int8 ALU dot
-    product (IDP4A) and f32 ALU (FFMA) instructions in ``cuobjdump
-    -sass``; None without cuobjdump beside nvcc."""
+def sass_counts(name, ops=SASS_OPS):
+    """Per kernel function of library ``name``: its instructions of each
+    opcode in ``ops`` (by default tensor-core HGMMA / IGMMA: wgmma in bf16
+    / int8, HMMA / IMMA: mma.sync; int8 ALU dot product IDP4A; f32 ALU
+    FFMA) in ``cuobjdump -sass``; None without cuobjdump beside nvcc."""
     from repro_torch.kernels import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     if not tool.is_file():
@@ -214,11 +240,49 @@ def sass_counts(name):
     for line in listing.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            counts[fn] = dict.fromkeys(ops, 0)
         elif fn is not None:
-            for op, code in SASS_OPS.items():
+            for op, code in ops.items():
                 counts[fn][op] += f" {code}." in line or f" {code} " in line
     return counts
+
+
+# K1's instructions by what they show: 16-byte loads, 8-byte stores, the
+# exponential of SwiGLU's silu, the reciprocal behind each IEEE division
+# (static counts: the rare exact-quotient path included), the wait at a
+# cluster barrier
+K1_SASS = {"LDG.128": "LDG.E.128", "STG.64": "STG.E.64",
+           "MUFU.EX2": "MUFU.EX2", "MUFU.RCP": "MUFU.RCP",
+           "cluster barrier": "UCGABAR_WAIT"}
+K1_NAME = re.compile(
+    r"quant_rowsI(f|13__nv_bfloat16)Lb([01])ELi(\d+)ELi(\d)ELi(\d+)E")
+K1_ROWS = ("warp", "block", "cluster")
+# plain / SwiGLU x warp / block / cluster rows x the register arrays: bf16
+# vectors of 1, 2, 4, 8; f32 vectors of 1, 2, 4; single values 4, 16 (each
+# type)
+K1_KERNELS = 2 * 3 * (4 + 3 + 2 + 2)
+
+
+def check_k1_sass():
+    """K1's variants in ``cuobjdump -sass``: each instantiation's counts of
+    ``K1_SASS`` (per function, so per row held NV units); every vectorized
+    one must load 16 bytes and store 8 bytes an access."""
+    listing = sass_counts("quant_act", K1_SASS)
+    if listing is None:
+        fail("cuobjdump not found: K1's SASS cannot be checked")
+    counts = {K1_NAME.search(fn).groups(): c for fn, c in listing.items()
+              if K1_NAME.search(fn)}
+    if len(counts) != K1_KERNELS:
+        fail(f"K1: {len(counts)} kernel instantiations in the SASS listing, "
+             f"expected {K1_KERNELS}")
+    for (dt, glu, vec, rows, nv), c in sorted(counts.items()):
+        label = (f"{'bf16' if dt != 'f' else 'f32'} "
+                 f"{'swiglu' if glu == '1' else 'plain'} v{vec} "
+                 f"{K1_ROWS[int(rows)]} nv{nv}")
+        print(f"  sass quant_act: {label:28s} " + ", ".join(
+            f"{op} {n}" for op, n in c.items()))
+        if vec == "8" and not (c["LDG.128"] and c["STG.64"]):
+            fail(f"K1 {label}: no 16-byte loads or 8-byte stores")
 
 
 def check_sass():
@@ -282,28 +346,101 @@ def max_err(got, want, what):
     return err
 
 
+# K1's shapes: distilbert's (prefill 256 rows, decode 4), qwen2.5-3b's
+# decode, verify and 8192-token prefill rows over d_model and d_ff,
+# gemma2-27b's d_ff, and ragged ones (K not a multiple of 8: one value an
+# access; rows past a multiple of the SMs)
+K1_SHAPES = [(256, 768), (256, 3072), (4, 768), (4, 3072),
+             *[(m, k) for m in QWEN_M for k in (2048, 11008)],
+             (4, 36864), (LONG_PROMPT, 36864), (5, 770), (129, 11008)]
+# quant_act_glu's: qwen2.5-3b's d_ff at decode, verify and prefill, ragged
+GLU_SHAPES = [*[(m, 11008) for m in QWEN_M], (5, 770), (129, 11008),
+              (3, 64)]
+
+
+def k1_rows(shape, seed, dev, dtype):
+    """Rows of normal values, among them a zero row, a row of one huge
+    value (its others quantize to 0) and a row on a tiny scale."""
+    x = randn(shape, seed, dev, 3.0)
+    x[0] = 0
+    if shape[0] > 2:
+        x[1, shape[1] // 3] = 3e4
+        x[2] *= 1e-3
+    return x.to(dtype)
+
+
+def k1_plan_text(x):
+    from repro_torch.kernels.quant_act.ops import is_aligned, quant_plan
+    return str(quant_plan(*x.shape, x.dtype, is_aligned(x)))
+
+
+def check_glu_h(dev):
+    """quant_act_glu's h = silu(g) * u bitwise PyTorch's for g every finite
+    bf16 value (in bf16, and as f32), u = 1 and u drawn from a seed; with
+    u = 1 (no product overflows) its quantization too."""
+    from repro_torch.kernels.quant_act.ops import quant_act_glu
+    from repro_torch.kernels.quant_act.ref import quant_act_glu_ref
+    g = torch.arange(2 ** 16, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    g = g[torch.isfinite(g)]
+    n = len(g)
+    g = torch.cat([g, g.new_zeros(-n % 1024)]).reshape(-1, 1024).to(dev)
+    for dt in (torch.bfloat16, torch.float32):
+        gd = g.to(dt)
+        for name, u in (("u = 1", torch.ones_like(gd)),
+                        ("u seeded", randn(tuple(gd.shape), 9, dev, 1.0, dt))):
+            h = torch.empty_like(gd)
+            q = quant_act_glu(gd, u, h_out=h)
+            max_err(h, torch.nn.functional.silu(gd) * u,
+                    f"quant_act_glu h over every finite bf16 gate, {dt}, "
+                    f"{name}")
+            if name == "u = 1":
+                v, s = quant_act_glu_ref(gd, u)
+                max_err(q.values, v, f"quant_act_glu of every bf16 gate {dt}")
+                max_err(q.scale, s, f"quant_act_glu of every bf16 gate {dt}")
+        print(f"  ok quant_act_glu h bitwise F.silu(gate) * up over all {n} "
+              f"finite bf16 gates, {dt}, u = 1 and u seeded")
+
+
 def check_kernels(dev):
     from repro_torch.kernels.fused_qkv.ops import fused_qkv
     from repro_torch.kernels.fused_qkv.ref import fused_qkv_ref
-    from repro_torch.kernels.quant_act.ops import quant_act
-    from repro_torch.kernels.quant_act.ref import quant_act_ref
+    from repro_torch.kernels.quant_act.ops import quant_act, quant_act_glu
+    from repro_torch.kernels.quant_act.ref import (quant_act_glu_ref,
+                                                   quant_act_ref)
     from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
     from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
 
-    errs = {"quant_act": 0.0, "tiled_matmul": 0.0, "fused_qkv": 0.0}
-    for m, k in [(256, 768), (256, 3072), (4, 768), (4, 3072)]:
-        for dt in (torch.bfloat16, torch.float32):
-            x = randn((m, k), m + k, dev, 3.0, dt)
-            x[min(3, m - 1)] = 0
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {"quant_act": 0.0, "quant_act_glu": 0.0, "tiled_matmul": 0.0,
+            "fused_qkv": 0.0}
+    for m, k in K1_SHAPES:
+        for dt in (bf16, f32):
+            x = k1_rows((m, k), m + k, dev, dt)
             q = quant_act(x)
             v, s = quant_act_ref(x)
-            what = f"quant_act ({m},{k}) {dt}"
+            what = f"quant_act ({m},{k}) {dt} [{k1_plan_text(x)}]"
             errs["quant_act"] = max(errs["quant_act"],
                                     max_err(q.values, v, what),
                                     max_err(q.scale, s, what + " scale"))
+            del x, q, v, s
             print(f"  ok {what}")
-
-    f32, bf16 = torch.float32, torch.bfloat16
+    for m, k in GLU_SHAPES:
+        for dt in (bf16, f32):
+            g = k1_rows((m, k), m, dev, dt)
+            u = randn((m, k), m + 1, dev, 1.0, dt)
+            h = torch.empty_like(g)
+            q = quant_act_glu(g, u, h_out=h)
+            v, s = quant_act_glu_ref(g, u)
+            what = (f"quant_act_glu ({m},{k}) {dt} [{k1_plan_text(g)}], h "
+                    "against F.silu(gate) * up")
+            errs["quant_act_glu"] = max(
+                errs["quant_act_glu"], max_err(q.values, v, what),
+                max_err(q.scale, s, what + " scale"),
+                max_err(h, torch.nn.functional.silu(g) * u, what + " h"))
+            del g, u, h, q, v, s
+            print(f"  ok {what}")
+    check_glu_h(dev)
     gemms = [(64, 768, 3072, f32, False), (64, 768, 3072, f32, True),
              (256, 768, 768, bf16, False), (256, 768, 3072, bf16, False),
              (256, 3072, 768, bf16, False), (256, 768, 3072, bf16, True),
@@ -769,7 +906,7 @@ def serve(model, cfg, dev, config=None):
 
 # the modules of the dense main path that call the kernel wrappers
 WRAPPER_CALLERS = ("repro_torch.core.quantized_linear",
-                   "repro_torch.core.qkv_fusion")
+                   "repro_torch.core.qkv_fusion", "repro_torch.models.ffn")
 
 
 @contextlib.contextmanager
@@ -779,11 +916,16 @@ def plain_versions():
     wrappers."""
     from repro_torch.core.quantization import QTensor
     from repro_torch.kernels.fused_qkv.ref import fused_qkv_ref
-    from repro_torch.kernels.quant_act.ref import quant_act_ref
+    from repro_torch.kernels.quant_act.ref import (quant_act_glu_ref,
+                                                   quant_act_ref)
     from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
 
     def quant_act(x):
         values, scale = quant_act_ref(x)
+        return QTensor(values=values, scale=scale, bits=8)
+
+    def quant_act_glu(gate, up):
+        values, scale = quant_act_glu_ref(gate, up)
         return QTensor(values=values, scale=scale, bits=8)
 
     def tiled_matmul(a, b, bias=None, *, out_dtype=torch.bfloat16):
@@ -795,8 +937,8 @@ def plain_versions():
                              wk.values, wk.scale, wv.values, wv.scale,
                              out_dtype=out_dtype)
 
-    plain = {"quant_act": quant_act, "tiled_matmul": tiled_matmul,
-             "fused_qkv": fused_qkv}
+    plain = {"quant_act": quant_act, "quant_act_glu": quant_act_glu,
+             "tiled_matmul": tiled_matmul, "fused_qkv": fused_qkv}
     saved = []
     for mod in map(importlib.import_module, WRAPPER_CALLERS):
         for name, fn in plain.items():
@@ -811,17 +953,20 @@ def plain_versions():
 
 
 def layer_launches(cfg, *, paged=False, flash=False, verify=False) -> dict:
-    """One layer's kernel launches in one forward of ``cfg``.  Under w8a8
-    each projection is one quant_act and one GEMM: the fused QKV one
-    fused_qkv, wo and the FFN's up and down (and gate, in a gated FFN)
-    one tiled_matmul each; unquantized, none.  One attention launch:
-    paged_decode on the paged cache (paged_decode_verify in a speculative
-    verify pass), flash_attention on a cache-less prompt of at least
-    ``blockwise_attn_threshold`` tokens."""
+    """One layer's kernel launches in one forward of ``cfg``.  Under w8a8:
+    one quant_act for the fused QKV (one fused_qkv), one for wo, one for
+    the FFN's input, which serves gate and up alike; the down projection's
+    input is one quant_act_glu in SwiGLU (silu(gate) * up fused into K1),
+    else one quant_act (GELU stays unfused); one tiled_matmul each for wo,
+    up, down and gate (gated FFNs).  Unquantized, none.  One attention
+    launch: paged_decode on the paged cache (paged_decode_verify in a
+    speculative verify pass), flash_attention on a cache-less prompt of at
+    least ``blockwise_attn_threshold`` tokens."""
     w8a8 = int(cfg.quant_proj == "w8a8")
-    ffn = 3 if cfg.ffn_type in ("swiglu", "geglu") else 2
-    return {"quant_act": (2 + ffn) * w8a8, "fused_qkv": w8a8,
-            "tiled_matmul": (1 + ffn) * w8a8,
+    gated = cfg.ffn_type in ("swiglu", "geglu")
+    glu = int(cfg.ffn_type == "swiglu")
+    return {"quant_act": (4 - glu) * w8a8, "quant_act_glu": glu * w8a8,
+            "fused_qkv": w8a8, "tiled_matmul": (3 + gated) * w8a8,
             "paged_decode": int(paged and not verify),
             "paged_decode_verify": int(verify),
             "flash_attention": int(flash)}
@@ -1050,21 +1195,61 @@ def check_served_k5(what, calls, n):
     return worst_rel
 
 
+@contextlib.contextmanager
+def checked_glu_calls(stats):
+    """Within the block, every quant_act_glu call of the FFN is held, as it
+    is made, bitwise against the plain version on its own operands;
+    ``stats["calls"]`` counts them."""
+    from repro_torch.kernels.quant_act.ref import quant_act_glu_ref
+    mod = importlib.import_module("repro_torch.models.ffn")
+    wrapper = mod.quant_act_glu
+
+    def check(gate, up):
+        out = wrapper(gate, up)
+        v, s = quant_act_glu_ref(gate, up)
+        what = (f"served quant_act_glu call {stats['calls']} "
+                f"({tuple(gate.shape)} {gate.dtype})")
+        max_err(out.values, v, what)
+        max_err(out.scale, s, what + " scale")
+        stats["calls"] += 1
+        stats["shapes"].add(tuple(gate.shape))
+        return out
+
+    mod.quant_act_glu = check
+    try:
+        yield
+    finally:
+        mod.quant_act_glu = wrapper
+
+
+def check_served_glu(what, stats, launched):
+    if stats["calls"] != launched:
+        fail(f"{what}: {stats['calls']} quant_act_glu calls checked, "
+             f"{launched} launched")
+    print(f"  each of its {launched} quant_act_glu calls bitwise the plain "
+          f"version on the call's own operands (shapes "
+          f"{sorted(stats['shapes'])})")
+
+
 def plans_so_far():
-    """K2's and K3's launches by variant since import."""
+    """K1's launches by plan, K2's and K3's by variant, since import."""
     from repro_torch.kernels.fused_qkv.ops import fused_qkv
+    from repro_torch.kernels.quant_act.ops import quant_act, quant_act_glu
     from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
-    return {"tiled_matmul": collections.Counter(tiled_matmul.plans),
+    return {"quant_act": collections.Counter(quant_act.plans),
+            "quant_act_glu": collections.Counter(quant_act_glu.plans),
+            "tiled_matmul": collections.Counter(tiled_matmul.plans),
             "fused_qkv": collections.Counter(fused_qkv.plans)}
 
 
 def check_served_plans(what, before):
-    """Every K2 / K3 call since ``before`` took a tensor-core variant;
-    returns the counts now."""
+    """Print K1's launches by plan since ``before``; every K2 / K3 call
+    since then took a tensor-core variant; returns the counts now."""
     now = plans_so_far()
     for name in now:
         grown = now[name] - before[name]
-        print(f"  {what}: {name} launches by variant "
+        print(f"  {what}: {name} launches by "
+              f"{'plan' if name.startswith('quant') else 'variant'} "
               f"{dict(sorted(grown.items()))}")
         if grown["general"]:
             fail(f"{what}: {grown['general']} {name} calls planned onto the "
@@ -1088,7 +1273,7 @@ def device_breakdown(fn, top=10, label="one more run"):
     total = sum(ms for _, _, ms in rows)
     if not rows:
         print("  torch.profiler saw no device time (not measured)")
-        return
+        return rows
     print(f"  device time by kernel (torch.profiler, {label}: "
           f"{wall_ms:.3f} ms on the host clock): total {total:.3f} ms, so "
           f"the device idles {1 - total / wall_ms:.3f} of the run")
@@ -1103,13 +1288,63 @@ def device_breakdown(fn, top=10, label="one more run"):
             ("K5 (flash_attention_*)", ("flash_attention",)),
             ("K2 (gemm_tma / gemm_kernel + splitk_epilogue, 1 product)",
              ("Params<1>", "Args<1>")),
-            ("K3 (the same, 3 products)", ("Params<3>", "Args<3>"))):
+            ("K3 (the same, 3 products)", ("Params<3>", "Args<3>")),
+            ("K1 (quant_rows<..., false, ...>)", ("quant_rows<",)),
+            ("K1's SwiGLU mode (quant_rows<..., true, ...>)",
+             ("quant_rows<",))):
+        glu = "SwiGLU" in label
         sel = [(count, ms) for key, count, ms in rows
-               if any(name in key for name in names)]
+               if any(name in key for name in names)
+               and (not label.startswith("K1") or glu == (", true," in key))]
         if sel:
             ms = sum(m for _, m in sel)
             print(f"    {label}: {ms:.3f} ms {ms / total:.3f}, "
                   f"{sum(c for c, _ in sel)} kernel launches")
+    swiglu = swiglu_kernels(rows)
+    print(f"    PyTorch's silu and bf16 product kernels: "
+          f"{sum(c for _, c, _ in swiglu)} launches, "
+          f"{sum(ms for _, _, ms in swiglu):.3f} ms")
+    return rows
+
+
+def swiglu_kernels(rows):
+    """The profiler rows of PyTorch's silu kernel and of its bf16
+    tensor-by-tensor product kernel: the unfused SwiGLU's two passes (the
+    served models' other products are f32, or by a scalar: the residual
+    multiplier)."""
+    return [r for r in rows if "silu" in r[0].lower()
+            or ("MulFunctor" in r[0] and "BinaryFunctor<c10::BFloat16" in r[0])]
+
+
+def no_swiglu_kernels(what, rows):
+    """Fail if a profiled run of a SwiGLU model ran PyTorch's silu or bf16
+    product kernel: quant_act_glu takes their place."""
+    found = swiglu_kernels(rows)
+    if found:
+        fail(f"{what}: PyTorch's SwiGLU kernels ran: "
+             + "; ".join(f"{c} x {k[:100]}" for k, c, _ in found))
+    print(f"    no silu or bf16 product kernel in the profile of {what}")
+
+
+def check_swiglu_detector(dev):
+    """The detector's control: the unfused SwiGLU, F.silu(g) * u in bf16,
+    under the profiler shows both of its kernels to ``swiglu_kernels``."""
+    from torch.profiler import ProfilerActivity, profile
+    g, u = (randn((64, 11008), i, dev, 1.0, torch.bfloat16) for i in (1, 2))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.nn.functional.silu(g) * u
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    found = swiglu_kernels(rows)
+    if len(found) != 2:
+        fail("the SwiGLU kernel detector found "
+             f"{[k[:100] for k, _, _ in found]} in F.silu(g) * u, not its "
+             f"silu and product kernels (the profile: "
+             f"{[k[:100] for k, _, _ in rows]})")
+    print("  the silu / bf16 product detector finds both kernels of the "
+          "unfused F.silu(g) * u: "
+          + "; ".join(k[:80] for k, _, _ in found))
 
 
 def long_prompt_path(arch, dev, n_layers=None):
@@ -1139,7 +1374,8 @@ def long_prompt_path(arch, dev, n_layers=None):
     tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
                            generator=torch.Generator().manual_seed(2)).to(dev)
     calls = []
-    with recorded_k5_calls(calls):                       # warm-up
+    glu = dict(calls=0, shapes=set())
+    with recorded_k5_calls(calls), checked_glu_calls(glu):   # warm-up
         w_logits, _ = prefill_step(model, tokens, cfg)
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -1164,8 +1400,11 @@ def long_prompt_path(arch, dev, n_layers=None):
     del w_logits, logits
     print(f"  prefill_step: {t_prefill * 1e3:.3f} ms for 1 x {LONG_PROMPT} "
           "tokens (host clock, after torch.cuda.synchronize())")
-    device_breakdown(lambda: prefill_step(model, tokens, cfg))
+    rows = device_breakdown(lambda: prefill_step(model, tokens, cfg))
+    if cfg.ffn_type == "swiglu":
+        no_swiglu_kernels(what, rows)
     check_served_k5(what, calls, counts["flash_attention"])
+    check_served_glu(what, glu, counts["quant_act_glu"])
     windows = [kw.get("window") for _, kw, _ in calls]
     del calls, model
     torch.cuda.empty_cache()
@@ -1460,9 +1699,13 @@ def drive(sched, trace, profile_tick=None):
             i += 1
         if (profile_tick is not None and sched._ticks >= profile_tick
                 and (not sched.queue or None not in sched.slots)):
-            print(f"  tick {sched._ticks} ({sched.n_active} live rows) of "
-                  "the same run again:")
-            device_breakdown(sched.step, top=14, label="this tick")
+            tick = sched._ticks
+            print(f"  tick {tick} ({sched.n_active} live rows) of the same "
+                  "run again:")
+            rows = device_breakdown(sched.step, top=14, label="this tick")
+            if sched.cfg.ffn_type == "swiglu" \
+                    and sched.cfg.quant_proj == "w8a8":
+                no_swiglu_kernels(f"tick {tick}", rows)
             break
         # _admit pops the queue in order until no slot is free or the
         # pool cannot cover the head: fewer admissions than both allow
@@ -1646,8 +1889,10 @@ def sched_run(what, model, cfg, dev, kv_quant, draft, dtype, trace, *,
     gaps, top2 = {}, {}
     stats = dict(calls=0, verify=0, multi_block=0, err=0.0, rel=0.0,
                  rels=[], limit="")
+    glu = dict(calls=0, shapes=set())
     sched = make_scheduler(model, cfg, dev, kv_quant, draft, dtype)
-    with checked_k4_calls(stats), recorded_gaps(sched, gaps, top2):
+    with checked_k4_calls(stats), recorded_gaps(sched, gaps, top2), \
+            checked_glu_calls(glu):
         drive(sched, trace)
     first = sched.finished
     sched = make_scheduler(model, cfg, dev, kv_quant, draft, dtype)
@@ -1679,6 +1924,7 @@ def sched_run(what, model, cfg, dev, kv_quant, draft, dtype, trace, *,
           f"worst max |err| {stats['err']:.3e}, worst per-row rel-err "
           f"{stats['rel']:.3e} ({stats['limit']})")
     print(f"  {readings(stats['rels'])}")
+    check_served_glu(what, glu, counts["quant_act_glu"])
     occ = sched.pool_occupancy()
     if occ.used != 1:
         fail(f"{what}: {occ.used} pages held after the run (scratch only: 1)")
@@ -1911,15 +2157,67 @@ def bound(bytes_moved, ops, ops_rate):
                                        else "operations")
 
 
-def time_quant_act(m, k, dev):
+def k1_plans(fn, ref, sets, m, k, launches):
+    """``fn``'s device ms at each row mapping that takes (m, k) bf16 (its
+    plan forced by patching ``quant_plan``, so the wrapper still checks
+    it), each first held bitwise against ``ref``; returns (quant_plan's
+    choice, {plan: ms})."""
+    from repro_torch.kernels.quant_act import ops
+    chosen = ops.quant_plan(m, k, torch.bfloat16, True)
+    plans = {}
+    for plan in ops.candidate_plans(m, k, torch.bfloat16, True):
+        def run(*x, plan=plan):
+            with mock.patch.object(ops, "quant_plan", lambda *_: plan):
+                return fn(*x)
+        got, want = run(*sets[0]), ref(*sets[0])
+        max_err(got.values, want[0], f"{fn.__name__} ({m},{k}) [{plan}]")
+        max_err(got.scale, want[1], f"{fn.__name__} ({m},{k}) [{plan}]")
+        plans[str(plan)] = device_ms(run, sets, launches)
+    return str(chosen), plans
+
+
+def time_quant_act(m, k, dev, launches=200):
+    """K1 at x (m, k) bf16: every row mapping (``k1_plans``), the plain
+    version; the bound from one read of x and one write of the int8
+    values and scales."""
     from repro_torch.kernels.quant_act.ops import quant_act
     from repro_torch.kernels.quant_act.ref import quant_act_ref
     elt = 2
     sets = [(randn((m, k), i, dev, 1.0, torch.bfloat16),)
             for i in range(n_copies(m * k * elt))]
     b_ms, by = bound(m * k * elt + m * k + 4 * m, 3 * m * k, F32_OPS_PER_S)
-    return {"ms": device_ms(quant_act, sets),
-            "plain_ms": device_ms(quant_act_ref, sets),
+    chosen, plans = k1_plans(quant_act, quant_act_ref, sets, m, k, launches)
+    return {"ms": plans[chosen], "plan": chosen, "plans": plans,
+            "plain_ms": plain_timer(m, launches)(quant_act_ref, sets),
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def unfused_swiglu(gate, up):
+    """The path quant_act_glu replaces: PyTorch's silu and product, then
+    K1 (the yardstick; not a library call)."""
+    from repro_torch.kernels.quant_act.ops import quant_act
+    return quant_act(torch.nn.functional.silu(gate) * up)
+
+
+def time_quant_glu(m, k, dev, launches=200):
+    """quant_act_glu at gate, up (m, k) bf16: every row mapping, the plain
+    version and the unfused path it replaces; the bound from one read of
+    gate and of up and one write of the int8 values and scales (7 f32
+    operations an element: exp, add, two divisions, product, max,
+    round)."""
+    from repro_torch.kernels.quant_act.ops import quant_act_glu
+    from repro_torch.kernels.quant_act.ref import quant_act_glu_ref
+    elt = 2
+    sets = [(randn((m, k), 2 * i, dev, 1.0, torch.bfloat16),
+             randn((m, k), 2 * i + 1, dev, 1.0, torch.bfloat16))
+            for i in range(n_copies(2 * m * k * elt))]
+    b_ms, by = bound(2 * m * k * elt + m * k + 4 * m, 7 * m * k,
+                     F32_OPS_PER_S)
+    chosen, plans = k1_plans(quant_act_glu, quant_act_glu_ref, sets, m, k,
+                             launches)
+    return {"ms": plans[chosen], "plan": chosen, "plans": plans,
+            "plain_ms": plain_timer(m, launches)(quant_act_glu_ref, sets),
+            "unfused_ms": plain_timer(m, launches)(unfused_swiglu, sets),
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
@@ -2183,12 +2481,19 @@ def timings(cfg, dev):
             shapes["tiled_matmul"].append(
                 (phase, f"{name} ({m},{k})x({k},{n}) bf16", 1,
                  time_gemm(m, k, n, bf16, dev)))
-    # qwen2.5-3b's K2 / K3 launches of one layer at decode (M=4), verify
-    # (M=20) and an 8192-token prefill (fewer launches there)
-    for name in ("fused_qkv", "tiled_matmul"):
+    # qwen2.5-3b's K1-K3 launches of one layer at decode (M=4), verify
+    # (M=20) and an 8192-token prefill (fewer launches there): K1 three
+    # times at d_model (QKV, wo, the FFN's input), quant_act_glu once at
+    # d_ff; K1 alone at d_ff is the unfused down input of earlier PRs (x 0)
+    for name in ("quant_act", "quant_act_glu", "fused_qkv", "tiled_matmul"):
         shapes[f"qwen {name}"] = []
     for phase, m in (("decode", 4), ("verify", 20), ("prefill", LONG_PROMPT)):
         n = 10 if m == LONG_PROMPT else 200
+        shapes["qwen quant_act"] += [
+            (phase, f"({m},2048) bf16", 3, time_quant_act(m, 2048, dev, n)),
+            (phase, f"({m},11008) bf16", 0, time_quant_act(m, 11008, dev, n))]
+        shapes["qwen quant_act_glu"].append(
+            (phase, f"({m},11008) bf16", 1, time_quant_glu(m, 11008, dev, n)))
         shapes["qwen fused_qkv"].append(
             (phase, f"({m},2048)x(2048,2048|256|256) f32", 1,
              time_fused(m, 2048, 2048, 256, dev, launches=n)))
@@ -2198,6 +2503,11 @@ def timings(cfg, dev):
             shapes["qwen tiled_matmul"].append(
                 (phase, f"{name} ({m},{k})x({k},{nn}) bf16", times,
                  time_gemm(m, k, nn, bf16, dev, launches=n)))
+    # gemma2-27b's K1 at d_ff (its GELU stays unfused): decode, prefill
+    shapes["gemma2 quant_act"] = [
+        (phase, f"({m},36864) bf16", 1,
+         time_quant_act(m, 36864, dev, 10 if m == LONG_PROMPT else 200))
+        for phase, m in (("decode", 4), ("prefill", LONG_PROMPT))]
     # K4: one launch per layer; the serve's prefill (one 64-row q block)
     # and first decode step, in bf16 and int8 pools; then long contexts
     # whose bound is more than launch latency (bf16 pools, page 64)
@@ -2266,6 +2576,13 @@ def timings(cfg, dev):
                 note += f"; {r['splits']}"
             if "int_mm_ms" in r:
                 note += f"; _int_mm alone {r['int_mm_ms']:.5f}"
+            if "unfused_ms" in r:
+                note += (f"; the unfused path (F.silu * up, then K1) "
+                         f"{r['unfused_ms']:.5f}")
+            if "plans" in r:
+                note += "; by plan: " + ", ".join(
+                    f"{p}{'*' if p == r['plan'] else ''} {ms:.5f}"
+                    for p, ms in r["plans"].items())
             print(f"  {kname:18s} {phase:13s} {desc:38s} {times:2d} "
                   f"{r['ms']:9.5f} {r['plain_ms']:9.5f} {lib:>9s} "
                   f"{r['bound_ms']:9.5f} {r['bound_by']}{note}")
@@ -2340,17 +2657,18 @@ def main():
     model_cpu = quantize_model_params(master)
     model = copy.deepcopy(model_cpu).to(dev)
     with torch.inference_mode():
-        before = plans_so_far()
+        before = start = plans_so_far()
         counts, t_prefill, tps, toks, cache = main_path(model, cfg, dev)
         before = check_served_plans("distilbert dense serve", before)
         paged_counts, paged_prefill, paged_tps = paged_paths(
             model, cfg, dev, toks, cache)
         before = check_served_plans("distilbert paged serves", before)
         del cache
+        check_swiglu_detector(dev)
         qwen, gemma = long_prompt_paths(dev)
         before = check_served_plans("prefill_step", before)
         sched_runs = scheduler_paths(dev)
-        check_served_plans("Scheduler runs", before)
+        served = check_served_plans("Scheduler runs", before)
         card_vs_cpu(model_cpu, master, cfg, dev)
         card_vs_cpu_long(dev)
         sched_check = card_vs_cpu_scheduler(dev)
@@ -2381,6 +2699,11 @@ def main():
                    for phase in ("decode", "verify", "prefill")},
                 "shapes": [dict(phase=phase, shape=desc, times=times, **r)
                            for phase, desc, times, r in rows]}
+    k1 = kernels[0]
+    k1["gemma2"] = {phase: {k: r[k] for k in (
+        "ms", "plan", "plans", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for phase, _, _, r in shapes["gemma2 quant_act"]}
+    k1["launches_by_plan"] = dict(served["quant_act"] - start["quant_act"])
     kernels[-1]["max_row_rel_err_bf16"] = paged_rel_bf16
     pd = {phase: r for phase, _, _, r in shapes["paged_decode"]}
     kernels[-1]["scheduler_decode"] = {
@@ -2424,6 +2747,27 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "launches_per_run": {k: r["k4_verify"]
                              for k, r in sched_runs.items()},
+    })
+    glu = {phase: r for phase, _, _, r in shapes["qwen quant_act_glu"]}
+    kernels.append({
+        "name": "quant_act_glu", "route": "cuda",
+        "source": KERNELS["quant_act"][0],
+        "replaces": f"{KERNELS['quant_act'][1]} with the SwiGLU product of "
+                    "src/repro/models/ffn.py:39-40 fused in",
+        "launches": qwen[0]["quant_act_glu"],
+        "max_abs_err": errs["quant_act_glu"],
+        **{k: glu["prefill"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "unfused_ms", "plan", "plans")},
+        "unfused": "F.silu(gate) * up, then K1: the path it replaces, timed "
+                   "as its yardstick (not a library call)",
+        "work": f"one qwen2.5-3b layer of prefill_step: gate and up "
+                f"({LONG_PROMPT}, 11008) bf16",
+        **{phase: {k: glu[phase][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms", "plan",
+            "plans")} for phase in ("decode", "verify")},
+        "launches_by_plan": dict(served["quant_act_glu"]
+                                 - start["quant_act_glu"]),
     })
     for k, r in sched_runs.items():
         accept = ("-" if r["acceptance"] is None

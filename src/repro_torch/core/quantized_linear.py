@@ -104,17 +104,30 @@ def apply_linear(params: Linear, x: torch.Tensor, *,
         y = x @ params.w.to(x.dtype)
         return _add_bias(y, bias).to(out_dtype)
 
-    wq = params.w_q
-    if wq is None:
-        wq = quantize_weight(params.w)
-
     if mode == "w8":
-        y = x @ wq.dequantize(x.dtype)
+        y = x @ _weight_q(params).dequantize(x.dtype)
         return _add_bias(y, bias).to(out_dtype)
 
     # w8a8 — the paper's path.
     lead = x.shape[:-1]
     xq = quant_act(x.reshape(-1, x.shape[-1]).contiguous())
-    y = tiled_matmul(xq, wq, bias.float() if bias is not None else None,
-                     out_dtype=out_dtype)
+    y = apply_quantized(params, xq, out_dtype=out_dtype)
     return y.reshape(*lead, y.shape[-1])
+
+
+def _weight_q(params: Linear) -> QTensor:
+    """The quantized weights: stored, or quantized on the fly from ``w``."""
+    wq = params.w_q
+    return wq if wq is not None else quantize_weight(params.w)
+
+
+def apply_quantized(params: Linear, xq: QTensor, *, out_dtype
+                    ) -> torch.Tensor:
+    """The w8a8 projection of an activation already quantized per row
+    (``quant_act``, (M, K)): the int8 GEMM with its dequant and bias
+    epilogue (kernel K2); (M, N) in ``out_dtype``.  Lets one K1 serve
+    projections that share an input (the gated FFN's gate and up)."""
+    bias = params.b
+    return tiled_matmul(xq, _weight_q(params),
+                        bias.float() if bias is not None else None,
+                        out_dtype=out_dtype)

@@ -13,9 +13,10 @@ def _counters():
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, paged_decode_attention)
     from repro_torch.kernels.fused_qkv.ops import fused_qkv
-    from repro_torch.kernels.quant_act.ops import quant_act
+    from repro_torch.kernels.quant_act.ops import quant_act, quant_act_glu
     from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
     return {"quant_act": (quant_act, "launches"),
+            "quant_act_glu": (quant_act_glu, "launches"),
             "fused_qkv": (fused_qkv, "launches"),
             "tiled_matmul": (tiled_matmul, "launches"),
             "paged_decode": (paged_decode_attention, "launches"),

@@ -35,8 +35,7 @@ _F = ctypes.c_float
 # C signatures of the launchers: pointers and the stream as c_void_p
 SIGNATURES = {
     "quant_act": {
-        "launch_quant_act_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "launch_quant_act_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "launch_quant_act": [_P] * 5 + [_I] * 11 + [_P],
     },
     "int8_gemm": {
         "launch_tiled_matmul": [_P] * 7 + [_I] * 9 + [_P],

@@ -1,7 +1,9 @@
-"""Plain PyTorch version of fused row-wise activation quantization."""
+"""Plain PyTorch versions of fused row-wise activation quantization and
+of its SwiGLU mode."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def quant_act_ref(x: torch.Tensor, qmax: int = 127):
@@ -19,3 +21,9 @@ def quant_act_ref(x: torch.Tensor, qmax: int = 127):
                         absmax / torch.full_like(absmax, qmax))
     q = torch.clamp(torch.round(xf / scale), -qmax, qmax)
     return q.to(torch.int8), scale
+
+
+def quant_act_glu_ref(gate: torch.Tensor, up: torch.Tensor, qmax: int = 127):
+    """``quant_act_ref`` of the SwiGLU product ``F.silu(gate) * up``, each
+    op in the operands' dtype, as the unfused FFN computes it."""
+    return quant_act_ref(F.silu(gate) * up, qmax)

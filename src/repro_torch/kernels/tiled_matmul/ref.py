@@ -35,3 +35,12 @@ def tiled_matmul_ref(a_values: torch.Tensor, a_scale: torch.Tensor,
         out = out + bias.reshape(1, -1).float()
     return out.to(out_dtype)
 
+
+
+def matmul_f32_oracle(a: torch.Tensor, b: torch.Tensor,
+                      bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Unquantized fp32 reference — the accuracy yardstick (paper §6.2)."""
+    out = a.float() @ b.float()
+    if bias is not None:
+        out = out + bias.reshape(1, -1).float()
+    return out

@@ -19,8 +19,10 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      paged_decode_attention)
 from repro_torch.kernels.fused_qkv import ref as fused_ref
 from repro_torch.kernels.fused_qkv.ops import fused_qkv
+from repro_torch.kernels.quant_act import ops as quant_ops
 from repro_torch.kernels.quant_act import ref as quant_ref
-from repro_torch.kernels.quant_act.ops import quant_act
+from repro_torch.kernels.quant_act.ops import (QuantPlan, candidate_plans,
+                                               quant_act, quant_act_glu)
 from repro_torch.kernels.tiled_matmul import ref as matmul_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiled_matmul import ops as matmul_ops
@@ -72,6 +74,140 @@ def test_quant_act_kernel_bitwise(cuda, shape, dtype):
     torch.cuda.synchronize()
     v, s = quant_ref.quant_act_ref(x)
     assert torch.equal(q.values, v) and torch.equal(q.scale, s)
+
+
+def _rows(shape, seed, dev, dtype):
+    """Rows of normal values, one of them zero, one with a single huge
+    value (its other values quantize to 0), one on a tiny scale."""
+    x = _randn(shape, seed, dev, 3.0)
+    x[0] = 0
+    if shape[0] > 2:
+        x[1, shape[1] // 3] = 3e4
+        x[2] *= 1e-3
+    return x.to(dtype)
+
+
+# the shapes K1 meets on the served paths (distilbert, qwen2.5-3b at decode,
+# verify and prefill, gemma2-27b's d_ff), ragged ones, a warp row
+QUANT_SHAPES = [(256, 768), (4, 3072), (4, 2048), (20, 11008),
+                (8192, 2048), (1024, 11008), (4, 36864), (300, 36864),
+                (5, 770), (129, 11008), (3, 64), (133, 1000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", QUANT_SHAPES,
+                         ids=[f"{m}x{k}" for m, k in QUANT_SHAPES])
+def test_quant_act_every_plan_bitwise(cuda, shape, dtype, monkeypatch):
+    """Every row mapping that takes the shapes (warp, block, clusters of
+    2, 4, 8 and quant_plan's own) is bitwise the plain version."""
+    x = _rows(shape, shape[1], cuda, dtype)
+    v, s = quant_ref.quant_act_ref(x)
+    plans = candidate_plans(*shape, dtype, True)
+    assert quant_ops.quant_plan(*shape, dtype, True) in plans
+    for plan in plans:
+        monkeypatch.setattr(quant_ops, "quant_plan", lambda *args: plan)
+        q = quant_act(x)
+        torch.cuda.synchronize()
+        assert torch.equal(q.values, v) and torch.equal(q.scale, s), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 11008), (20, 11008), (1024, 11008),
+                                   (5, 770), (129, 11008), (3, 64)])
+def test_quant_act_glu_every_plan_bitwise(cuda, shape, dtype, monkeypatch):
+    """quant_act_glu in every mapping is bitwise quant_act of
+    F.silu(gate) * up, and its h is that product."""
+    g = _rows(shape, 1, cuda, dtype)
+    u = _randn(shape, 2, cuda).to(dtype)
+    v, s = quant_ref.quant_act_glu_ref(g, u)
+    want_h = torch.nn.functional.silu(g) * u
+    for plan in candidate_plans(*shape, dtype, True):
+        monkeypatch.setattr(quant_ops, "quant_plan", lambda *args: plan)
+        h = torch.full_like(g, float("nan"))
+        q = quant_act_glu(g, u, h_out=h)
+        q2 = quant_act_glu(g, u)
+        torch.cuda.synchronize()
+        assert torch.equal(q.values, v) and torch.equal(q.scale, s), plan
+        assert torch.equal(q2.values, v) and torch.equal(q2.scale, s), plan
+        assert torch.equal(h, want_h), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_act_glu_h_over_every_bf16_gate(cuda, dtype):
+    """h = silu(g) * u bitwise PyTorch's, for g every finite bf16 value
+    (as f32 too), u = 1 and u drawn from a seed."""
+    bits = torch.arange(0, 2 ** 16, dtype=torch.int32).to(torch.int16)
+    g = bits.view(torch.bfloat16)
+    g = g[torch.isfinite(g)]
+    g = torch.cat([g, g.new_zeros(-len(g) % 1024)]).reshape(-1, 1024)
+    g = g.to(cuda).to(dtype)
+    for u in (torch.ones_like(g), _randn(tuple(g.shape), 5, cuda).to(dtype)):
+        h = torch.empty_like(g)
+        q = quant_act_glu(g, u, h_out=h)
+        torch.cuda.synchronize()
+        assert torch.equal(h, torch.nn.functional.silu(g) * u)
+    # with u = 1 no product overflows, so the rows quantize as the plain
+    # version does (a row holding inf has no finite scale to match)
+    v, s = quant_ref.quant_act_glu_ref(g, torch.ones_like(g))
+    q = quant_act_glu(g, torch.ones_like(g))
+    assert torch.equal(q.values, v) and torch.equal(q.scale, s)
+
+
+def test_quant_act_unaligned_base_takes_the_scalar_access(cuda):
+    """A base off 16 bytes plans onto one value an access, bitwise."""
+    base = _randn((8 * 2048 + 3,), 3, cuda).to(torch.bfloat16)
+    y = base[3:].view(8, 2048)                # 6 bytes past the allocation
+    assert y.data_ptr() % 16 != 0
+    assert quant_ops.quant_plan(8, 2048, torch.bfloat16, False).vec == 1
+    q = quant_act(y)
+    v, s = quant_ref.quant_act_ref(y)
+    assert torch.equal(q.values, v) and torch.equal(q.scale, s)
+
+
+# plans the wrappers refuse at x (4, 2048) bf16: a slice left empty, a
+# share too large for the registers, too many blocks, a warp mapping split,
+# vector accesses on an unaligned K
+QUANT_MISFITS = [QuantPlan("cluster", 8, 32, 8, 1)._replace(per=0),
+                 QuantPlan("block", 8, 32, 1, 4),
+                 QuantPlan("block", 8, 32, 1, 9),
+                 QuantPlan("cluster", 8, 32, 9, 1),
+                 QuantPlan("warp", 8, 32, 2, 8),
+                 QuantPlan("block", 8, 48, 1, 8),
+                 QuantPlan("cluster", 8, 32, 1, 8)]
+
+
+@pytest.mark.parametrize("plan", QUANT_MISFITS, ids=str)
+def test_quant_wrappers_refuse_plans_that_do_not_fit(cuda, plan, monkeypatch):
+    x = _randn((4, 2048), 0, cuda).to(torch.bfloat16)
+    monkeypatch.setattr(quant_ops, "quant_plan", lambda *args: plan)
+    with pytest.raises(ValueError, match="does not fit"):
+        quant_act(x)
+    with pytest.raises(ValueError, match="does not fit"):
+        quant_act_glu(x, x)
+
+
+# (vec, rows, threads, split, per) the launcher refuses at (4, 2048) bf16
+QUANT_LAUNCHER_MISFITS = [(8, 1, 32, 1, 4), (8, 1, 32, 1, 9), (8, 2, 32, 9, 1),
+                          (8, 0, 32, 2, 8), (8, 1, 48, 1, 8), (8, 2, 32, 1, 8),
+                          (4, 1, 64, 1, 8), (8, 1, 1024, 1, 1),
+                          (8, 3, 64, 1, 4)]
+
+
+@pytest.mark.parametrize("plan", QUANT_LAUNCHER_MISFITS,
+                         ids=["-".join(map(str, p))
+                              for p in QUANT_LAUNCHER_MISFITS])
+def test_quant_launcher_refuses_plans_that_do_not_fit(cuda, plan):
+    """The C launcher checks the plan against its own geometry, whatever
+    the wrapper sends; a scale it never wrote stays NaN."""
+    x = _randn((4, 2048), 0, cuda).to(torch.bfloat16)
+    q = torch.zeros((4, 2048), dtype=torch.int8, device=cuda)
+    s = torch.full((4, 1), float("nan"), device=cuda)
+    rc = _build.library("quant_act").launch_quant_act(
+        x.data_ptr(), None, q.data_ptr(), s.data_ptr(), None, 4, 2048, 127,
+        1, 0, *plan, cuda.index, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc != 0
+    assert torch.isnan(s).all() and not q.any()
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -281,12 +417,14 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
 
     monkeypatch.setattr(quant_ref, "quant_act_ref", refuse)
+    monkeypatch.setattr(quant_ref, "quant_act_glu_ref", refuse)
     monkeypatch.setattr(matmul_ref, "tiled_matmul_ref", refuse)
     monkeypatch.setattr(fused_ref, "fused_qkv_ref", refuse)
     monkeypatch.setattr(paged_ref, "paged_decode_attention_ref", refuse)
     monkeypatch.setattr(paged_ref, "attention_ref", refuse)
     reset_launch_counts()
     a = quant_act(_randn((8, 64), 0, cuda))
+    quant_act_glu(*(_randn((8, 64), i, cuda) for i in (1, 2)))
     _, ws = _operands(8, 64, [64, 32, 32], cuda)
     tiled_matmul(a, ws[0])
     fused_qkv(a, *ws)
@@ -296,7 +434,8 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
                            new_lens=torch.ones_like(c["lens"]))
     flash_attention(*_flash_case(1, 70, 70, 4, 2, 64, cuda))
     torch.cuda.synchronize()
-    assert launch_counts() == {"quant_act": 1, "fused_qkv": 1,
+    assert launch_counts() == {"quant_act": 1, "quant_act_glu": 1,
+                               "fused_qkv": 1,
                                "tiled_matmul": 1, "paged_decode": 1,
                                "paged_decode_verify": 1,
                                "flash_attention": 1}
