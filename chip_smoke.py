@@ -10,9 +10,9 @@
    each kernel's tensor-core (HGMMA, HMMA, IGMMA, IMMA), IDP4A and FFMA
    counts from ``cuobjdump -sass``: K5's bf16 kernels must hold HGMMA,
    its f32 kernel none; K2 / K3's tensor-core variants (``gemm_tma``,
-   every width) int8 tensor-core instructions and no IDP4A.  K1's 66
+   every width) int8 tensor-core instructions and no IDP4A.  K1's 44
    instantiations (f32 / bf16, plain / SwiGLU, 8 values or one an access,
-   warp / block / cluster rows, register arrays) with their 16-byte
+   block / cluster rows, register arrays) with their 16-byte
    loads, 8-byte stores, exponentials, reciprocals and cluster barriers:
    every vectorized one must load 16 and store 8 bytes an access.
 3. Kernels against their plain PyTorch versions on the card at the main
@@ -76,9 +76,11 @@
    counts exact from the request log) and timed, with one tick under
    ``torch.profiler``; the two must give equal tokens.  Speculative
    tokens equal the plain run's, or first differ at a near tie of it.
-   After each path, every K2 / K3 call it made must have planned onto a
-   tensor-core variant (``wide`` or ``swap``), never the general tile, and
-   K1's launches by row mapping are printed.  In qwen2.5-3b's SwiGLU FFN
+   After each path's counted run (counts set to 0 just before it), its
+   launches by K1 row mapping and by K2 / K3 variant are read, must sum
+   to its launch counts, and are printed; every K2 / K3 launch must have
+   planned onto a tensor-core variant (``wide`` or ``swap``), never the
+   general tile.  In qwen2.5-3b's SwiGLU FFN
    one K1 serves gate and up and ``quant_act_glu`` quantizes silu(gate) *
    up for the down projection: every such call of ``prefill_step`` and of
    the Scheduler runs is held bitwise against the plain version on its own
@@ -100,10 +102,12 @@
    different at a near tie of the CPU run).
 6. Timings at the slices' shapes: K1 at every row mapping that takes
    each shape (distilbert's; qwen2.5-3b's decode, verify and prefill rows
-   over 2048 and 11008; gemma2-27b's 36864), each checked bitwise first,
-   ``quant_act_glu`` likewise at qwen2.5-3b's rows over 11008 beside the
-   unfused path it replaces (PyTorch's silu and product, then K1; not a
-   library call); each kernel, its plain version and a
+   and the Scheduler trace's prefill rows over 2048 and 11008;
+   gemma2-27b's 36864), each checked bitwise first, ``quant_act_glu``
+   likewise at qwen2.5-3b's rows over 11008 beside the unfused path it
+   replaces (PyTorch's silu and product, then K1; not a library call),
+   and what binds it: L2-resident against cold operands (K1 the control)
+   and f32 against bf16; each kernel, its plain version and a
    library yardstick (``torch._int_mm`` plus the epilogue, A zero-padded
    to M=32 at decode, and ``torch._int_mm`` alone beside it, the
    library's GEMM core without its unfused epilogue; K2 / K3 also at qwen2.5-3b's decode (M=4), verify
@@ -124,7 +128,6 @@
 Exits non-zero on any failure.  The last line is a JSON object naming the
 device; the line before it lists each kernel's numbers.
 """
-import collections
 import contextlib
 import copy
 import importlib
@@ -256,11 +259,11 @@ K1_SASS = {"LDG.128": "LDG.E.128", "STG.64": "STG.E.64",
            "cluster barrier": "UCGABAR_WAIT"}
 K1_NAME = re.compile(
     r"quant_rowsI(f|13__nv_bfloat16)Lb([01])ELi(\d+)ELi(\d)ELi(\d+)E")
-K1_ROWS = ("warp", "block", "cluster")
-# plain / SwiGLU x warp / block / cluster rows x the register arrays: bf16
+K1_ROWS = ("block", "cluster")
+# plain / SwiGLU x block / cluster rows x the register arrays: bf16
 # vectors of 1, 2, 4, 8; f32 vectors of 1, 2, 4; single values 4, 16 (each
 # type)
-K1_KERNELS = 2 * 3 * (4 + 3 + 2 + 2)
+K1_KERNELS = 2 * 2 * (4 + 3 + 2 + 2)
 
 
 def check_k1_sass():
@@ -906,7 +909,7 @@ def serve(model, cfg, dev, config=None):
 
 # the modules of the dense main path that call the kernel wrappers
 WRAPPER_CALLERS = ("repro_torch.core.quantized_linear",
-                   "repro_torch.core.qkv_fusion", "repro_torch.models.ffn")
+                   "repro_torch.core.qkv_fusion")
 
 
 @contextlib.contextmanager
@@ -1015,6 +1018,7 @@ def main_path(model, cfg, dev):
     counts = launch_counts()
     tps = check_serve("dense serve", counts, expected_launches(cfg, False),
                       next_logits, toks, cfg, t_prefill, t_decode)
+    check_served_plans("distilbert dense serve", counts)
     for b, row in enumerate(toks.tolist()):
         print(f"  request {b} (prompt {BATCH_LENS[b]}): {row}")
 
@@ -1120,6 +1124,8 @@ def paged_paths(model, cfg, dev, dense_toks, dense_cache):
         counts = launch_counts()
         tps = check_serve(what, counts, expected_launches(cfg, True),
                           next_logits, toks, cfg, t_prefill, t_decode)
+        check_served_plans(f"distilbert paged serve, kv_quant={kv_quant}",
+                           counts)
         if cache["seq_lens"].tolist() != [n + DECODE_STEPS
                                           for n in BATCH_LENS]:
             fail(f"{what}: seq_lens {cache['seq_lens'].tolist()}")
@@ -1201,7 +1207,7 @@ def checked_glu_calls(stats):
     is made, bitwise against the plain version on its own operands;
     ``stats["calls"]`` counts them."""
     from repro_torch.kernels.quant_act.ref import quant_act_glu_ref
-    mod = importlib.import_module("repro_torch.models.ffn")
+    mod = importlib.import_module("repro_torch.core.quantized_linear")
     wrapper = mod.quant_act_glu
 
     def check(gate, up):
@@ -1231,30 +1237,29 @@ def check_served_glu(what, stats, launched):
           f"{sorted(stats['shapes'])})")
 
 
-def plans_so_far():
-    """K1's launches by plan, K2's and K3's by variant, since import."""
-    from repro_torch.kernels.fused_qkv.ops import fused_qkv
-    from repro_torch.kernels.quant_act.ops import quant_act, quant_act_glu
-    from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
-    return {"quant_act": collections.Counter(quant_act.plans),
-            "quant_act_glu": collections.Counter(quant_act_glu.plans),
-            "tiled_matmul": collections.Counter(tiled_matmul.plans),
-            "fused_qkv": collections.Counter(fused_qkv.plans)}
+# each served path's counted run (counts set to 0 just before it): its
+# launch counts and its launches by plan (K1) or variant (K2, K3)
+SERVED_PLANS = {}
 
 
-def check_served_plans(what, before):
-    """Print K1's launches by plan since ``before``; every K2 / K3 call
-    since then took a tensor-core variant; returns the counts now."""
-    now = plans_so_far()
-    for name in now:
-        grown = now[name] - before[name]
+def check_served_plans(what, counts):
+    """Read the launches by plan of the counted run just made (``counts``
+    its launch counts): each wrapper's sum to its count, printed, and
+    every K2 / K3 launch on a tensor-core variant; kept in SERVED_PLANS
+    under ``what``."""
+    from repro_torch.kernels import plan_counts
+    plans = plan_counts()
+    for name, by in plans.items():
+        if sum(by.values()) != counts[name]:
+            fail(f"{what}: {name} launches by plan {by} do not sum to its "
+                 f"{counts[name]} launches")
         print(f"  {what}: {name} launches by "
               f"{'plan' if name.startswith('quant') else 'variant'} "
-              f"{dict(sorted(grown.items()))}")
-        if grown["general"]:
-            fail(f"{what}: {grown['general']} {name} calls planned onto the "
+              f"{dict(sorted(by.items()))}")
+        if by.get("general"):
+            fail(f"{what}: {by['general']} {name} calls planned onto the "
                  "general (__dp4a) variant")
-    return now
+    SERVED_PLANS[what] = {"counts": counts, "plans": plans}
 
 
 def device_breakdown(fn, top=10, label="one more run"):
@@ -1388,6 +1393,7 @@ def long_prompt_path(arch, dev, n_layers=None):
     print(f"{what}: launches {counts} (expected {want})")
     if counts != want:
         fail(f"{what}: launch counts {counts} != {want}")
+    check_served_plans(f"{cfg.name} prefill_step", counts)
     if logits.shape != (1, LONG_PROMPT, cfg.vocab_size) \
             or logits.dtype != torch.float32:
         fail(f"{what}: logits {tuple(logits.shape)} {logits.dtype}")
@@ -1640,6 +1646,10 @@ PROFILE_TICK_PLAIN, PROFILE_TICK_SPEC = 16, 6
 # against CPU) only the last bits differ (rel-err 1e-5 at most): 1e-4.
 NEAR_TIE = 2e-2
 NEAR_TIE_F32 = 1e-4
+# the rows of the Scheduler's prefill forwards on the trace (phase 4's
+# served quant_act_glu shapes between verify's 20 and 8192): phase 6
+# times K1 and quant_act_glu in every row mapping there
+SCHED_CHUNK_ROWS = (32, 48, 64, 144, 160, 192, 304)
 
 
 def sched_trace(vocab):
@@ -1908,6 +1918,7 @@ def sched_run(what, model, cfg, dev, kv_quant, draft, dtype, trace, *,
     print(f"{what}: launches {counts} (expected {want})")
     if counts != want:
         fail(f"{what}: launch counts {counts} != {want}")
+    check_served_plans(what, counts)
     if stats["calls"] != counts["paged_decode"] + \
             counts["paged_decode_verify"]:
         fail(f"{what}: {stats['calls']} K4 calls checked, "
@@ -2221,6 +2232,55 @@ def time_quant_glu(m, k, dev, launches=200):
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
+# rows at which K1's and quant_act_glu's operands at d_ff fit in L2
+L2_ROWS = 256
+
+
+def glu_alu_check(dev, k=11008):
+    """Whether HBM's bytes bind quant_act_glu, against K1 alone as the
+    control: each at (L2_ROWS, k) bf16 with its operands cold (copies
+    beyond L2) and L2-resident (one set, launched again and again); and
+    quant_act_glu at (LONG_PROMPT, k) in f32 beside bf16 (1.8x the bytes,
+    the same operations, fewer roundings).  A kernel the bytes bind runs
+    faster from L2 than cold, and in f32 about 1.8x as long."""
+    from repro_torch.kernels.quant_act.ops import quant_act, quant_act_glu
+    out = {}
+    for name, fn, n_in in (("quant_act", quant_act, 1),
+                           ("quant_act_glu", quant_act_glu, 2)):
+        sets = [tuple(randn((L2_ROWS, k), n_in * i + j, dev, 1.0,
+                            torch.bfloat16) for j in range(n_in))
+                for i in range(n_copies(n_in * L2_ROWS * k * 2))]
+        cold, warm = device_ms(fn, sets), device_ms(fn, sets[:1])
+        out[name] = {"shape": f"({L2_ROWS},{k}) bf16", "cold_ms": cold,
+                     "l2_ms": warm, "l2_over_cold": warm / cold}
+        del sets
+    by_dtype = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        elt = torch.finfo(dtype).bits // 8
+        sets = [tuple(randn((LONG_PROMPT, k), 2 * i + j, dev, 1.0, dtype)
+                      for j in (0, 1))
+                for i in range(n_copies(2 * LONG_PROMPT * k * elt))]
+        by_dtype[str(dtype).split(".")[1]] = device_ms(quant_act_glu, sets,
+                                                       10)
+        del sets
+        torch.cuda.empty_cache()
+    out["quant_act_glu"].update(
+        prefill_bf16_ms=by_dtype["bfloat16"], prefill_f32_ms=by_dtype[
+            "float32"],
+        f32_over_bf16=by_dtype["float32"] / by_dtype["bfloat16"],
+        f32_over_bf16_if_bytes_bind=(2 * 4 + 1) / (2 * 2 + 1))
+    for name, r in out.items():
+        print(f"  ALU check {name} {r['shape']}: cold {r['cold_ms']:.5f} ms, "
+              f"L2-resident {r['l2_ms']:.5f} ms ({r['l2_over_cold']:.3f} of "
+              "cold)" + ("" if "prefill_f32_ms" not in r else
+                         f"; ({LONG_PROMPT},{k}) bf16 "
+                         f"{r['prefill_bf16_ms']:.5f} ms, f32 "
+                         f"{r['prefill_f32_ms']:.5f} ms ("
+                         f"{r['f32_over_bf16']:.3f}x; bytes alone would "
+                         f"give {r['f32_over_bf16_if_bytes_bind']:.1f}x)"))
+    return out
+
+
 def int_mm_epilogue(a, sa, b_cm, sb, out_dtype):
     """The library yardstick: torch._int_mm, then the dequant epilogue."""
     return (torch._int_mm(a, b_cm).float() * (sa * sb)).to(out_dtype)
@@ -2503,6 +2563,14 @@ def timings(cfg, dev):
             shapes["qwen tiled_matmul"].append(
                 (phase, f"{name} ({m},{k})x({k},{nn}) bf16", times,
                  time_gemm(m, k, nn, bf16, dev, launches=n)))
+    # the Scheduler's prefill forwards: K1 at d_model (x 3), quant_act_glu
+    # at d_ff
+    for m in SCHED_CHUNK_ROWS:
+        shapes["qwen quant_act"].append(
+            (f"chunk-{m}", f"({m},2048) bf16", 3, time_quant_act(m, 2048, dev)))
+        shapes["qwen quant_act_glu"].append(
+            (f"chunk-{m}", f"({m},11008) bf16", 1,
+             time_quant_glu(m, 11008, dev)))
     # gemma2-27b's K1 at d_ff (its GELU stays unfused): decode, prefill
     shapes["gemma2 quant_act"] = [
         (phase, f"({m},36864) bf16", 1,
@@ -2625,6 +2693,14 @@ FLASH_KERNEL = ("src/repro_torch/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:133")
 
 
+def served_plans(name):
+    """``name``'s launches and launches by plan in each served path's
+    counted run that launched it (SERVED_PLANS)."""
+    return {what: {"launches": r["counts"][name],
+                   "by_plan": r["plans"][name]}
+            for what, r in SERVED_PLANS.items() if r["counts"][name]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2657,23 +2733,19 @@ def main():
     model_cpu = quantize_model_params(master)
     model = copy.deepcopy(model_cpu).to(dev)
     with torch.inference_mode():
-        before = start = plans_so_far()
         counts, t_prefill, tps, toks, cache = main_path(model, cfg, dev)
-        before = check_served_plans("distilbert dense serve", before)
         paged_counts, paged_prefill, paged_tps = paged_paths(
             model, cfg, dev, toks, cache)
-        before = check_served_plans("distilbert paged serves", before)
         del cache
         check_swiglu_detector(dev)
         qwen, gemma = long_prompt_paths(dev)
-        before = check_served_plans("prefill_step", before)
         sched_runs = scheduler_paths(dev)
-        served = check_served_plans("Scheduler runs", before)
         card_vs_cpu(model_cpu, master, cfg, dev)
         card_vs_cpu_long(dev)
         sched_check = card_vs_cpu_scheduler(dev)
     counts["paged_decode"] = paged_counts["paged_decode"]
     shapes = timings(cfg, dev)
+    alu = glu_alu_check(dev)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2703,7 +2775,9 @@ def main():
     k1["gemma2"] = {phase: {k: r[k] for k in (
         "ms", "plan", "plans", "plain_ms", "bound_ms", "bound_by",
         "library_ms")} for phase, _, _, r in shapes["gemma2 quant_act"]}
-    k1["launches_by_plan"] = dict(served["quant_act"] - start["quant_act"])
+    k1["launches_by_plan"] = served_plans("quant_act")[
+        "distilbert dense serve"]["by_plan"]
+    k1["launches_by_path"] = served_plans("quant_act")
     kernels[-1]["max_row_rel_err_bf16"] = paged_rel_bf16
     pd = {phase: r for phase, _, _, r in shapes["paged_decode"]}
     kernels[-1]["scheduler_decode"] = {
@@ -2766,8 +2840,13 @@ def main():
         **{phase: {k: glu[phase][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms", "plan",
             "plans")} for phase in ("decode", "verify")},
-        "launches_by_plan": dict(served["quant_act_glu"]
-                                 - start["quant_act_glu"]),
+        "scheduler_chunks": {phase: {k: r[k] for k in (
+            "ms", "bound_ms", "unfused_ms", "plan", "plans")}
+            for phase, r in glu.items() if phase.startswith("chunk")},
+        "alu_check": alu,
+        "launches_by_plan": served_plans("quant_act_glu")[
+            "qwen2.5-3b prefill_step"]["by_plan"],
+        "launches_by_path": served_plans("quant_act_glu"),
     })
     for k, r in sched_runs.items():
         accept = ("-" if r["acceptance"] is None

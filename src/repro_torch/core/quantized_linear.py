@@ -18,11 +18,14 @@ copy, seen as (K, N), the layout kernel K2 reads.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.quantization import QTensor, k_major, quantize
-from repro_torch.kernels.quant_act.ops import quant_act
+from repro_torch.kernels.quant_act.ops import quant_act, quant_act_glu
 from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
 
 QuantMode = str  # "none" | "w8" | "w8a8"
@@ -109,10 +112,41 @@ def apply_linear(params: Linear, x: torch.Tensor, *,
         return _add_bias(y, bias).to(out_dtype)
 
     # w8a8 — the paper's path.
-    lead = x.shape[:-1]
-    xq = quant_act(x.reshape(-1, x.shape[-1]).contiguous())
-    y = apply_quantized(params, xq, out_dtype=out_dtype)
-    return y.reshape(*lead, y.shape[-1])
+    return _apply_w8a8(params, quant_act(_rows(x)), x.shape[:-1], out_dtype)
+
+
+def apply_linears(projections: Sequence[Linear], x: torch.Tensor, *,
+                  mode: QuantMode = "none", out_dtype=None
+                  ) -> list[torch.Tensor]:
+    """``apply_linear`` of each projection on the same input x.  Under
+    w8a8 one K1 of x serves them all (the gated FFN's gate and up): the
+    int8 values and scales are those each call would make, so the outputs
+    are bitwise ``apply_linear``'s."""
+    if mode != "w8a8":
+        return [apply_linear(p, x, mode=mode, out_dtype=out_dtype)
+                for p in projections]
+    xq = quant_act(_rows(x))
+    return [_apply_w8a8(p, xq, x.shape[:-1], out_dtype or x.dtype)
+            for p in projections]
+
+
+def apply_linear_swiglu(params: Linear, gate: torch.Tensor,
+                        up: torch.Tensor, *, mode: QuantMode = "none",
+                        out_dtype=None) -> torch.Tensor:
+    """``apply_linear(params, F.silu(gate) * up, mode=mode)``: the SwiGLU
+    FFN's down projection.  Under w8a8 K1's SwiGLU mode (``quant_act_glu``)
+    quantizes the product in one launch without writing it out, bitwise
+    ``quant_act`` of it."""
+    if mode != "w8a8":
+        return apply_linear(params, F.silu(gate) * up, mode=mode,
+                            out_dtype=out_dtype)
+    hq = quant_act_glu(_rows(gate), _rows(up))
+    return _apply_w8a8(params, hq, gate.shape[:-1], out_dtype or gate.dtype)
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x (..., K) as the (M, K) contiguous matrix K1 quantizes by row."""
+    return x.reshape(-1, x.shape[-1]).contiguous()
 
 
 def _weight_q(params: Linear) -> QTensor:
@@ -121,13 +155,12 @@ def _weight_q(params: Linear) -> QTensor:
     return wq if wq is not None else quantize_weight(params.w)
 
 
-def apply_quantized(params: Linear, xq: QTensor, *, out_dtype
-                    ) -> torch.Tensor:
-    """The w8a8 projection of an activation already quantized per row
-    (``quant_act``, (M, K)): the int8 GEMM with its dequant and bias
-    epilogue (kernel K2); (M, N) in ``out_dtype``.  Lets one K1 serve
-    projections that share an input (the gated FFN's gate and up)."""
+def _apply_w8a8(params: Linear, xq: QTensor, lead: torch.Size, out_dtype
+                ) -> torch.Tensor:
+    """The int8 GEMM with its dequant and bias epilogue (kernel K2) on an
+    activation K1 has quantized per row, reshaped to (*lead, N)."""
     bias = params.b
-    return tiled_matmul(xq, _weight_q(params),
-                        bias.float() if bias is not None else None,
-                        out_dtype=out_dtype)
+    y = tiled_matmul(xq, _weight_q(params),
+                     bias.float() if bias is not None else None,
+                     out_dtype=out_dtype)
+    return y.reshape(*lead, y.shape[-1])

@@ -14,8 +14,9 @@
 //           written once (1 byte); ~15 instructions an element (max,
 //           product by the row's reciprocal, rounding by a magic sum, clip,
 //           packing) stay below the bytes' time on an H100.  The SwiGLU mode
-//           reads twice the bytes but adds expf and an IEEE division an
-//           element (~38 instructions): there the ALUs bind (PERF.md §6).
+//           reads twice the bytes and adds expf and an IEEE division an
+//           element (~38 instructions); the card's readings do not show
+//           the ALUs binding it either (PERF.md §6).
 // Design:   one read of each element: a thread loads its share of a row
 //           into registers (16-byte loads of 8 values; 8-byte stores of 8
 //           int8), reduces |x|, and quantizes from the same registers, so
@@ -26,9 +27,7 @@
 //                           blocks (few rows, or a row longer than a block
 //                           holds): each block reduces its slice, then reads
 //                           its peers' maxima through distributed shared
-//                           memory after a cluster barrier;
-//             warp rows:    one warp a row, several rows a block, warp
-//                           shuffles only (it lost at every served shape).
+//                           memory after a cluster barrier.
 //           The register arrays are sized per launch (NV units a thread).
 //           Max is exact in any order, so every mapping gives the same
 //           bits.  A K that is not a multiple of 8, or a base off 16 bytes,
@@ -52,7 +51,7 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxSplit = 8;           // a portable cluster
 constexpr int kVec = 8;                // elements a vector access moves
 
-enum Rows { kWarpRows = 0, kBlockRows = 1, kClusterRows = 2 };
+enum Rows { kBlockRows = 0, kClusterRows = 1 };
 
 // the most vectors (unvectorized: elements) a thread holds; `max_per` in
 // src/repro_torch/kernels/quant_act/ops.py mirrors it
@@ -227,19 +226,11 @@ __global__ void __launch_bounds__(kMaxThreads) quant_rows(const Args a) {
   __shared__ float part_max[kMaxThreads / 32];
   __shared__ float slice_max;
 
-  int64_t row;
-  int t, group, rank = 0;
-  if constexpr (ROWS == kWarpRows) {
-    row = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
-    if (row >= a.m) return;                // the whole warp: no block barrier
-    t = threadIdx.x & 31;
-    group = 32;
-  } else {
-    if constexpr (ROWS == kClusterRows) rank = static_cast<int>(cg::this_cluster().block_rank());
-    row = blockIdx.x / a.split;
-    t = threadIdx.x;
-    group = blockDim.x;
-  }
+  int rank = 0;
+  if constexpr (ROWS == kClusterRows) rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int64_t row = blockIdx.x / a.split;
+  const int t = threadIdx.x;
+  const int group = blockDim.x;
   const int units = a.k / VEC;
   const int slice = (units + a.split - 1) / a.split;
   const int lo = rank * slice;
@@ -277,18 +268,16 @@ __global__ void __launch_bounds__(kMaxThreads) quant_rows(const Args a) {
   }
 
   m = warp_max(m);
-  if constexpr (ROWS != kWarpRows) {
-    const int warps = blockDim.x >> 5;
-    if ((threadIdx.x & 31) == 0) part_max[threadIdx.x >> 5] = m;
-    __syncthreads();
-    m = part_max[0];
-    for (int w = 1; w < warps; ++w) m = fmaxf(m, part_max[w]);
-    if constexpr (ROWS == kClusterRows) {
-      cg::cluster_group cluster = cg::this_cluster();
-      if (threadIdx.x == 0) slice_max = m;
-      cluster.sync();                      // every slice's max is written
-      for (int r = 0; r < a.split; ++r) m = fmaxf(m, *cluster.map_shared_rank(&slice_max, r));
-    }
+  const int warps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) part_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = part_max[0];
+  for (int w = 1; w < warps; ++w) m = fmaxf(m, part_max[w]);
+  if constexpr (ROWS == kClusterRows) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) slice_max = m;
+    cluster.sync();                        // every slice's max is written
+    for (int r = 0; r < a.split; ++r) m = fmaxf(m, *cluster.map_shared_rank(&slice_max, r));
   }
   const float s = m <= 1e-12f ? 1.0f : __fdiv_rn(m, a.qmax);
   const float y = __frcp_rn(s);
@@ -325,8 +314,7 @@ bool plan_fits(const Args& a, int bf16, int vec, int rows, int threads) {
   if (threads < 32 || threads > kMaxThreads || threads % 32) return false;
   if (vec != 1 && vec != kVec) return false;
   if (a.per < 1 || a.per > cap_of(bf16, vec)) return false;
-  if (rows == kWarpRows) threads = 32;
-  if ((rows == kClusterRows) != (a.split > 1) || rows < kWarpRows || rows > kClusterRows)
+  if ((rows == kClusterRows) != (a.split > 1) || rows < kBlockRows || rows > kClusterRows)
     return false;
   if (a.k % vec) return false;
   if (vec == kVec && !(aligned(a.x, 16) && aligned(a.u, 16) && aligned(a.h, 16) &&
@@ -341,12 +329,6 @@ bool plan_fits(const Args& a, int bf16, int vec, int rows, int threads) {
 
 template <typename T, bool GLU, int VEC, int NV>
 cudaError_t launch_rows(const Args& a, int rows, int threads, cudaStream_t stream) {
-  if (rows == kWarpRows) {
-    const int per_block = threads / 32;
-    quant_rows<T, GLU, VEC, kWarpRows, NV>
-        <<<(a.m + per_block - 1) / per_block, threads, 0, stream>>>(a);
-    return cudaGetLastError();
-  }
   if (rows == kBlockRows) {
     quant_rows<T, GLU, VEC, kBlockRows, NV><<<a.m, threads, 0, stream>>>(a);
     return cudaGetLastError();
@@ -390,8 +372,8 @@ cudaError_t launch_typed(const Args& a, int vec, int rows, int threads, cudaStre
 }  // namespace
 
 // x: the activation (or gate); u: up, null outside the SwiGLU mode; h: where
-// the SwiGLU mode writes silu(gate) * up, or null.  rows: 0 warp rows, 1
-// block rows, 2 cluster rows of `split` blocks.  Returns a CUDA error code;
+// the SwiGLU mode writes silu(gate) * up, or null.  rows: 0 block rows, 1
+// cluster rows of `split` blocks.  Returns a CUDA error code;
 // cudaErrorInvalidValue for a plan that does not fit.
 extern "C" int launch_quant_act(const void* x, const void* u, void* q, void* scale, void* h,
                                 int m, int k, int qmax, int bf16, int glu, int vec, int rows,

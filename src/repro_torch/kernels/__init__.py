@@ -3,7 +3,9 @@
 Every wrapper (``<kernel>/ops.py``) dispatches on the device of its input:
 CPU tensors run ``<kernel>/ref.py``; CUDA tensors launch the CUDA kernel
 from ``csrc/`` and add one to the wrapper's ``launches`` count (K4's verify
-mode to ``verify_launches``).
+mode to ``verify_launches``).  The wrappers that pick a variant before
+launch (K1 by row mapping, K2 and K3 by GEMM variant) also count each
+launch in their ``plans`` counter under the variant's name.
 """
 from __future__ import annotations
 
@@ -25,6 +27,13 @@ def _counters():
             "flash_attention": (flash_attention, "launches")}
 
 
+def _planned():
+    """Each planning wrapper's name → the wrapper (its ``plans`` Counter)."""
+    counters = _counters()
+    return {name: counters[name][0] for name in
+            ("quant_act", "quant_act_glu", "tiled_matmul", "fused_qkv")}
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches made by each wrapper since the last reset; K4's
     plain and verify launches count apart (``paged_decode`` and
@@ -33,6 +42,14 @@ def launch_counts() -> dict[str, int]:
             for name, (fn, attr) in _counters().items()}
 
 
+def plan_counts() -> dict[str, dict[str, int]]:
+    """Launches since the last reset of each planning wrapper, by variant;
+    each sums to its ``launch_counts`` entry."""
+    return {name: dict(fn.plans) for name, fn in _planned().items()}
+
+
 def reset_launch_counts() -> None:
     for fn, attr in _counters().values():
         setattr(fn, attr, 0)
+    for fn in _planned().values():
+        fn.plans.clear()

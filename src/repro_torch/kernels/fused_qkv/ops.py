@@ -79,5 +79,5 @@ def fused_qkv(a: QTensor, wq: QTensor, wk: QTensor, wv: QTensor, *,
 
 
 fused_qkv.launches = 0
-# launches by variant since import (never reset), as tiled_matmul.plans
+# launches by variant since the last reset, as tiled_matmul.plans
 fused_qkv.plans = collections.Counter()

@@ -11,10 +11,7 @@ alignment alone, before launch (see ``csrc/quant_act.cu``):
 * ``block``: one block a row;
 * ``cluster``: a row split over a cluster of 2-8 blocks that share their
   slices' maxima through distributed shared memory (too few rows to fill
-  the SMs, or a row longer than a block holds);
-* ``warp``: one warp a row, several rows a block, warp shuffles only
-  (timed beside the others, `candidate_plans`; it lost at every served
-  shape, so ``quant_plan`` does not take it).
+  the SMs, or a row longer than a block holds).
 
 Each thread holds its share of a row in registers between the absmax and
 the quantize: vectors of 8 values (16-byte loads, 8-byte stores) where K
@@ -46,7 +43,7 @@ VEC = 8                         # values a vector access moves
 VEC_ALIGN = 16                  # bytes: a vector load's alignment
 MAX_THREADS = 512
 MAX_SPLIT = 8                   # blocks a cluster (the portable size)
-ROWS = {"warp": 0, "block": 1, "cluster": 2}
+ROWS = {"block": 0, "cluster": 1}
 # quant_plan's thresholds, from H100 timings of every mapping at the served
 # shapes (`chip_smoke.py` phase 6, PERF.md §6): below LATENCY_ROWS rows a
 # launch's latency decides; from it, each thread holds PER vectors
@@ -63,16 +60,15 @@ def max_per(dtype: torch.dtype, vec: int) -> int:
 
 
 class QuantPlan(NamedTuple):
-    rows: str                   # "warp", "block" or "cluster"
+    rows: str                   # "block" or "cluster"
     vec: int                    # values an access: 8 or 1
     threads: int                # a block's threads
     split: int                  # blocks a row (a cluster when > 1)
     per: int                    # vectors (vec 1: values) a thread holds
 
     def __str__(self) -> str:
-        mapping = (f"{self.threads // 32} rows/block" if self.rows == "warp"
-                   else f"{self.split}x{self.threads}")
-        return f"{self.rows} {mapping} v{self.vec} p{self.per}"
+        return (f"{self.rows} {self.split}x{self.threads} v{self.vec} "
+                f"p{self.per}")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -106,11 +102,6 @@ def _block_plan(units: int, split: int, vec: int, cap: int, per: int, *,
                      split, per)
 
 
-def _warp_plan(m: int, units: int, vec: int) -> QuantPlan:
-    rows = max(1, min(4, m // SMS))
-    return QuantPlan("warp", vec, 32 * rows, 1, _cdiv(units, 32))
-
-
 def quant_plan(m: int, k: int, dtype: torch.dtype, aligned: bool
                ) -> QuantPlan:
     """K1's row mapping for x (m, k) of ``dtype``, from the shapes and
@@ -118,13 +109,12 @@ def quant_plan(m: int, k: int, dtype: torch.dtype, aligned: bool
 
     Below LATENCY_ROWS rows: one block a row, each thread holding one
     vector where MAX_THREADS threads hold the row; else, where the rows
-    leave SMs idle (m < SMS), a cluster of ceil(2 SMS / m) blocks (2-8) a
-    row, each thread holding as few as its block allows; else one block
-    of at most MAX_THREADS.  From LATENCY_ROWS rows: one block a row whose
-    threads hold PER vectors each, or the cap, at most MAX_THREADS
-    threads; a row no such block holds splits over the fewest blocks that
-    do.  The warp mapping lost at every served shape and is left to
-    ``candidate_plans``."""
+    give fewer than two blocks an SM (m < 2 SMS), a cluster of
+    ceil(2 SMS / m) blocks (2-8) a row, each thread holding as few as its
+    block allows; else one block of at most MAX_THREADS.  From
+    LATENCY_ROWS rows: one block a row whose threads hold PER vectors
+    each, or the cap, at most MAX_THREADS threads; a row no such block
+    holds splits over the fewest blocks that do."""
     return _quant_plan(m, k, dtype, aligned)
 
 
@@ -137,7 +127,7 @@ def _quant_plan(m: int, k: int, dtype: torch.dtype, aligned: bool
     cap = max_per(dtype, vec)
     if m < LATENCY_ROWS:
         first = 1
-        if units > MAX_THREADS and m < SMS:
+        if units > MAX_THREADS and m < 2 * SMS:
             first = min(MAX_SPLIT, max(2, _cdiv(2 * SMS, max(m, 1))))
         for split in range(first, MAX_SPLIT + 1):
             plan = _block_plan(units, split, vec, cap, 1)
@@ -156,15 +146,13 @@ def _quant_plan(m: int, k: int, dtype: torch.dtype, aligned: bool
 
 def candidate_plans(m: int, k: int, dtype: torch.dtype, aligned: bool
                     ) -> list[QuantPlan]:
-    """Every mapping worth timing at these shapes: the warp one where a
-    row fits a warp, and one block a row or clusters of 2, 4 and 8 blocks,
-    each at about 1, 2, 4 and 8 vectors a thread; with ``quant_plan``'s
-    own (`chip_smoke.py` phase 6 times them against each other)."""
+    """Every mapping worth timing at these shapes: one block a row or
+    clusters of 2, 4 and 8 blocks, each at about 1, 2, 4 and 8 vectors a
+    thread; with ``quant_plan``'s own (`chip_smoke.py` phase 6 times them
+    against each other)."""
     vec, units = _vec_units(k, aligned)
     cap = max_per(dtype, vec)
     plans = []
-    if _cdiv(units, 32) <= cap:
-        plans.append(_warp_plan(m, units, vec))
     for split in (1, 2, 4, 8):
         for per in (1, 2, 4, 8):
             plan = _block_plan(units, split, vec, cap, per)
@@ -177,10 +165,9 @@ def check_plan(plan: QuantPlan, m: int, k: int, dtype: torch.dtype,
                aligned: bool) -> None:
     """Raise unless the kernel takes ``plan`` at these shapes: vector
     accesses only where K is a multiple of 8 and the bases aligned; a
-    block of 32-512 threads; one block a row for the warp and block
-    mappings, 2-8 for a cluster; a thread's share within its registers;
-    the slices covering each row's vectors exactly once (the last slice
-    not empty)."""
+    block of 32-512 threads; one block a row, or 2-8 for a cluster; a
+    thread's share within its registers; the slices covering each row's
+    vectors exactly once (the last slice not empty)."""
     vec_ok = plan.vec == 1 or (plan.vec == VEC and aligned and k % VEC == 0)
     ok = (vec_ok and k >= 1 and plan.rows in ROWS
           and 32 <= plan.threads <= MAX_THREADS and plan.threads % 32 == 0
@@ -190,10 +177,9 @@ def check_plan(plan: QuantPlan, m: int, k: int, dtype: torch.dtype,
           and m * plan.split < 2 ** 31)
     if ok:
         units = k // plan.vec
-        group = 32 if plan.rows == "warp" else plan.threads
         slice_ = _cdiv(units, plan.split)
         ok = (plan.split - 1) * slice_ < units <= plan.split * slice_ \
-            and plan.per * group >= slice_
+            and plan.per * plan.threads >= slice_
     if not ok:
         raise ValueError(f"quant_act: plan {plan!r} does not fit x ({m}, {k}) "
                          f"{dtype}{'' if aligned else ' (unaligned)'}")
@@ -283,6 +269,6 @@ def quant_act_glu(gate: torch.Tensor, up: torch.Tensor, *,
 
 quant_act.launches = 0
 quant_act_glu.launches = 0
-# launches by plan since import (never reset)
+# launches by plan since the last reset_launch_counts()
 quant_act.plans = collections.Counter()
 quant_act_glu.plans = collections.Counter()

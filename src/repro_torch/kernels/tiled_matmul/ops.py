@@ -230,6 +230,6 @@ def tiled_matmul(a: QTensor, b: QTensor, bias: torch.Tensor | None = None, *,
 
 
 tiled_matmul.launches = 0
-# launches by variant since import (never reset): the served paths must
-# plan onto the tensor-core variants
+# launches by variant since the last reset_launch_counts(): the served
+# paths must plan onto the tensor-core variants
 tiled_matmul.plans = collections.Counter()

@@ -6,8 +6,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.quantized_linear import (Linear, apply_linear,
-                                               apply_quantized, init_linear)
-from repro_torch.kernels.quant_act.ops import quant_act, quant_act_glu
+                                               apply_linear_swiglu,
+                                               apply_linears, init_linear)
 from repro_torch.models.config import ModelConfig
 
 _ACT = {
@@ -42,31 +42,13 @@ def init_ffn(generator: torch.Generator, cfg: ModelConfig,
 def apply_ffn(params: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = _ACT[cfg.ffn_type]
     mode = cfg.quant_proj
-    if mode == "w8a8":
-        return _apply_ffn_w8a8(params, x, cfg)
-    if params.gate is not None:
-        h = act(apply_linear(params.gate, x, mode=mode)) \
-            * apply_linear(params.up, x, mode=mode)
-    else:
-        h = act(apply_linear(params.up, x, mode=mode))
-    return apply_linear(params.down, h, mode=mode)
-
-
-def _apply_ffn_w8a8(params: FFN, x: torch.Tensor, cfg: ModelConfig
-                    ) -> torch.Tensor:
-    """The FFN under w8a8, bit for bit ``apply_linear``'s composition with
-    fewer K1 launches: one ``quant_act`` of x serves gate and up (the same
-    int8 values and scales either way), and in SwiGLU ``quant_act_glu``
-    quantizes ``silu(gate) * up`` without writing it out."""
-    act = _ACT[cfg.ffn_type]
-    lead = x.shape[:-1]
-    xq = quant_act(x.reshape(-1, x.shape[-1]).contiguous())
     if params.gate is None:
-        hq = quant_act(act(apply_quantized(params.up, xq, out_dtype=x.dtype)))
-    else:
-        gate = apply_quantized(params.gate, xq, out_dtype=x.dtype)
-        up = apply_quantized(params.up, xq, out_dtype=x.dtype)
-        hq = (quant_act_glu(gate, up) if cfg.ffn_type == "swiglu"
-              else quant_act(act(gate) * up))
-    y = apply_quantized(params.down, hq, out_dtype=x.dtype)
-    return y.reshape(*lead, y.shape[-1])
+        return apply_linear(params.down, act(apply_linear(params.up, x,
+                                                          mode=mode)),
+                            mode=mode)
+    # under w8a8 one K1 of x serves gate and up, and in SwiGLU the product
+    # is quantized in K1's launch (bitwise the composition either way)
+    gate, up = apply_linears((params.gate, params.up), x, mode=mode)
+    if cfg.ffn_type == "swiglu":
+        return apply_linear_swiglu(params.down, gate, up, mode=mode)
+    return apply_linear(params.down, act(gate) * up, mode=mode)

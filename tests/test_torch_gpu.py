@@ -11,7 +11,8 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.quantization import quantize, quantize_kv
 from repro_torch.core.quantized_linear import quantize_weight
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import (launch_counts, plan_counts,
+                                 reset_launch_counts)
 from repro_torch.kernels.flash_attention import ref as paged_ref
 from repro_torch.kernels.flash_attention.decode import (flash_decode_schedule,
                                                         split_plan)
@@ -88,7 +89,7 @@ def _rows(shape, seed, dev, dtype):
 
 
 # the shapes K1 meets on the served paths (distilbert, qwen2.5-3b at decode,
-# verify and prefill, gemma2-27b's d_ff), ragged ones, a warp row
+# verify and prefill, gemma2-27b's d_ff), ragged ones, a row of 64
 QUANT_SHAPES = [(256, 768), (4, 3072), (4, 2048), (20, 11008),
                 (8192, 2048), (1024, 11008), (4, 36864), (300, 36864),
                 (5, 770), (129, 11008), (3, 64), (133, 1000)]
@@ -98,8 +99,8 @@ QUANT_SHAPES = [(256, 768), (4, 3072), (4, 2048), (20, 11008),
 @pytest.mark.parametrize("shape", QUANT_SHAPES,
                          ids=[f"{m}x{k}" for m, k in QUANT_SHAPES])
 def test_quant_act_every_plan_bitwise(cuda, shape, dtype, monkeypatch):
-    """Every row mapping that takes the shapes (warp, block, clusters of
-    2, 4, 8 and quant_plan's own) is bitwise the plain version."""
+    """Every row mapping that takes the shapes (one block a row, clusters
+    of 2, 4, 8 and quant_plan's own) is bitwise the plain version."""
     x = _rows(shape, shape[1], cuda, dtype)
     v, s = quant_ref.quant_act_ref(x)
     plans = candidate_plans(*shape, dtype, True)
@@ -165,13 +166,13 @@ def test_quant_act_unaligned_base_takes_the_scalar_access(cuda):
 
 
 # plans the wrappers refuse at x (4, 2048) bf16: a slice left empty, a
-# share too large for the registers, too many blocks, a warp mapping split,
+# share too large for the registers, too many blocks, a block row split,
 # vector accesses on an unaligned K
 QUANT_MISFITS = [QuantPlan("cluster", 8, 32, 8, 1)._replace(per=0),
                  QuantPlan("block", 8, 32, 1, 4),
                  QuantPlan("block", 8, 32, 1, 9),
                  QuantPlan("cluster", 8, 32, 9, 1),
-                 QuantPlan("warp", 8, 32, 2, 8),
+                 QuantPlan("block", 8, 32, 2, 8),
                  QuantPlan("block", 8, 48, 1, 8),
                  QuantPlan("cluster", 8, 32, 1, 8)]
 
@@ -187,10 +188,11 @@ def test_quant_wrappers_refuse_plans_that_do_not_fit(cuda, plan, monkeypatch):
 
 
 # (vec, rows, threads, split, per) the launcher refuses at (4, 2048) bf16
-QUANT_LAUNCHER_MISFITS = [(8, 1, 32, 1, 4), (8, 1, 32, 1, 9), (8, 2, 32, 9, 1),
-                          (8, 0, 32, 2, 8), (8, 1, 48, 1, 8), (8, 2, 32, 1, 8),
-                          (4, 1, 64, 1, 8), (8, 1, 1024, 1, 1),
-                          (8, 3, 64, 1, 4)]
+# (rows: 0 one block a row, 1 a cluster, 2 no mapping)
+QUANT_LAUNCHER_MISFITS = [(8, 0, 32, 1, 4), (8, 0, 32, 1, 9), (8, 1, 32, 9, 1),
+                          (8, 0, 32, 2, 8), (8, 0, 48, 1, 8), (8, 1, 32, 1, 8),
+                          (4, 0, 64, 1, 8), (8, 0, 1024, 1, 1),
+                          (8, 2, 64, 1, 4)]
 
 
 @pytest.mark.parametrize("plan", QUANT_LAUNCHER_MISFITS,
@@ -439,6 +441,9 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
                                "tiled_matmul": 1, "paged_decode": 1,
                                "paged_decode_verify": 1,
                                "flash_attention": 1}
+    assert {name: sum(by.values()) for name, by in plan_counts().items()} \
+        == {"quant_act": 1, "quant_act_glu": 1, "tiled_matmul": 1,
+            "fused_qkv": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -186,7 +186,7 @@ FFN_K1 = {"qwen2_5_3b": (1, 1), "gemma2_27b": (2, 0),
 @pytest.mark.parametrize("arch", FFN_ARCHS)
 def test_gated_ffn_runs_one_k1_for_gate_and_up(arch, monkeypatch):
     _, _, tcfg, ffn = _ffn_pair(arch, "w8a8")
-    calls = {"quant_act": 0, "quant_act_glu": 0, "apply_linear's": 0}
+    calls = {"quant_act": 0, "quant_act_glu": 0}
 
     def counted(name, fn):
         def call(*args, **kwargs):
@@ -194,17 +194,15 @@ def test_gated_ffn_runs_one_k1_for_gate_and_up(arch, monkeypatch):
             return fn(*args, **kwargs)
         return call
 
-    monkeypatch.setattr(ffn_mod, "quant_act",
-                        counted("quant_act", quant_act))
-    monkeypatch.setattr(ffn_mod, "quant_act_glu",
-                        counted("quant_act_glu", quant_act_glu))
+    # every K1 call of the FFN is made in core/quantized_linear
     monkeypatch.setattr(qlinear, "quant_act",
-                        counted("apply_linear's", quant_act))
+                        counted("quant_act", quant_act))
+    monkeypatch.setattr(qlinear, "quant_act_glu",
+                        counted("quant_act_glu", quant_act_glu))
     x = torch.randn((3, tcfg.d_model), generator=torch.Generator()
                     .manual_seed(0)).to(torch.bfloat16)
     apply_ffn(ffn, x, tcfg)
     assert (calls["quant_act"], calls["quant_act_glu"]) == FFN_K1[arch]
-    assert calls["apply_linear's"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +257,7 @@ def _covered(plan, k):
     """How often each of a row's units (vectors, or values) is touched by
     the (block of the slice, thread, register) walk the kernel makes."""
     units = k // plan.vec
-    group = 32 if plan.rows == "warp" else plan.threads
+    group = plan.threads
     slice_ = -(-units // plan.split)
     seen = np.zeros(units, np.int64)
     for rank in range(plan.split):
@@ -292,6 +290,11 @@ def test_quant_plan_at_the_served_shapes():
             (4, 2048): "block 1x256 v8 p1", (20, 2048): "block 1x256 v8 p1",
             (4, 11008): "cluster 8x192 v8 p1",
             (20, 11008): "cluster 8x192 v8 p1",
+            (32, 11008): "cluster 8x192 v8 p1",
+            (48, 11008): "cluster 6x256 v8 p1",
+            (64, 11008): "cluster 5x288 v8 p1",
+            (144, 11008): "cluster 2x352 v8 p2",
+            (192, 11008): "cluster 2x352 v8 p2",
             (300, 11008): "block 1x480 v8 p3",
             (8192, 2048): "block 1x64 v8 p4",
             (8192, 11008): "block 1x352 v8 p4",
@@ -310,7 +313,7 @@ MISFITS = [
     (QuantPlan("block", 8, 32, 1, 9), 4, 2048, True),      # registers
     (QuantPlan("cluster", 8, 32, 9, 1), 4, 2048, True),    # cluster size
     (QuantPlan("cluster", 8, 32, 1, 8), 4, 2048, True),    # a 1-block cluster
-    (QuantPlan("warp", 8, 64, 2, 4), 4, 2048, True),       # a split warp row
+    (QuantPlan("block", 8, 64, 2, 4), 4, 2048, True),      # a split block row
     (QuantPlan("block", 8, 48, 1, 8), 4, 2048, True),      # not whole warps
     (QuantPlan("cluster", 8, 32, 8, 1), 4, 48, True),      # empty slices
     (QuantPlan("lane", 8, 32, 1, 8), 4, 2048, True),       # no such mapping
@@ -333,3 +336,20 @@ def test_wrappers_plan_on_the_card_only(monkeypatch):
     q = quant_act(x)
     assert torch.equal(q.values, v) and torch.equal(q.scale, s)
     quant_act_glu(x, x)
+
+
+def test_reset_launch_counts_clears_the_launches_by_plan():
+    """``plan_counts`` reads the launches since the last reset, as
+    ``launch_counts`` does, so a served path's launches by plan sum to
+    its launch counts."""
+    from repro_torch.kernels import plan_counts, reset_launch_counts
+    from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+    reset_launch_counts()
+    quant_act.plans["block 1x96 v8 p1"] += 3
+    tiled_matmul.plans["wide"] += 1
+    assert plan_counts() == {"quant_act": {"block 1x96 v8 p1": 3},
+                             "quant_act_glu": {}, "tiled_matmul": {"wide": 1},
+                             "fused_qkv": {}}
+    reset_launch_counts()
+    assert plan_counts() == {"quant_act": {}, "quant_act_glu": {},
+                             "tiled_matmul": {}, "fused_qkv": {}}
