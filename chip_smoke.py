@@ -27,7 +27,9 @@
    qwen2.5-3b's served shapes (M = 4, 20 and 8192 over wo, gate / up,
    down and the fused 2048 | 256 | 256), at ragged M (5, 20, 129) on the
    tensor-core variants, bias on and off, bf16 and f32 out, each case
-   naming the variant ``gemm_plan`` took; K4 (paged attention)
+   naming the variant ``gemm_plan`` took; qwen3-moe-30b-a3b's fused QKV
+   2048 -> 4096 | 512 | 512 and wo 4096 -> 2048 at the same rows, on a
+   tensor-core variant or failing (and K1 over its 4096); K4 (paged attention)
    within atol 5e-6 / rtol 1e-5 in f32 and int8 pools, rel-err 1e-2 in
    bf16 (each row against its own largest value), bitwise across page
    tables and against pre-dequantized pools; K5 (block-sparse flash
@@ -87,6 +89,21 @@
    operands as it is made, and the profiles of ``prefill_step`` and of a
    tick must hold no silu or bf16 product kernel of PyTorch's (a control
    first shows the check finds both in ``F.silu(g) * u``).
+   The MoE path: qwen3-moe-30b-a3b (128 experts, top-8, QK-norm; w8a8
+   attention, int8 w8 experts, bf16) at full width and all 48 layers, its
+   weights drawn on the card from a seeded generator and quantized one
+   block at a time as drawn (resident GB and the peak allocation
+   printed): (a) the serve above on the paged cache (page 16, striped,
+   bf16 pools), launch counts exact (an MoE layer: 2 K1, K3, K2 and K4;
+   the experts run no kernel), each K4 call held against the plain
+   version, then the same serve with the plain versions of K1-K3 swapped
+   in: prefill logits, tokens and the whole KV cache bitwise equal; (b)
+   ``prefill_step`` of 8192 tokens, one K5 a layer, each K5 call held
+   against the plain version, profiled with the MoE block's stages
+   (route, dequant, einsums, dispatch and combine) as named ranges; (c)
+   the Scheduler trace plain and self_trunc (2-layer draft) on bf16
+   pools, as the qwen2.5-3b runs are held, one tick of each profiled with
+   the same ranges.
 5. Card against CPU in f32, same weights, with exact launch counts on the
    card: unquantized (``none``) at full depth within rel-err 1e-5 on the
    dense cache and on the paged cache (one pass and chunked prefill);
@@ -99,7 +116,12 @@
    layers, f32 ``none``: one ``spec_step`` from the same committed state
    (verify logits within rel-err 1e-5; pred, m, acc equal), and the
    phase 4 trace's plain and self_trunc runs (tokens equal, or first
-   different at a near tie of the CPU run).
+   different at a near tie of the CPU run).  qwen3-moe-30b-a3b at full
+   width, 2 layers, f32 ``none`` (float experts) on the dense and the
+   paged cache: within rel-err 1e-5, argmax >= 0.99, and the routing of
+   every token equal on both sides, or different only where the CPU's
+   k-th and (k+1)-th router probabilities are a near tie (``ROUTE_TIE``;
+   the count printed).
 6. Timings at the slices' shapes: K1 at every row mapping that takes
    each shape (distilbert's; qwen2.5-3b's decode, verify and prefill rows
    and the Scheduler trace's prefill rows over 2048 and 11008;
@@ -111,7 +133,8 @@
    library yardstick (``torch._int_mm`` plus the epilogue, A zero-padded
    to M=32 at decode, and ``torch._int_mm`` alone beside it, the
    library's GEMM core without its unfused epilogue; K2 / K3 also at qwen2.5-3b's decode (M=4), verify
-   (M=20) and 8192-token prefill shapes, 10 launches there and the plain
+   (M=20) and 8192-token prefill shapes, and at qwen3-moe-30b-a3b's
+   (the fused QKV and wo above, K1 over 4096), 10 launches there and the plain
    versions timed eagerly; ``scaled_dot_product_attention`` over the gathered
    K/V for K4, and on the same q/k/v for K5 where it computes the same
    function: not with a softcap), beside the kernel's bound (for K4, the
@@ -174,6 +197,12 @@ CHECK_PROMPT = 1024
 # its K2 shapes (K, N): wo, gate / up, down
 QWEN_M = (4, 20, LONG_PROMPT)
 QWEN_GEMMS = ((2048, 2048), (2048, 11008), (11008, 2048))
+# qwen3-moe-30b-a3b (the MoE path): its attention's fused QKV 2048 -> 4096 |
+# 512 | 512 and wo 4096 -> 2048, at the same rows; its experts run no
+# kernel (w8: dequantized, then PyTorch's einsums, as the reference)
+MOE_ARCH = "qwen3_moe_30b_a3b"
+MOE_QKV = (2048, 4096, 512)
+MOE_WO = (4096, 2048)
 # the wgmma widths of K2 / K3's tensor-core variants (wide: 256; swap: the
 # activation rows padded), each built for K2 and for K3
 GEMM_TMA_COLS = (256, 64, 32, 16, 8)
@@ -350,11 +379,13 @@ def max_err(got, want, what):
 
 
 # K1's shapes: distilbert's (prefill 256 rows, decode 4), qwen2.5-3b's
-# decode, verify and 8192-token prefill rows over d_model and d_ff,
+# decode, verify and 8192-token prefill rows over d_model and d_ff (and
+# qwen3-moe's wo input, 4096),
 # gemma2-27b's d_ff, and ragged ones (K not a multiple of 8: one value an
 # access; rows past a multiple of the SMs)
 K1_SHAPES = [(256, 768), (256, 3072), (4, 768), (4, 3072),
              *[(m, k) for m in QWEN_M for k in (2048, 11008)],
+             *[(m, MOE_WO[0]) for m in QWEN_M],
              (4, 36864), (LONG_PROMPT, 36864), (5, 770), (129, 11008)]
 # quant_act_glu's: qwen2.5-3b's d_ff at decode, verify and prefill, ragged
 GLU_SHAPES = [*[(m, 11008) for m in QWEN_M], (5, 770), (129, 11008),
@@ -459,6 +490,8 @@ def check_kernels(dev):
         gemms.append((m, 2048, 2048, f32, True))
     gemms += [(5, 2048, 2048, bf16, True), (20, 11008, 2048, f32, False),
               (129, 2048, 11008, bf16, True), (129, 11008, 2048, f32, False)]
+    # qwen3-moe's wo at decode, verify and the long prefill
+    gemms += [(m, *MOE_WO, bf16, False) for m in QWEN_M]
     for m, k, n, out_dtype, bias in gemms:
         a, (b,) = quantized_operands(m, k, [n], dev, seed=m + n)
         bi = randn((n,), 7, dev) if bias else None
@@ -467,6 +500,8 @@ def check_kernels(dev):
                                out_dtype)
         what = (f"tiled_matmul ({m},{k})x({k},{n}) {out_dtype} bias={bias} "
                 f"[{plan_text(m, [n], k, a, [b])}]")
+        if (k, n) == MOE_WO:
+            tensor_cores(what)
         errs["tiled_matmul"] = max(errs["tiled_matmul"],
                                    max_err(out, ref, what))
         del a, b, out, ref
@@ -476,6 +511,7 @@ def check_kernels(dev):
            (4, 768, 768, 768, f32)]
     qkv += [(m, 2048, 2048, 256, dt) for m in QWEN_M + (5, 129)
             for dt in (f32, bf16)]
+    qkv += [(m, *MOE_QKV, dt) for m in QWEN_M for dt in (f32, bf16)]
     for m, k, nq, nkv, out_dtype in qkv:
         a, ws = quantized_operands(m, k, [nq, nkv, nkv], dev, seed=m + nq)
         outs = fused_qkv(a, *ws, out_dtype=out_dtype)
@@ -484,10 +520,19 @@ def check_kernels(dev):
                              ws[2].scale, out_dtype=out_dtype)
         what = (f"fused_qkv ({m},{k})x({k},{nq}|{nkv}|{nkv}) {out_dtype} "
                 f"[{plan_text(m, [nq, nkv, nkv], k, a, ws)}]")
+        if (k, nq, nkv) == MOE_QKV:
+            tensor_cores(what)
         for o, r in zip(outs, refs):
             errs["fused_qkv"] = max(errs["fused_qkv"], max_err(o, r, what))
         print(f"  ok {what}")
     return errs
+
+
+def tensor_cores(what):
+    """Fail unless ``what`` (a case named by ``plan_text``) planned onto a
+    tensor-core variant, as every served shape must."""
+    if "[general]" in what:
+        fail(f"{what}: planned onto the general (__dp4a) variant")
 
 
 def plan_text(m, ns, k, a, ws):
@@ -964,12 +1009,16 @@ def layer_launches(cfg, *, paged=False, flash=False, verify=False) -> dict:
     up, down and gate (gated FFNs).  Unquantized, none.  One attention
     launch: paged_decode on the paged cache (paged_decode_verify in a
     speculative verify pass), flash_attention on a cache-less prompt of at
-    least ``blockwise_attn_threshold`` tokens."""
+    least ``blockwise_attn_threshold`` tokens.  An MoE layer's experts run
+    no kernel (w8: dequantized, then PyTorch's einsums, as the reference):
+    its FFN launches are those of its shared experts' dense FFN, if any."""
     w8a8 = int(cfg.quant_proj == "w8a8")
-    gated = cfg.ffn_type in ("swiglu", "geglu")
-    glu = int(cfg.ffn_type == "swiglu")
-    return {"quant_act": (4 - glu) * w8a8, "quant_act_glu": glu * w8a8,
-            "fused_qkv": w8a8, "tiled_matmul": (3 + gated) * w8a8,
+    ffn = int(not cfg.is_moe or cfg.n_shared_experts > 0)
+    gated = int(cfg.ffn_type in ("swiglu", "geglu")) * ffn
+    glu = int(cfg.ffn_type == "swiglu") * ffn
+    return {"quant_act": (2 + 2 * ffn - glu) * w8a8,
+            "quant_act_glu": glu * w8a8, "fused_qkv": w8a8,
+            "tiled_matmul": (1 + 2 * ffn + gated) * w8a8,
             "paged_decode": int(paged and not verify),
             "paged_decode_verify": int(verify),
             "flash_attention": int(flash)}
@@ -1009,35 +1058,59 @@ def check_serve(what, counts, want, next_logits, toks, cfg, t_prefill,
     return tps
 
 
-def main_path(model, cfg, dev):
-    """The dense serve, then the same serve with the plain versions."""
+def main_path(model, cfg, dev, config=None, what="dense serve",
+              label="distilbert dense serve"):
+    """The serve on the dense cache (or the paged one ``config``
+    describes), then the same serve with the plain versions of the exact
+    kernels (K1-K3) swapped in: prefill logits, tokens and the whole KV
+    cache must be bitwise equal.  On the paged cache each K4 call of the
+    first serve is held against the plain version on its own operands; K4
+    sums in another order than its plain version, so it runs in both
+    serves."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    serve(model, cfg, dev)                               # warm-up
+    calls = []
+    with recorded_k4_calls(calls):                       # warm-up
+        w_logits, w_toks, _, _, _ = serve(model, cfg, dev, config)
     reset_launch_counts()
-    next_logits, toks, cache, t_prefill, t_decode = serve(model, cfg, dev)
+    next_logits, toks, cache, t_prefill, t_decode = serve(model, cfg, dev,
+                                                          config)
     counts = launch_counts()
-    tps = check_serve("dense serve", counts, expected_launches(cfg, False),
+    tps = check_serve(what, counts,
+                      expected_launches(cfg, config is not None),
                       next_logits, toks, cfg, t_prefill, t_decode)
-    check_served_plans("distilbert dense serve", counts)
+    check_served_plans(label, counts)
     for b, row in enumerate(toks.tolist()):
         print(f"  request {b} (prompt {BATCH_LENS[b]}): {row}")
+    if config is not None:
+        if cache["seq_lens"].tolist() != [n + DECODE_STEPS
+                                          for n in BATCH_LENS]:
+            fail(f"{what}: seq_lens {cache['seq_lens'].tolist()}")
+        # the warm-up is the same serve, bit for bit, so the K4 operands
+        # it recorded are the counted serve's
+        if not (torch.equal(w_logits, next_logits)
+                and torch.equal(w_toks, toks)):
+            fail(f"{what}: two runs of the same serve differ")
+        check_served_k4(what, calls, counts["paged_decode"])
+    del calls, w_logits, w_toks
 
-    # the same serve with the plain versions in place of the kernels: the
-    # kernels are exact functions, so everything must match bit for bit
+    # the same serve with the plain versions in place of the exact
+    # kernels: everything must match bit for bit
     reset_launch_counts()
     with plain_versions():
-        p_logits, p_toks, p_cache, _, _ = serve(model, cfg, dev)
-    if any(launch_counts().values()):
-        fail(f"the plain-version serve launched kernels: {launch_counts()}")
+        p_logits, p_toks, p_cache, _, _ = serve(model, cfg, dev, config)
+    left = {k: n for k, n in launch_counts().items() if n}
+    if left != {k: n for k, n in counts.items() if n and k == "paged_decode"}:
+        fail(f"the plain-version serve launched kernels: {left}")
     reset_launch_counts()
-    for what, got, want_ in (("prefill logits", next_logits, p_logits),
+    keys = ("k", "v") if config is None else ("k_pages", "v_pages")
+    for name, got, want_ in (("prefill logits", next_logits, p_logits),
                              ("tokens", toks, p_toks),
-                             ("cache k", cache["k"], p_cache["k"]),
-                             ("cache v", cache["v"], p_cache["v"])):
+                             *((f"cache {k}", cache[k], p_cache[k])
+                               for k in keys)):
         if not torch.equal(got, want_):
-            fail(f"main path vs plain versions on the card: {what} differ "
+            fail(f"{what} vs plain versions on the card: {name} differ "
                  f"(max |err| {(got.double() - want_.double()).abs().max()})")
-    print(f"main path vs plain versions on the card: prefill logits, "
+    print(f"{what} vs plain versions (K1-K3) on the card: prefill logits, "
           f"tokens and the {cfg.n_layers}-layer KV cache bitwise equal")
     return counts, t_prefill, tps, toks, cache
 
@@ -1262,19 +1335,78 @@ def check_served_plans(what, counts):
     SERVED_PLANS[what] = {"counts": counts, "plans": plans}
 
 
-def device_breakdown(fn, top=10, label="one more run"):
+@contextlib.contextmanager
+def profiled_ranges(ranges):
+    """Within the block, each function ``ranges`` names ({range: (module,
+    function)}) runs inside a ``torch.profiler`` range of that name."""
+    saved = []
+    for name, (mod_name, fn_name) in ranges.items():
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, fn_name)
+
+        def ranged(*args, _fn=fn, _name=name, **kwargs):
+            with torch.profiler.record_function(_name):
+                return _fn(*args, **kwargs)
+
+        saved.append((mod, fn_name, fn))
+        setattr(mod, fn_name, ranged)
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+# the MoE block's stages, named in its profiles: the routing, the whole
+# dispatch-experts-combine, the experts (dequant, einsums and silu), the
+# dequant of the int8 experts to bf16
+MOE_MODULE = "repro_torch.models.moe"
+MOE_RANGES = {"moe route": (MOE_MODULE, "route"),
+              "moe dispatch+experts+combine": (MOE_MODULE,
+                                               "_dispatch_compute"),
+              "moe experts": (MOE_MODULE, "expert_ffn"),
+              "moe dequant": (MOE_MODULE, "expert_weight")}
+
+
+def range_times(ranges, averages):
+    """Device ms of the kernels launched inside each range (its CPU
+    event's device total), and the stages they imply; None where the
+    profiler attributed none."""
+    from torch.autograd import DeviceType
+    got = {e.key: e.device_time_total / 1e3 for e in averages
+           if e.key in ranges and e.device_type == DeviceType.CPU}
+    if not got or not any(got.values()):
+        return None
+    if "moe experts" in got:
+        got["moe einsums+silu (experts - dequant)"] = (
+            got.get("moe experts", 0.0) - got.get("moe dequant", 0.0))
+        got["moe dispatch+combine (the whole - experts)"] = (
+            got.get("moe dispatch+experts+combine", 0.0)
+            - got.get("moe experts", 0.0))
+    return got
+
+
+def device_breakdown(fn, top=10, label="one more run", ranges=None):
     """``fn()`` (one more run, or what ``label`` says) under
     ``torch.profiler`` (CUDA activity): device time by kernel name, the
-    sum, and the device's idle share of the run's host-clock time."""
+    sum, and the device's idle share of the run's host-clock time.  With
+    ``ranges`` (``profiled_ranges``) the CPU activity is traced too, and
+    the device time of the kernels each range launched is printed."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges
+                                      else [])
+    with profiled_ranges(ranges or {}), profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
     rows = [(e.key, e.count, e.device_time_total / 1e3)
-            for e in prof.key_averages() if e.device_time_total > 0]
+            for e in averages if e.device_time_total > 0
+            and (not ranges or (e.device_type != DeviceType.CPU
+                                and e.key not in ranges))]
     total = sum(ms for _, _, ms in rows)
     if not rows:
         print("  torch.profiler saw no device time (not measured)")
@@ -1287,7 +1419,7 @@ def device_breakdown(fn, top=10, label="one more run"):
     # K4 runs as two kernels (the split walk, then the combine), K2 / K3
     # with K split as two (the partial products, then their sum and the
     # epilogue): both count.  K2's kernels take 1 product, K3's 3.
-    for label, names in (
+    for kernel, names in (
             ("K4 (paged_decode_kernel + paged_decode_combine)",
              ("paged_decode",)),
             ("K5 (flash_attention_*)", ("flash_attention",)),
@@ -1297,18 +1429,25 @@ def device_breakdown(fn, top=10, label="one more run"):
             ("K1 (quant_rows<..., false, ...>)", ("quant_rows<",)),
             ("K1's SwiGLU mode (quant_rows<..., true, ...>)",
              ("quant_rows<",))):
-        glu = "SwiGLU" in label
+        glu = "SwiGLU" in kernel
         sel = [(count, ms) for key, count, ms in rows
                if any(name in key for name in names)
-               and (not label.startswith("K1") or glu == (", true," in key))]
+               and (not kernel.startswith("K1") or glu == (", true," in key))]
         if sel:
             ms = sum(m for _, m in sel)
-            print(f"    {label}: {ms:.3f} ms {ms / total:.3f}, "
+            print(f"    {kernel}: {ms:.3f} ms {ms / total:.3f}, "
                   f"{sum(c for c, _ in sel)} kernel launches")
     swiglu = swiglu_kernels(rows)
     print(f"    PyTorch's silu and bf16 product kernels: "
           f"{sum(c for _, c, _ in swiglu)} launches, "
           f"{sum(ms for _, _, ms in swiglu):.3f} ms")
+    if ranges:
+        stages = range_times(ranges, averages)
+        if stages is None:
+            print("    the ranges' device time: not measured (the profiler "
+                  "attributed no kernel to them)")
+        for name, ms in (stages or {}).items():
+            print(f"    range {name}: {ms:.3f} ms {ms / total:.3f}")
     return rows
 
 
@@ -1352,30 +1491,44 @@ def check_swiglu_detector(dev):
           + "; ".join(k[:80] for k, _, _ in found))
 
 
+def describe(cfg):
+    ffn = (f"{cfg.n_experts} experts top-{cfg.top_k} x d_ff "
+           f"{cfg.d_ff_expert}" if cfg.is_moe else f"d_ff={cfg.d_ff}")
+    return (f"{cfg.name} {cfg.quant_proj} {cfg.dtype}, {cfg.n_layers} "
+            f"layers, d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}"
+            f"x{cfg.head_dim}, {ffn}, vocab={cfg.vocab_size}")
+
+
 def long_prompt_path(arch, dev, n_layers=None):
     """``prefill_step`` of ``arch`` (w8a8, bf16, fused QKV) at full width
-    (and ``n_layers`` layers, if given) on one prompt of LONG_PROMPT
-    random tokens, weights drawn on the card from a seeded generator.  A
-    warm-up run records every K5 call; the counted run must equal it bit
-    for bit, have exact launch counts and finite logits; each recorded
-    call is held against the plain version.  Returns (launch counts,
-    prefill s on the host clock, the window of each K5 call)."""
+    (and ``n_layers`` layers, if given), weights drawn on the card from a
+    seeded generator (``long_prompt_run``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantize_params import quantize_model_params
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import init_model
-    from repro_torch.serving.engine import prefill_step
     cfg = get_config(arch).replace(quant_proj="w8a8")
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
-    what = (f"prefill_step {cfg.name} {cfg.quant_proj} {cfg.dtype}, "
-            f"{cfg.n_layers} layers, d={cfg.d_model}, heads {cfg.n_heads}/"
-            f"{cfg.n_kv_heads}x{cfg.head_dim}, d_ff={cfg.d_ff}, vocab="
-            f"{cfg.vocab_size}, 1 x {LONG_PROMPT} tokens")
     master = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
                         device=dev)
     model = quantize_model_params(master)
     del master
+    out = long_prompt_run(model, cfg, dev)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_prompt_run(model, cfg, dev, ranges=None):
+    """``prefill_step`` of ``model`` on one prompt of LONG_PROMPT random
+    tokens.  A warm-up run records every K5 call; the counted run must
+    equal it bit for bit, have exact launch counts and finite logits; each
+    recorded call is held against the plain version; one more run is
+    profiled (with ``ranges`` named).  Returns (launch counts, prefill s on
+    the host clock, the window of each K5 call)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import prefill_step
+    what = f"prefill_step {describe(cfg)}, 1 x {LONG_PROMPT} tokens"
     tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
                            generator=torch.Generator().manual_seed(2)).to(dev)
     calls = []
@@ -1406,13 +1559,15 @@ def long_prompt_path(arch, dev, n_layers=None):
     del w_logits, logits
     print(f"  prefill_step: {t_prefill * 1e3:.3f} ms for 1 x {LONG_PROMPT} "
           "tokens (host clock, after torch.cuda.synchronize())")
-    rows = device_breakdown(lambda: prefill_step(model, tokens, cfg))
-    if cfg.ffn_type == "swiglu":
+    rows = device_breakdown(lambda: prefill_step(model, tokens, cfg),
+                            label=f"one more prefill_step of {cfg.name}",
+                            ranges=ranges)
+    if cfg.ffn_type == "swiglu" and not cfg.is_moe:
         no_swiglu_kernels(what, rows)
     check_served_k5(what, calls, counts["flash_attention"])
     check_served_glu(what, glu, counts["quant_act_glu"])
     windows = [kw.get("window") for _, kw, _ in calls]
-    del calls, model
+    del calls
     torch.cuda.empty_cache()
     return counts, t_prefill, windows
 
@@ -1712,8 +1867,12 @@ def drive(sched, trace, profile_tick=None):
             tick = sched._ticks
             print(f"  tick {tick} ({sched.n_active} live rows) of the same "
                   "run again:")
-            rows = device_breakdown(sched.step, top=14, label="this tick")
-            if sched.cfg.ffn_type == "swiglu" \
+            rows = device_breakdown(
+                sched.step, top=14,
+                label=f"this tick ({sched.cfg.name}, "
+                      f"{'plain' if sched.spec is None else 'spec'})",
+                ranges=MOE_RANGES if sched.cfg.is_moe else None)
+            if sched.cfg.ffn_type == "swiglu" and not sched.cfg.is_moe \
                     and sched.cfg.quant_proj == "w8a8":
                 no_swiglu_kernels(f"tick {tick}", rows)
             break
@@ -2126,6 +2285,176 @@ def card_vs_cpu_scheduler(dev):
     del model, model_cpu
     torch.cuda.empty_cache()
     return shares
+
+
+# ---------------------------------------------------------------------------
+# 4-5. the MoE family: qwen3-moe-30b-a3b
+# ---------------------------------------------------------------------------
+# a near tie of the routing, card against CPU: the CPU's k-th and (k+1)-th
+# router probabilities within this share of the k-th.  The two sides' f32
+# router logits differ in their last bits (the model's logits by 1e-5 at
+# most, TOL_NONE), which can swap only such a pair: the limit is 10x that
+ROUTE_TIE = 1e-4
+
+
+def resident_gb(model):
+    return sum(b.numel() * b.element_size() for b in model.buffers()) / 1e9
+
+
+def moe_model(dev):
+    """qwen3-moe-30b-a3b (w8a8, bf16, fused QKV, int8 experts) at full width
+    and depth, its weights drawn on the card from a seeded generator and
+    quantized one block at a time as drawn: the f32 model (122 GB) never
+    exists."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize_params import quantize_model_params
+    from repro_torch.models.transformer import init_model
+    cfg = get_config(MOE_ARCH).replace(quant_proj="w8a8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(
+        torch.Generator(device=dev).manual_seed(7),
+        cfg.replace(quant_proj="none"), device=dev,
+        each_block=lambda block: quantize_model_params(
+            block, quantize_experts=True))
+    torch.cuda.synchronize()
+    print(f"moe: {describe(cfg)}; drawn and quantized block by block in "
+          f"{time.perf_counter() - t0:.1f} s: resident "
+          f"{resident_gb(model):.2f} GB, torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return model, cfg
+
+
+def moe_scheduler(model, cfg, dev):
+    """Phase 4's Scheduler trace through the MoE model, plain and
+    self_trunc (its first DRAFT_LAYERS layers as the draft), bf16 pools;
+    spec tokens held to the plain run's by the near-tie rule."""
+    trace = sched_trace(cfg.vocab_size)
+    trunc = (truncated(model, DRAFT_LAYERS),
+             cfg.replace(n_layers=DRAFT_LAYERS))
+    plain = sched_run(f"moe scheduler plain ({cfg.name}), bf16 pools", model,
+                      cfg, dev, "none", None, torch.bfloat16, trace,
+                      profile_tick=PROFILE_TICK_PLAIN)
+    spec = sched_run(f"moe scheduler self_trunc ({cfg.name}, {DRAFT_LAYERS}"
+                     "-layer draft), bf16 pools", model, cfg, dev, "none",
+                     trunc, torch.bfloat16, trace, ref=plain[:3],
+                     profile_tick=PROFILE_TICK_SPEC)
+    return {"plain-bf16": plain[3], "self_trunc-bf16": spec[3]}
+
+
+def moe_paths(dev):
+    """Phase 4's MoE path: (a) the paged serve with the plain versions
+    swapped in, (b) ``prefill_step`` of LONG_PROMPT tokens, (c) the
+    Scheduler, plain and self_trunc; all on one model at full depth."""
+    from repro_torch.serving.cache import CacheConfig
+    model, cfg = moe_model(dev)
+    config = CacheConfig(layout="paged", page_size=PAGE, alloc="striped")
+    counts, t_prefill, tps, _, _ = main_path(
+        model, cfg, dev, config,
+        what=f"moe paged serve ({describe(cfg)}; page {PAGE}, striped, "
+             "bf16 pools)", label=f"{cfg.name} paged serve")
+    long = long_prompt_run(model, cfg, dev, ranges=MOE_RANGES)
+    sched = moe_scheduler(model, cfg, dev)
+    print(f"moe: torch.cuda.max_memory_allocated over the path "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "serve": (counts, t_prefill, tps), "long": long,
+            "sched": sched}
+
+
+@contextlib.contextmanager
+def recorded_routes(routes):
+    """Within the block, every routing of an MoE block appends to
+    ``routes[device type]`` (on the CPU) its experts, sorted, and the gap
+    between its k-th and (k+1)-th probabilities over the k-th."""
+    mod = importlib.import_module(MOE_MODULE)
+    wrapped = mod.route
+
+    def record(router, x, cfg):
+        out = wrapped(router, x, cfg)
+        top = torch.softmax(x.float() @ router.w.float(), dim=-1).topk(
+            cfg.top_k + 1, dim=-1).values
+        gap = (top[..., -2] - top[..., -1]) / top[..., -2]
+        routes[x.device.type].append((out[1].sort(dim=-1).values.cpu(),
+                                      gap.cpu()))
+        return out
+
+    mod.route = record
+    try:
+        yield
+    finally:
+        mod.route = wrapped
+
+
+def routing_agrees(what, routes):
+    """The card's routing equals the CPU's, call by call, or differs only
+    at rows where the CPU had a near tie (ROUTE_TIE)."""
+    card, cpu = routes["cuda"], routes["cpu"]
+    if len(card) != len(cpu) or not cpu:
+        fail(f"{what}: {len(card)} routings on the card, {len(cpu)} on the "
+             "CPU")
+    rows = differ = near = 0
+    for (idx_card, _), (idx_cpu, gap) in zip(card, cpu):
+        if idx_card.shape != idx_cpu.shape:
+            fail(f"{what}: routing shapes {tuple(idx_card.shape)} and "
+                 f"{tuple(idx_cpu.shape)}")
+        bad = (idx_card != idx_cpu).any(dim=-1)
+        rows += bad.numel()
+        differ += int(bad.sum())
+        near += int((gap < ROUTE_TIE).sum())
+        if bool((bad & (gap >= ROUTE_TIE)).any()):
+            fail(f"{what}: the card routes a token to other experts than "
+                 f"the CPU where the CPU's k-th and (k+1)-th probabilities "
+                 f"are {float(gap[bad].max()):.3e} of the k-th apart (a near "
+                 f"tie is below {ROUTE_TIE})")
+    print(f"  routing, card against CPU, over {len(cpu)} calls and {rows} "
+          f"token rows: {differ} differ, each at a near tie; {near} near "
+          f"ties on the CPU (k-th and (k+1)-th probabilities within "
+          f"{ROUTE_TIE} of the k-th)")
+    return differ, near
+
+
+def card_vs_cpu_moe(dev):
+    """Phase 5 for the MoE family: qwen3-moe-30b-a3b at full width,
+    CHECK_LAYERS layers, f32 ``none`` (float experts), card against CPU on
+    the dense and the paged cache: limits as ``card_vs_cpu``'s ``none``
+    (rel-err 1e-5, argmax agreement 0.99; launch counts exact), routing
+    equal or different only at near ties (``routing_agrees``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.cache import CacheConfig
+    cfg = get_config(MOE_ARCH).replace(
+        n_layers=CHECK_LAYERS, quant_proj="none", dtype="float32")
+    model_cpu = init_model(torch.Generator(device=dev).manual_seed(9), cfg,
+                           device="cpu")
+    n = len(BATCH_LENS) * (DECODE_STEPS + 1)
+    out = {}
+    for label, config in (("dense", None),
+                          ("paged", CacheConfig(layout="paged",
+                                                page_size=PAGE,
+                                                alloc="striped"))):
+        what = (f"card vs CPU: {describe(cfg)}, {label}, launches exact")
+        routes = {"cuda": [], "cpu": []}
+        t0 = time.perf_counter()
+        with recorded_routes(routes):
+            e_pre, e_dec, agree = compare(model_cpu, cfg, dev, what,
+                                          config=config)
+        print(f"{what}: rel-err prefill {e_pre:.3e}, worst decode step "
+              f"{e_dec:.3e} (limit {TOL_NONE}); argmax agreement "
+              f"{agree:.4f} over {n} positions (limit {TOL_ARGMAX}); "
+              f"{time.perf_counter() - t0:.1f} s")
+        differ, near = routing_agrees(what, routes)
+        if not (e_pre <= TOL_NONE and e_dec <= TOL_NONE):
+            fail(f"{what}: rel-err above {TOL_NONE}")
+        if agree < TOL_ARGMAX:
+            fail(f"{what}: argmax agreement {agree} < {TOL_ARGMAX}")
+        out[label] = {"prefill_rel_err": e_pre, "decode_rel_err": e_dec,
+                      "argmax": agree, "routing_differ": differ,
+                      "near_ties": near}
+    del model_cpu
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2563,6 +2892,26 @@ def timings(cfg, dev):
             shapes["qwen tiled_matmul"].append(
                 (phase, f"{name} ({m},{k})x({k},{nn}) bf16", times,
                  time_gemm(m, k, nn, bf16, dev, launches=n)))
+    # qwen3-moe-30b-a3b's attention launches of one layer at the same rows:
+    # K1 at d_model (the fused QKV's input; the row above) and at 4096 (wo's
+    # input), the fused QKV 2048 -> 4096 | 512 | 512, wo 4096 -> 2048
+    for name in ("quant_act", "fused_qkv", "tiled_matmul"):
+        shapes[f"moe {name}"] = []
+    for phase, m in (("decode", 4), ("verify", 20), ("prefill", LONG_PROMPT)):
+        n = 10 if m == LONG_PROMPT else 200
+        d_row = next(r for p, desc, _, r in shapes["qwen quant_act"]
+                     if p == phase and desc == f"({m},2048) bf16")
+        shapes["moe quant_act"] += [
+            (phase, f"({m},2048) bf16", 1, d_row),
+            (phase, f"({m},{MOE_WO[0]}) bf16", 1,
+             time_quant_act(m, MOE_WO[0], dev, n))]
+        k, nq, nkv = MOE_QKV
+        shapes["moe fused_qkv"].append(
+            (phase, f"({m},{k})x({k},{nq}|{nkv}|{nkv}) f32", 1,
+             time_fused(m, k, nq, nkv, dev, launches=n)))
+        shapes["moe tiled_matmul"].append(
+            (phase, f"wo ({m},{MOE_WO[0]})x({MOE_WO[0]},{MOE_WO[1]}) bf16",
+             1, time_gemm(m, *MOE_WO, bf16, dev, launches=n)))
     # the Scheduler's prefill forwards: K1 at d_model (x 3), quant_act_glu
     # at d_ff
     for m in SCHED_CHUNK_ROWS:
@@ -2701,6 +3050,20 @@ def served_plans(name):
             for what, r in SERVED_PLANS.items() if r["counts"][name]}
 
 
+def moe_launches(name):
+    """``name``'s launches in each counted run of the MoE path."""
+    return {what: r["counts"][name] for what, r in SERVED_PLANS.items()
+            if "qwen3-moe" in what}
+
+
+T_START = time.perf_counter()
+
+
+def stamp(what):
+    """The script's time so far, at the start of ``what``."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {what}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2712,7 +3075,9 @@ def main():
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = device_info()
+    stamp("build")
     build_kernels()
+    stamp("phase 3: kernels against their plain versions")
 
     print("kernels vs plain versions (K1-K3 bitwise, K4 and K5 within "
           "limits):")
@@ -2733,17 +3098,27 @@ def main():
     model_cpu = quantize_model_params(master)
     model = copy.deepcopy(model_cpu).to(dev)
     with torch.inference_mode():
+        stamp("phase 4: distilbert serves")
         counts, t_prefill, tps, toks, cache = main_path(model, cfg, dev)
         paged_counts, paged_prefill, paged_tps = paged_paths(
             model, cfg, dev, toks, cache)
         del cache
         check_swiglu_detector(dev)
+        stamp("phase 4: prefill_step")
         qwen, gemma = long_prompt_paths(dev)
+        stamp("phase 4: the Scheduler")
         sched_runs = scheduler_paths(dev)
+        stamp("phase 4: the MoE path")
+        moe = moe_paths(dev)
+        stamp("phase 5: card vs CPU")
         card_vs_cpu(model_cpu, master, cfg, dev)
         card_vs_cpu_long(dev)
+        stamp("phase 5: the Scheduler, card vs CPU")
         sched_check = card_vs_cpu_scheduler(dev)
+        stamp("phase 5: the MoE family, card vs CPU")
+        moe_check = card_vs_cpu_moe(dev)
     counts["paged_decode"] = paged_counts["paged_decode"]
+    stamp("phase 6: timings")
     shapes = timings(cfg, dev)
     alu = glu_alu_check(dev)
 
@@ -2763,9 +3138,12 @@ def main():
                                            "library_ms", "library_note")
                        if k in dec},
         })
-        if f"qwen {name}" in shapes:
-            rows = shapes[f"qwen {name}"]
-            kernels[-1]["qwen2_5_3b"] = {
+        for prefix, key in (("qwen", "qwen2_5_3b"),
+                            ("moe", "qwen3_moe_30b_a3b")):
+            if f"{prefix} {name}" not in shapes:
+                continue
+            rows = shapes[f"{prefix} {name}"]
+            kernels[-1][key] = {
                 "work": "one layer's launches (sum over them)",
                 **{phase: per_layer(rows, phase)
                    for phase in ("decode", "verify", "prefill")},
@@ -2848,10 +3226,16 @@ def main():
             "qwen2.5-3b prefill_step"]["by_plan"],
         "launches_by_path": served_plans("quant_act_glu"),
     })
-    for k, r in sched_runs.items():
+    for k in kernels:
+        k["launches_qwen3_moe"] = moe_launches(k["name"])
+    sched_all = {**{(k, "qwen2.5-3b w8a8 bf16, 36 layers"): r
+                    for k, r in sched_runs.items()},
+                 **{(k, f"{MOE_ARCH} w8a8 bf16, 48 layers"): r
+                    for k, r in moe["sched"].items()}}
+    for (k, model_text), r in sched_all.items():
         accept = ("-" if r["acceptance"] is None
                   else f"{r['acceptance']:.3f}")
-        print(f"scheduler {k} (qwen2.5-3b w8a8 bf16, 36 layers): "
+        print(f"scheduler {k} ({model_text}): "
               f"{r['ticks']} ticks, {r['tok_s']:.1f} tok/s, "
               f"{r['ms_per_tick']:.3f} ms/tick, acceptance {accept}, "
               f"pages_peak {r['pages_peak']} of {SCHED_POOL}, page waits "
@@ -2859,6 +3243,13 @@ def main():
               f"{r['k4_plain']} plain")
     print(f"card vs CPU scheduler (2 layers f32): identical share "
           f"{sched_check}")
+    print(f"card vs CPU {MOE_ARCH} (2 layers f32 'none'): {moe_check}")
+    m_counts, m_prefill, m_tps = moe["serve"]
+    print(f"moe serve ({MOE_ARCH}, 48 layers, w8a8 bf16, paged bf16 "
+          f"pools): prefill_ms={m_prefill * 1e3:.3f} decode_tok_s="
+          f"{m_tps:.1f}; prefill_step (1 x {LONG_PROMPT}) "
+          f"{moe['long'][1] * 1e3:.3f} ms, {moe['long'][0]['flash_attention']}"
+          " K5 launches")
     print(f"serve: dense prefill_ms={t_prefill * 1e3:.3f} "
           f"decode_tok_s={tps:.1f}; paged prefill_ms="
           f"{paged_prefill * 1e3:.3f} decode_tok_s={paged_tps:.1f}")

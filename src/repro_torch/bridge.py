@@ -5,7 +5,10 @@ nested dict of numpy arrays — each ``QTensor`` given as ``{"values",
 "scale", "bits"}`` — and builds the port's ``Model`` from it, splitting the
 layer-stacked ``(L, …)`` leaves into per-layer modules.  Values are copied
 exactly, so the port and the JAX package run the same weights; quantized
-values are stored K-major, the layout the int8 GEMM kernels read.
+projection values are stored K-major, the layout the int8 GEMM kernels
+read.  An MoE layer's router, expert stacks (float ``gate``/``up``/``down``
+or quantized ``gate_q``/``up_q``/``down_q``, kept in their (E, K, N)
+layout: no kernel reads them) and shared FFN are carried the same way.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import FFN
 from repro_torch.models.layers import Embedding, LMHead, Norm
+from repro_torch.models.moe import Experts, MoE
 from repro_torch.models.transformer import (DecoderBlock, Model,
                                             check_supported)
 
@@ -47,17 +51,40 @@ def _linear(node, i) -> Linear | None:
     return Linear(w=_t(node["w"][i]), b=b)
 
 
+def _ffn(f, i) -> FFN | None:
+    if f is None:
+        return None
+    return FFN(_linear(f["up"], i), _linear(f["down"], i),
+               _linear(f.get("gate"), i))
+
+
+def _expert_stack(experts: dict, name: str, i: int):
+    if name in experts:
+        return _t(experts[name][i])
+    q = experts[name + "_q"]
+    return QTensor(_t(q["values"][i]), _t(q["scale"][i]),
+                   int(q.get("bits", 8)))
+
+
+def _moe(m, i) -> MoE | None:
+    if m is None:
+        return None
+    experts = Experts(*(_expert_stack(m["experts"], name, i)
+                        for name in Experts.NAMES))
+    return MoE(_linear(m["router"], i), experts, _ffn(m.get("shared"), i))
+
+
 def _block(layers: dict, i: int) -> DecoderBlock:
-    a, f = layers["attn"], layers["ffn"]
+    a = layers["attn"]
     attn = Attention(_linear(a["wq"], i), _linear(a["wk"], i),
                      _linear(a["wv"], i), _linear(a["wo"], i),
                      _norm(a.get("q_norm"), i), _norm(a.get("k_norm"), i))
-    ffn = FFN(_linear(f["up"], i), _linear(f["down"], i),
-              _linear(f.get("gate"), i))
     return DecoderBlock(_norm(layers["norm_attn"], i), attn,
-                        _norm(layers["norm_ffn"], i), ffn,
+                        _norm(layers["norm_ffn"], i),
+                        _ffn(layers.get("ffn"), i),
                         _norm(layers.get("norm_attn_post"), i),
-                        _norm(layers.get("norm_ffn_post"), i))
+                        _norm(layers.get("norm_ffn_post"), i),
+                        moe=_moe(layers.get("moe"), i))
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:

@@ -2,7 +2,7 @@
 
 Each module defines ``CONFIG`` (the full assigned configuration) and
 ``smoke_config()`` (a reduced same-family config for CPU smoke tests).
-Only the dense configs the port runs are here; the MoE, SSM, hybrid,
+The dense and MoE configs the port runs are here; the SSM, hybrid,
 vision and encoder-decoder configs come with their families (ROADMAP
 queue 1, item 12).
 """
@@ -15,6 +15,8 @@ ARCHITECTURES = [
     "qwen2_5_3b",
     "chatglm3_6b",
     "distilbert_paper",          # the paper's own integration target
+    "qwen3_moe_30b_a3b",
+    "granite_moe_3b_a800m",
 ]
 
 _ALIASES = {name.replace("_", "-"): name for name in ARCHITECTURES}

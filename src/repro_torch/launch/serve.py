@@ -4,8 +4,8 @@
         --batch 4 --prompt-len 64 --tokens 32 [--quant w8a8|w8|none] \
         [--device cuda|cpu] [--smoke]
 
-Random weights from a seeded generator → offline weight quantization →
-one-pass prefill → batched greedy decode, reporting per-phase latency and
+Random weights from a seeded generator → offline weight quantization
+(block by block as drawn; MoE experts too) → one-pass prefill → batched greedy decode, reporting per-phase latency and
 tokens/s.  ``--device cuda`` (the default) needs a card and runs the CUDA
 kernels; ``--device cpu`` runs their plain PyTorch versions.
 """
@@ -37,11 +37,15 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch)).replace(quant_proj=args.quant)
+    # quantized one block at a time as drawn (the MoE family's experts too,
+    # as the JAX launcher does), so the f32 master is never whole
+    def quantize(block):
+        return quantize_model_params(block, quantize_experts=cfg.is_moe)
+
     model = init_model(torch.Generator().manual_seed(0),
-                       cfg.replace(quant_proj="none"), device="cpu")
-    if args.quant != "none":
-        model = quantize_model_params(model)
-    model = model.to(dev)
+                       cfg.replace(quant_proj="none"), device="cpu",
+                       each_block=None if args.quant == "none" else quantize
+                       ).to(dev)
     cache = init_cache(cfg, args.batch, args.prompt_len + args.tokens,
                        dtype=cfg.activation_dtype, device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),

@@ -1,8 +1,11 @@
-"""Model assembly for the dense family: ``init_model`` / ``apply_model``.
+"""Model assembly for the dense and MoE families: ``init_model`` /
+``apply_model``.
 
 Pre-norm decoder blocks (optionally gemma2 sandwich post-norms) run as a
 Python loop over per-layer modules, the eager counterpart of the JAX
-package's layer scan.  MoE, SSM, hybrid, vision-frontend and
+package's layer scan.  A block's FFN is dense, or under ``cfg.is_moe`` a
+mixture of experts (``models/moe.py``), whose load-balance losses
+``apply_model`` sums over the layers.  SSM, hybrid, vision-frontend and
 encoder-decoder families are later ROADMAP items (queue 1, item 12) and
 raise ``NotImplementedError``.
 
@@ -30,17 +33,24 @@ from repro_torch.models.layers import (Embedding, LMHead, Norm, apply_norm,
                                        embed_tokens, init_embedding,
                                        init_norm, sinusoidal_positions,
                                        unembed)
+from repro_torch.models.moe import MoE, apply_moe, init_moe
 
 
 class DecoderBlock(nn.Module):
+    """Attention and a dense ``ffn``, or a mixture of experts ``moe``."""
+
     def __init__(self, norm_attn: Norm, attn: Attention, norm_ffn: Norm,
-                 ffn: FFN, norm_attn_post: Norm | None = None,
-                 norm_ffn_post: Norm | None = None):
+                 ffn: FFN | None, norm_attn_post: Norm | None = None,
+                 norm_ffn_post: Norm | None = None, *,
+                 moe: MoE | None = None):
         super().__init__()
+        if (ffn is None) == (moe is None):
+            raise ValueError("DecoderBlock takes exactly one of ffn and moe")
         self.norm_attn = norm_attn
         self.attn = attn
         self.norm_ffn = norm_ffn
         self.ffn = ffn
+        self.moe = moe
         self.norm_attn_post = norm_attn_post
         self.norm_ffn_post = norm_ffn_post
 
@@ -56,30 +66,34 @@ class Model(nn.Module):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense family only (for now)."""
-    if (cfg.family != "dense" or cfg.is_moe or cfg.frontend is not None
+    """The port runs the dense and MoE families (for now)."""
+    if (cfg.family not in ("dense", "moe") or cfg.frontend is not None
             or cfg.is_encoder_decoder):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1, item 12); the port runs the dense family")
+            "queue 1, item 12); the port runs the dense and MoE families")
 
 
 def _init_decoder_block(generator: torch.Generator,
                         cfg: ModelConfig) -> DecoderBlock:
     dev = generator.device
     post = cfg.post_block_norm
+    attn = init_attention(generator, cfg)
+    ffn = None if cfg.is_moe else init_ffn(generator, cfg)
     return DecoderBlock(
-        init_norm(cfg, device=dev), init_attention(generator, cfg),
-        init_norm(cfg, device=dev), init_ffn(generator, cfg),
+        init_norm(cfg, device=dev), attn, init_norm(cfg, device=dev), ffn,
         init_norm(cfg, device=dev) if post else None,
-        init_norm(cfg, device=dev) if post else None)
+        init_norm(cfg, device=dev) if post else None,
+        moe=init_moe(generator, cfg) if cfg.is_moe else None)
 
 
 def init_model(generator: torch.Generator, cfg: ModelConfig, *,
-               device="cuda") -> Model:
+               device="cuda", each_block=None) -> Model:
     """Random model from ``generator``, drawn on the generator's device and
     placed on ``device``.  A CPU generator gives the same weights whatever
-    the target device."""
+    the target device.  ``each_block``, if given, maps each decoder block
+    as soon as it is drawn (``quantize_model_params``), so a model too
+    large in f32 is never whole in f32."""
     cfg.validate()
     check_supported(cfg)
     dev = resolve_device(device)
@@ -90,7 +104,9 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
                                      generator=generator,
                                      device=generator.device)
                          * (cfg.d_model ** -0.5))
-    layers = [_init_decoder_block(generator, cfg) for _ in range(cfg.n_layers)]
+    each_block = each_block or (lambda block: block)
+    layers = [each_block(_init_decoder_block(generator, cfg))
+              for _ in range(cfg.n_layers)]
     model = Model(embed, init_norm(cfg, device=generator.device), layers,
                   lm_head)
     return model.to(dev)
@@ -109,11 +125,14 @@ def _decoder_block(p: DecoderBlock, x, cfg: ModelConfig, *, positions,
     x = x + cfg.residual_multiplier * a_out.to(x.dtype)
 
     h = apply_norm(p.norm_ffn, x, cfg)
-    f_out = apply_ffn(p.ffn, h, cfg)
+    if p.moe is not None:
+        f_out, aux = apply_moe(p.moe, h, cfg)
+    else:
+        f_out, aux = apply_ffn(p.ffn, h, cfg), {}
     if p.norm_ffn_post is not None:
         f_out = apply_norm(p.norm_ffn_post, f_out, cfg)
     x = x + cfg.residual_multiplier * f_out.to(x.dtype)
-    return x, new_kv
+    return x, new_kv, aux
 
 
 def _local_flags(cfg: ModelConfig) -> list[bool]:
@@ -127,7 +146,8 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
                 cache: dict | None = None,
                 cache_pos: torch.Tensor | int | None = None,
                 n_valid: torch.Tensor | None = None):
-    """Returns (logits f32 (B, S, V), cache, aux).
+    """Returns (logits f32 (B, S, V), cache, aux); ``aux`` holds the
+    load-balance loss summed over the layers (0 for a dense model).
 
     tokens: (B, S) int decoder tokens.  ``cache``/``cache_pos``: the dense
     or paged decode cache (updated in place, and returned) and the write
@@ -169,17 +189,19 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     kv_keys = [key for key in ("k", "v", "k_pages", "v_pages", "k_scales",
                                "v_scales") if cache is not None and key in cache]
     page_table = cache["page_table"] if paged else None
+    lb = torch.zeros((), device=dev)
     for i, (layer, flag) in enumerate(zip(model.layers, _local_flags(cfg))):
         cache_kv = tuple(cache[key][i] for key in kv_keys) or None
-        x, _ = _decoder_block(layer, x, cfg, positions=positions,
-                              is_local=flag, cache_kv=cache_kv,
-                              cache_pos=cache_pos, page_table=page_table,
-                              n_new=n_valid)
+        x, _, aux = _decoder_block(layer, x, cfg, positions=positions,
+                                   is_local=flag, cache_kv=cache_kv,
+                                   cache_pos=cache_pos,
+                                   page_table=page_table, n_new=n_valid)
+        if "load_balance_loss" in aux:
+            lb = lb + aux["load_balance_loss"]
     if paged:
         cache["seq_lens"] = (cache_pos + (s if n_valid is None
                                           else n_valid)).to(torch.int32)
 
     x = apply_norm(model.final_norm, x, cfg)
     logits = unembed(model.embed, x, cfg, model.lm_head)
-    aux = {"load_balance_loss": torch.zeros((), device=dev)}
-    return logits, cache, aux
+    return logits, cache, {"load_balance_loss": lb}

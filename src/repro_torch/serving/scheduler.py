@@ -106,7 +106,7 @@ class Scheduler:
     allocated KV pool.
 
     Args:
-      model / cfg: the model (the dense family).
+      model / cfg: the model (the dense or MoE family).
       slots: batch width B of the decode step.
       max_len: per-sequence context bound (the page table's width).
       config: a ``CacheConfig`` with ``layout="paged"`` and

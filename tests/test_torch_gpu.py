@@ -812,3 +812,44 @@ def test_scheduler_spec_serve_on_the_card(cuda):
     for toks in out.values():
         assert toks.min() >= 0 and toks.max() < cfg.vocab_size
     assert sched.pool_occupancy().used == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m"])
+def test_apply_moe_on_the_card(cuda, arch):
+    """The MoE block on the card: in bf16 with w8 experts two calls are
+    bitwise equal (no atomics in the combine); in f32 with float experts
+    (TF32 off) it routes as the CPU does and agrees within rel-err 1e-5."""
+    import copy
+
+    from repro_torch.core.quantize_params import quantize_model_params
+    from repro_torch.models import moe
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    block = model.layers[0].moe
+    x = torch.randn((3, 40, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = copy.deepcopy(block).to(cuda)
+        y, aux = moe.apply_moe(card, x.to(cuda), cfg)
+        _, idx, _ = moe.route(card.router, x.to(cuda), cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    y_cpu, aux_cpu = moe.apply_moe(block, x, cfg)
+    _, idx_cpu, _ = moe.route(block.router, x, cfg)
+    assert torch.equal(idx.cpu(), idx_cpu)
+    err = (y.cpu().double() - y_cpu.double()).abs().max() \
+        / y_cpu.double().abs().max()
+    assert err <= 1e-5
+    assert abs(float(aux["load_balance_loss"])
+               - float(aux_cpu["load_balance_loss"])) <= 1e-6
+
+    qcard = quantize_model_params(card, quantize_experts=True)
+    bcfg = cfg.replace(dtype="bfloat16")
+    xb = x.to(cuda, torch.bfloat16)
+    y1, _ = moe.apply_moe(qcard, xb, bcfg)
+    y2, _ = moe.apply_moe(qcard, xb, bcfg)
+    torch.cuda.synchronize()
+    assert y1.dtype == torch.bfloat16 and torch.equal(y1, y2)
+    assert bool(torch.isfinite(y1).all())

@@ -90,8 +90,7 @@ def test_apply_model_matches_jax(arch, mode):
 
 
 @pytest.mark.parametrize("arch", [
-    "qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "mamba2_370m", "zamba2_7b",
-    "seamless_m4t_medium", "phi3_vision_4_2b"])
+    "mamba2_370m", "zamba2_7b", "seamless_m4t_medium", "phi3_vision_4_2b"])
 def test_other_families_raise(arch):
     """The JAX package's configs of families the port does not run yet,
     carried over field for field, are refused by the model and the cache."""
