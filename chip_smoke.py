@@ -66,7 +66,7 @@
    2 layers (one local with the 4096 window, one global; softcap 50), the
    same way.
    The continuous-batching path: qwen2.5-3b (w8a8, bf16) at full width
-   and depth through the ``Scheduler`` (4 slots of 512 tokens, a dynamic
+   and SCHED_LAYERS (12) of its 36 layers through the ``Scheduler`` (4 slots of 512 tokens, a dynamic
    pool of 40 16-token pages, prefix sharing, bucket 16, an EOS id) on a
    trace of 8 requests (prompts of 40-300 tokens, three sharing a
    100-token prefix; budgets 16-48; arrivals over 12 ticks), five ways:
@@ -104,6 +104,22 @@
    the Scheduler trace plain and self_trunc (2-layer draft) on bf16
    pools, as the qwen2.5-3b runs are held, one tick of each profiled with
    the same ranges.
+   The SSM and hybrid path: zamba2-7b (81 Mamba2 layers, d=3584,
+   d_inner 7168, 112 SSD heads of 64, state 64; one shared attention +
+   SwiGLU block of 32/32 heads of 112 and d_ff 14336 at 13 sites; w8a8,
+   bf16) at full width and depth, drawn on the card and quantized block by
+   block: (a) the dense serve above on its dense slot state, launch counts
+   exact (a Mamba layer: 2 K1 and 6 K2; a site: a decoder layer's), then
+   with the plain versions of K1-K3 and quant_act_glu swapped in: prefill
+   logits, tokens and the whole state (``ssm_h``, conv tails,
+   ``shared_k/v``) bitwise equal; (b) ``prefill_step`` of 8192 tokens, one
+   K5 a site (D = 112, MHA), each K5 call held against the plain version,
+   profiled with the Mamba2 stages and the shared block as named ranges
+   (``SSM_RANGES``); (c) the Scheduler trace on the dense slots (no pool,
+   no prefix sharing), launch counts exact, one tick profiled, and again
+   with ``spec=``, which must warn that it degrades to 1-token decode and
+   give the plain run's tokens.  mamba2-370m (48 layers, d=1024) at full
+   size through (a) and (c).
 5. Card against CPU in f32, same weights, with exact launch counts on the
    card: unquantized (``none``) at full depth within rel-err 1e-5 on the
    dense cache and on the paged cache (one pass and chunked prefill);
@@ -121,7 +137,11 @@
    paged cache: within rel-err 1e-5, argmax >= 0.99, and the routing of
    every token equal on both sides, or different only where the CPU's
    k-th and (k+1)-th router probabilities are a near tie (``ROUTE_TIE``;
-   the count printed).
+   the count printed).  zamba2-7b at full width, 6 layers (layer 5 is a
+   shared site), f32 ``none``, dense slots: the one-pass prefill and
+   ``prefill(chunk=32)`` (each row's valid tokens as ``n_valid``), each
+   with 32 decode steps, within rel-err 1e-5, argmax >= 0.99, launch
+   counts exact, and the state each prefill commits within rel-err 1e-5.
 6. Timings at the slices' shapes: K1 at every row mapping that takes
    each shape (distilbert's; qwen2.5-3b's decode, verify and prefill rows
    and the Scheduler trace's prefill rows over 2048 and 11008;
@@ -134,8 +154,11 @@
    to M=32 at decode, and ``torch._int_mm`` alone beside it, the
    library's GEMM core without its unfused epilogue; K2 / K3 also at qwen2.5-3b's decode (M=4), verify
    (M=20) and 8192-token prefill shapes, and at qwen3-moe-30b-a3b's
-   (the fused QKV and wo above, K1 over 4096), 10 launches there and the plain
-   versions timed eagerly; ``scaled_dot_product_attention`` over the gathered
+   (the fused QKV and wo above, K1 over 4096) and zamba2-7b's (a Mamba
+   layer's K1 over 3584 and 7168, K2 to 7168, 64, 112 and 7168 -> 3584;
+   a site's K3 3584 -> 3584 x 3, K2 wo, gate / up, down, quant_act_glu
+   over 14336; at 4 and 8192 rows; K5 at (1, 8192, 32/32, 112)), 10
+   launches there and the plain versions timed eagerly; ``scaled_dot_product_attention`` over the gathered
    K/V for K4, and on the same q/k/v for K5 where it computes the same
    function: not with a softcap), beside the kernel's bound (for K4, the
    bytes of the K/V rows the lengths make visible; for K5, the flops of
@@ -356,6 +379,17 @@ def check_sass():
 # ---------------------------------------------------------------------------
 # 3. kernels vs plain versions
 # ---------------------------------------------------------------------------
+def zamba_shapes():
+    """zamba2-7b's (the hybrid path's) kernel shapes: K2 (K, N) in a Mamba
+    layer (in_z / in_x, in_B / in_C, in_dt, out_proj) and at a shared site
+    (wo, gate / up, down), and the site's MHA fused QKV (K, Nq, Nkv)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2_7b")
+    d, di, f = cfg.d_model, cfg.d_inner, cfg.d_ff
+    return (((d, di), (d, cfg.ssm_state), (d, cfg.ssm_n_heads), (di, d)),
+            ((cfg.q_dim, d), (d, f), (f, d)), (d, cfg.q_dim, cfg.kv_dim))
+
+
 def quantized_operands(m, k, ns, dev, seed):
     """Per-row quantized A and per-channel quantized weights, K-major as
     the model stores them."""
@@ -386,10 +420,12 @@ def max_err(got, want, what):
 K1_SHAPES = [(256, 768), (256, 3072), (4, 768), (4, 3072),
              *[(m, k) for m in QWEN_M for k in (2048, 11008)],
              *[(m, MOE_WO[0]) for m in QWEN_M],
-             (4, 36864), (LONG_PROMPT, 36864), (5, 770), (129, 11008)]
-# quant_act_glu's: qwen2.5-3b's d_ff at decode, verify and prefill, ragged
+             (4, 36864), (LONG_PROMPT, 36864), (5, 770), (129, 11008),
+             *[(m, k) for m in QWEN_M for k in (3584, 7168)]]
+# quant_act_glu's: qwen2.5-3b's d_ff at decode, verify and prefill, ragged,
+# zamba2-7b's shared d_ff
 GLU_SHAPES = [*[(m, 11008) for m in QWEN_M], (5, 770), (129, 11008),
-              (3, 64)]
+              (3, 64), *[(m, 14336) for m in QWEN_M]]
 
 
 def k1_rows(shape, seed, dev, dtype):
@@ -492,6 +528,10 @@ def check_kernels(dev):
               (129, 2048, 11008, bf16, True), (129, 11008, 2048, f32, False)]
     # qwen3-moe's wo at decode, verify and the long prefill
     gemms += [(m, *MOE_WO, bf16, False) for m in QWEN_M]
+    # zamba2-7b's, the narrowest outputs served (64, 112) among them
+    z_mamba, z_site, z_qkv = zamba_shapes()
+    zamba = z_mamba + z_site
+    gemms += [(m, k, n, bf16, False) for m in QWEN_M for k, n in zamba]
     for m, k, n, out_dtype, bias in gemms:
         a, (b,) = quantized_operands(m, k, [n], dev, seed=m + n)
         bi = randn((n,), 7, dev) if bias else None
@@ -500,7 +540,7 @@ def check_kernels(dev):
                                out_dtype)
         what = (f"tiled_matmul ({m},{k})x({k},{n}) {out_dtype} bias={bias} "
                 f"[{plan_text(m, [n], k, a, [b])}]")
-        if (k, n) == MOE_WO:
+        if (k, n) == MOE_WO or (k, n) in zamba:
             tensor_cores(what)
         errs["tiled_matmul"] = max(errs["tiled_matmul"],
                                    max_err(out, ref, what))
@@ -512,6 +552,7 @@ def check_kernels(dev):
     qkv += [(m, 2048, 2048, 256, dt) for m in QWEN_M + (5, 129)
             for dt in (f32, bf16)]
     qkv += [(m, *MOE_QKV, dt) for m in QWEN_M for dt in (f32, bf16)]
+    qkv += [(m, *z_qkv, dt) for m in QWEN_M for dt in (f32, bf16)]
     for m, k, nq, nkv, out_dtype in qkv:
         a, ws = quantized_operands(m, k, [nq, nkv, nkv], dev, seed=m + nq)
         outs = fused_qkv(a, *ws, out_dtype=out_dtype)
@@ -520,7 +561,7 @@ def check_kernels(dev):
                              ws[2].scale, out_dtype=out_dtype)
         what = (f"fused_qkv ({m},{k})x({k},{nq}|{nkv}|{nkv}) {out_dtype} "
                 f"[{plan_text(m, [nq, nkv, nkv], k, a, ws)}]")
-        if (k, nq, nkv) == MOE_QKV:
+        if (k, nq, nkv) in (MOE_QKV, z_qkv):
             tensor_cores(what)
         for o, r in zip(outs, refs):
             errs["fused_qkv"] = max(errs["fused_qkv"], max_err(o, r, what))
@@ -883,6 +924,9 @@ SERVED_FLASH = [
      dict(scale=144 ** -0.5, window=4096, softcap=50.0)),
     ("gemma2-27b global", 1, LONG_PROMPT, 32, 16, 128,
      dict(scale=144 ** -0.5, softcap=50.0)),
+    # MHA (one head a KV group) at head dim 112, zero-padded to 128 in the
+    # bf16 kernel
+    ("zamba2-7b causal", 1, LONG_PROMPT, 32, 32, 112, {}),
 ]
 FLASH_CHECKS = [
     *[(n, b, s, h, kh, d, dt, o) for dt in (torch.bfloat16, torch.float32)
@@ -1024,19 +1068,39 @@ def layer_launches(cfg, *, paged=False, flash=False, verify=False) -> dict:
             "flash_attention": int(flash)}
 
 
+def forward_launches(cfg, *, paged=False, flash=False) -> dict:
+    """Each kernel's launches in one forward of ``cfg``: ``layer_launches``
+    for each of its layers; for the SSM and hybrid families, under w8a8,
+    one quant_act for the five in-projections (one K1 serves them all) and
+    one for out_proj, and one tiled_matmul each, a Mamba layer, plus a
+    decoder layer's launches at each application site of the hybrid's
+    shared block (its dense KV cache runs no K4; a cache-less prompt past
+    the threshold runs K5 there)."""
+    from repro_torch.serving.cache import n_shared_sites
+    if cfg.family not in ("ssm", "hybrid"):
+        return {k: cfg.n_layers * n
+                for k, n in layer_launches(cfg, paged=paged,
+                                           flash=flash).items()}
+    w8a8 = int(cfg.quant_proj == "w8a8")
+    sites = n_shared_sites(cfg)
+    want = {k: sites * n for k, n in layer_launches(cfg, flash=flash).items()}
+    want["quant_act"] += 2 * w8a8 * cfg.n_layers
+    want["tiled_matmul"] += 6 * w8a8 * cfg.n_layers
+    return want
+
+
 def expected_launches(cfg, paged: bool, prefill_forwards: int = 1) -> dict:
     """Each kernel's launches in a smoke serve of ``cfg``: its prefill
-    forwards and one forward per decode step, ``layer_launches`` each."""
+    forwards and one forward per decode step, ``forward_launches`` each."""
     forwards = prefill_forwards + DECODE_STEPS
-    return {k: forwards * cfg.n_layers * n
-            for k, n in layer_launches(cfg, paged=paged).items()}
+    return {k: forwards * n
+            for k, n in forward_launches(cfg, paged=paged).items()}
 
 
 def prefill_step_launches(cfg, s: int) -> dict:
     """Each kernel's launches in one ``prefill_step`` of ``s`` tokens."""
     flash = s >= cfg.blockwise_attn_threshold and cfg.attn_impl != "jnp"
-    return {k: cfg.n_layers * n
-            for k, n in layer_launches(cfg, flash=flash).items()}
+    return forward_launches(cfg, flash=flash)
 
 
 def check_serve(what, counts, want, next_logits, toks, cfg, t_prefill,
@@ -1103,6 +1167,8 @@ def main_path(model, cfg, dev, config=None, what="dense serve",
         fail(f"the plain-version serve launched kernels: {left}")
     reset_launch_counts()
     keys = ("k", "v") if config is None else ("k_pages", "v_pages")
+    if "ssm_h" in cache:
+        keys = tuple(k for k in cache if k != "seq_lens")
     for name, got, want_ in (("prefill logits", next_logits, p_logits),
                              ("tokens", toks, p_toks),
                              *((f"cache {k}", cache[k], p_cache[k])
@@ -1111,7 +1177,8 @@ def main_path(model, cfg, dev, config=None, what="dense serve",
             fail(f"{what} vs plain versions on the card: {name} differ "
                  f"(max |err| {(got.double() - want_.double()).abs().max()})")
     print(f"{what} vs plain versions (K1-K3) on the card: prefill logits, "
-          f"tokens and the {cfg.n_layers}-layer KV cache bitwise equal")
+          f"tokens and the {cfg.n_layers}-layer cache ({', '.join(keys)}) "
+          "bitwise equal")
     return counts, t_prefill, tps, toks, cache
 
 
@@ -1368,6 +1435,42 @@ MOE_RANGES = {"moe route": (MOE_MODULE, "route"),
               "moe dequant": (MOE_MODULE, "expert_weight")}
 
 
+# the Mamba2 block's stages and the hybrid's shared block, named in their
+# profiles: the five in-projections (one K1, five K2), the three convs
+# (the cache-less form, and the prefill form with its carried tails), the
+# chunked SSD scan and the one-token step, the gated RMSNorm, out_proj
+# (K1 + K2: ssm's own calls of apply_linear), the shared attention + FFN
+# block (the hybrid runs _decoder_block for it alone)
+SSM_MODULE = "repro_torch.models.ssm"
+SSM_RANGES = {"ssm in-projections": (SSM_MODULE, "apply_linears"),
+              "ssm conv": (SSM_MODULE, "_causal_conv"),
+              "ssm conv (prefill)": (SSM_MODULE, "_conv_prefill"),
+              "ssm scan (ssd_chunked)": (SSM_MODULE, "ssd_chunked"),
+              "ssm step": (SSM_MODULE, "ssm_step"),
+              "ssm gated norm": (SSM_MODULE, "_gated_norm"),
+              "ssm out_proj": (SSM_MODULE, "apply_linear"),
+              "shared block": ("repro_torch.models.transformer",
+                               "_decoder_block")}
+
+
+def family_ranges(cfg):
+    """The profiler ranges of ``cfg``'s family, or None."""
+    if cfg.is_moe:
+        return MOE_RANGES
+    if cfg.family in ("ssm", "hybrid"):
+        return SSM_RANGES
+    return None
+
+
+def swiglu_is_fused(cfg):
+    """Must a profile of ``cfg`` hold no PyTorch silu or bf16 product
+    kernel?  Yes for a dense SwiGLU model under w8a8 (quant_act_glu takes
+    their place); an MoE model's experts and a Mamba2 block (its convs'
+    silu and its gate ``y * silu(z)``) run them as the reference does."""
+    return (cfg.ffn_type == "swiglu" and cfg.family == "dense"
+            and cfg.quant_proj == "w8a8")
+
+
 def range_times(ranges, averages):
     """Device ms of the kernels launched inside each range (its CPU
     event's device total), and the stages they imply; None where the
@@ -1446,6 +1549,11 @@ def device_breakdown(fn, top=10, label="one more run", ranges=None):
         if stages is None:
             print("    the ranges' device time: not measured (the profiler "
                   "attributed no kernel to them)")
+        else:
+            print("    (a range holds the device time of the PyTorch kernels "
+                  "launched inside it; K1-K5, launched through ctypes, are "
+                  "not attributed to ranges: their time is in the rows "
+                  "above)")
         for name, ms in (stages or {}).items():
             print(f"    range {name}: {ms:.3f} ms {ms / total:.3f}")
     return rows
@@ -1492,6 +1600,17 @@ def check_swiglu_detector(dev):
 
 
 def describe(cfg):
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.serving.cache import n_shared_sites
+        text = (f"{cfg.name} {cfg.quant_proj} {cfg.dtype}, {cfg.n_layers} "
+                f"layers, d={cfg.d_model}, d_inner={cfg.d_inner}, "
+                f"{cfg.ssm_n_heads} SSD heads of {cfg.ssm_head_dim}, state "
+                f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+        if cfg.family == "hybrid":
+            text += (f"; shared block at {n_shared_sites(cfg)} sites: heads "
+                     f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}, d_ff="
+                     f"{cfg.d_ff}")
+        return text + f", vocab={cfg.vocab_size}"
     ffn = (f"{cfg.n_experts} experts top-{cfg.top_k} x d_ff "
            f"{cfg.d_ff_expert}" if cfg.is_moe else f"d_ff={cfg.d_ff}")
     return (f"{cfg.name} {cfg.quant_proj} {cfg.dtype}, {cfg.n_layers} "
@@ -1562,7 +1681,7 @@ def long_prompt_run(model, cfg, dev, ranges=None):
     rows = device_breakdown(lambda: prefill_step(model, tokens, cfg),
                             label=f"one more prefill_step of {cfg.name}",
                             ranges=ranges)
-    if cfg.ffn_type == "swiglu" and not cfg.is_moe:
+    if swiglu_is_fused(cfg):
         no_swiglu_kernels(what, rows)
     check_served_k5(what, calls, counts["flash_attention"])
     check_served_glu(what, glu, counts["quant_act_glu"])
@@ -1603,10 +1722,11 @@ def rel_err(a, b):
 
 
 def first_layers(model, n):
-    """A model sharing ``model``'s tensors, cut to its first ``n`` layers."""
+    """A model sharing ``model``'s tensors, cut to its first ``n`` layers
+    (and the hybrid family's shared block)."""
     from repro_torch.models.transformer import Model
     return Model(model.embed, model.final_norm, list(model.layers[:n]),
-                 model.lm_head)
+                 model.lm_head, model.shared_attn)
 
 
 def teacher_forced(model, cfg, d, tokens=None, config=None, chunk=None):
@@ -1785,6 +1905,10 @@ def card_vs_cpu_long(dev):
 # of the 39 usable pages 3 are free when the fourth request (4 pages)
 # arrives at tick 3: admission waits for a retire in every run
 SCHED_SLOTS, SCHED_MAX_LEN, SCHED_POOL, SCHED_BUCKET = 4, 512, 40, 16
+# the depth of qwen2.5-3b's Scheduler runs (of its 36 layers): cut when
+# the SSM and hybrid path came, so the script stays well inside its time
+# limit on a slow host (PERF.md §4)
+SCHED_LAYERS = 12
 SCHED_EOS = 151643
 N_DRAFT = 4
 DRAFT_LAYERS = 2
@@ -1797,7 +1921,7 @@ PROFILE_TICK_PLAIN, PROFILE_TICK_SPEC = 16, 6
 # (RMSNorm's mean) may sum in another order; under w8a8 such a last-bit
 # difference ahead of quant_act flips int8 roundings, which move logits by
 # up to the quantization error (7.7e-3 of the largest logit at 2 layers,
-# PERF.md): the limit allows 2.6x that for 36 layers.  In f32 'none' (card
+# PERF.md): the limit allows 2.6x that for 36 layers (the runs take 12).  In f32 'none' (card
 # against CPU) only the last bits differ (rel-err 1e-5 at most): 1e-4.
 NEAR_TIE = 2e-2
 NEAR_TIE_F32 = 1e-4
@@ -1828,9 +1952,7 @@ def sched_trace(vocab):
 
 def truncated(model, n):
     """The first ``n`` layers of ``model`` with its embed and head."""
-    from repro_torch.models.transformer import Model
-    return Model(model.embed, model.final_norm, list(model.layers[:n]),
-                 model.lm_head)
+    return first_layers(model, n)
 
 
 def make_scheduler(model, cfg, dev, kv_quant, draft, dtype):
@@ -1847,13 +1969,14 @@ def make_scheduler(model, cfg, dev, kv_quant, draft, dtype):
                      eos_id=SCHED_EOS, dtype=dtype, spec=spec, device=dev)
 
 
-def drive(sched, trace, profile_tick=None):
+def drive(sched, trace, profile_tick=None, finish=False):
     """Serve ``trace`` to the end; returns (host s, the ms of each tick,
     the ticks whose admission stopped at a full pool with a request
     queued and a slot free).  Each tick ends in a synchronize.  With
     ``profile_tick``, stop instead at the first tick from it on that
     admits nothing (nothing queued, or no slot free) and run that tick
-    under ``torch.profiler``."""
+    under ``torch.profiler`` (with ``finish``, then serve on to the end;
+    the timings then include the profiled tick's)."""
     reqs, arrivals = trace
     i, tick_ms, page_waits = 0, [], 0
     torch.cuda.synchronize()
@@ -1865,17 +1988,19 @@ def drive(sched, trace, profile_tick=None):
         if (profile_tick is not None and sched._ticks >= profile_tick
                 and (not sched.queue or None not in sched.slots)):
             tick = sched._ticks
-            print(f"  tick {tick} ({sched.n_active} live rows) of the same "
-                  "run again:")
+            print(f"  tick {tick} ({sched.n_active} live rows) of "
+                  f"{'this run' if finish else 'the same run again'}:")
             rows = device_breakdown(
                 sched.step, top=14,
                 label=f"this tick ({sched.cfg.name}, "
                       f"{'plain' if sched.spec is None else 'spec'})",
-                ranges=MOE_RANGES if sched.cfg.is_moe else None)
-            if sched.cfg.ffn_type == "swiglu" and not sched.cfg.is_moe \
-                    and sched.cfg.quant_proj == "w8a8":
+                ranges=family_ranges(sched.cfg))
+            if swiglu_is_fused(sched.cfg):
                 no_swiglu_kernels(f"tick {tick}", rows)
-            break
+            if not finish:
+                break
+            profile_tick = None
+            continue
         # _admit pops the queue in order until no slot is free or the
         # pool cannot cover the head: fewer admissions than both allow
         # means it waited for pages
@@ -2136,15 +2261,16 @@ def sched_run(what, model, cfg, dev, kv_quant, draft, dtype, trace, *,
 
 
 def scheduler_paths(dev):
-    """Phase 4: qwen2.5-3b (w8a8, bf16, fused QKV) at full width and depth,
-    weights drawn on the card from a seeded generator, serving one trace
+    """Phase 4: qwen2.5-3b (w8a8, bf16, fused QKV) at full width and
+    SCHED_LAYERS layers, weights drawn on the card from a seeded generator, serving one trace
     through the Scheduler five ways: plain decode on bf16 and on int8
     pools, speculative decode with the first DRAFT_LAYERS target layers as
     the draft on both, and with the target as its own draft on bf16."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantize_params import quantize_model_params
     from repro_torch.models.transformer import init_model
-    cfg = get_config("qwen2_5_3b").replace(quant_proj="w8a8")
+    cfg = get_config("qwen2_5_3b").replace(quant_proj="w8a8",
+                                           n_layers=SCHED_LAYERS)
     master = init_model(torch.Generator(device=dev).manual_seed(5), cfg,
                         device=dev)
     model = quantize_model_params(master)
@@ -2301,26 +2427,28 @@ def resident_gb(model):
     return sum(b.numel() * b.element_size() for b in model.buffers()) / 1e9
 
 
-def moe_model(dev):
-    """qwen3-moe-30b-a3b (w8a8, bf16, fused QKV, int8 experts) at full width
-    and depth, its weights drawn on the card from a seeded generator and
-    quantized one block at a time as drawn: the f32 model (122 GB) never
-    exists."""
+def blockwise_model(arch, dev, seed, n_layers=None):
+    """``arch`` (w8a8, bf16, fused QKV; an MoE model's experts int8) at full
+    width (and ``n_layers`` layers, if given), its weights drawn on the
+    card from a seeded generator and quantized one block at a time as
+    drawn: the f32 model never exists whole."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantize_params import quantize_model_params
     from repro_torch.models.transformer import init_model
-    cfg = get_config(MOE_ARCH).replace(quant_proj="w8a8")
+    cfg = get_config(arch).replace(quant_proj="w8a8")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_model(
-        torch.Generator(device=dev).manual_seed(7),
+        torch.Generator(device=dev).manual_seed(seed),
         cfg.replace(quant_proj="none"), device=dev,
         each_block=lambda block: quantize_model_params(
-            block, quantize_experts=True))
+            block, quantize_experts=cfg.is_moe))
     torch.cuda.synchronize()
-    print(f"moe: {describe(cfg)}; drawn and quantized block by block in "
-          f"{time.perf_counter() - t0:.1f} s: resident "
+    print(f"{cfg.family}: {describe(cfg)}; drawn and quantized block by "
+          f"block in {time.perf_counter() - t0:.1f} s: resident "
           f"{resident_gb(model):.2f} GB, torch.cuda.max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return model, cfg
@@ -2348,7 +2476,7 @@ def moe_paths(dev):
     swapped in, (b) ``prefill_step`` of LONG_PROMPT tokens, (c) the
     Scheduler, plain and self_trunc; all on one model at full depth."""
     from repro_torch.serving.cache import CacheConfig
-    model, cfg = moe_model(dev)
+    model, cfg = blockwise_model(MOE_ARCH, dev, 7)
     config = CacheConfig(layout="paged", page_size=PAGE, alloc="striped")
     counts, t_prefill, tps, _, _ = main_path(
         model, cfg, dev, config,
@@ -2454,6 +2582,168 @@ def card_vs_cpu_moe(dev):
                       "argmax": agree, "routing_differ": differ,
                       "near_ties": near}
     del model_cpu
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4-5. the SSM and hybrid families: zamba2-7b and mamba2-370m
+# ---------------------------------------------------------------------------
+HYBRID_ARCH, SSM_ARCH = "zamba2_7b", "mamba2_370m"
+# phase 5's depth for zamba2-7b: layer 5 is its first shared site (every
+# 6th layer), so 6 layers hold one application of the shared block
+HYBRID_CHECK_LAYERS = 6
+
+
+def slot_scheduler(model, cfg, dev, spec=None):
+    """The Scheduler on the slot families' dense state: SCHED_SLOTS slots of
+    SCHED_MAX_LEN tokens, bucket SCHED_BUCKET; no pool, no prefix sharing
+    (the handler has none), no EOS id."""
+    from repro_torch.serving.scheduler import Scheduler
+    return Scheduler(model, cfg, slots=SCHED_SLOTS, max_len=SCHED_MAX_LEN,
+                     bucket=SCHED_BUCKET, dtype=torch.bfloat16, spec=spec,
+                     device=dev)
+
+
+def slot_sched_run(what, model, cfg, dev, trace):
+    """The Scheduler trace through a slot family: counted and timed
+    (launch counts exact: one forward per admission and per decoding
+    tick; every slot recycled), then a run with ``spec=`` (the first
+    DRAFT_LAYERS layers as the draft), which must warn that it degrades
+    to 1-token decode and give the counted run's tokens (the two are the
+    same plain serve, so this also holds the run to itself), one of its
+    ticks profiled by stage.  Returns the counted run's numbers."""
+    import warnings
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.scheduler import SpecConfig
+    sched = slot_scheduler(model, cfg, dev)
+    reset_launch_counts()
+    seconds, tick_ms, _ = drive(sched, trace)
+    counts = launch_counts()
+    n_ticks = decode_ticks(sched)
+    per = forward_launches(cfg)
+    want = {k: (len(trace[0]) + n_ticks) * n for k, n in per.items()}
+    print(f"{what}: launches {counts} (expected {want})")
+    if counts != want:
+        fail(f"{what}: launch counts {counts} != {want}")
+    check_served_plans(what, counts)
+    first = sched.finished
+    occ = sched.pool_occupancy()
+    if occ.used != 0:
+        fail(f"{what}: {occ.used} slots held after the run")
+    n_tok = sum(len(t) for t in sched.finished.values())
+    out = {"ticks": sched._ticks, "decode_ticks": n_ticks, "tokens": n_tok,
+           "seconds": seconds, "tok_s": n_tok / seconds,
+           "ms_per_tick": sum(tick_ms) / len(tick_ms),
+           "slots_peak": max(sched.occupancy_log)}
+    print(f"  {out['ticks']} ticks ({n_ticks} decoding), {n_tok} tokens in "
+          f"{seconds * 1e3:.3f} ms = {out['tok_s']:.1f} tok/s, "
+          f"{out['ms_per_tick']:.3f} ms per tick (host clock after "
+          f"torch.cuda.synchronize()), slots_peak {out['slots_peak']} of "
+          f"{SCHED_SLOTS}")
+    draft = SpecConfig(truncated(model, DRAFT_LAYERS),
+                       cfg.replace(n_layers=DRAFT_LAYERS), N_DRAFT)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        spec = slot_scheduler(model, cfg, dev, spec=draft)
+    said = [str(w.message) for w in caught]
+    if spec.spec is not None or not any(
+            "degrading to 1-token decode" in m for m in said):
+        fail(f"{what}: spec= did not degrade to 1-token decode with the "
+             f"reference's warning (warnings: {said})")
+    drive(spec, trace, PROFILE_TICK_PLAIN, finish=True)
+    for rid, toks in first.items():
+        if not torch.equal(torch.as_tensor(toks),
+                           torch.as_tensor(spec.finished[rid])):
+            fail(f"{what}: the spec= run's tokens differ from the plain "
+                 f"run's (request {rid})")
+    print(f"  with spec= ({DRAFT_LAYERS}-layer draft): warned "
+          f"{said[0]!r}; all {len(first)} requests' tokens equal the plain "
+          "run's")
+    return out
+
+
+def ssm_paths(dev):
+    """Phase 4's SSM and hybrid path: zamba2-7b (w8a8, bf16) at full width
+    and all 81 layers through (a) the dense serve with the plain versions
+    swapped in, (b) ``prefill_step`` of LONG_PROMPT tokens, profiled by
+    stage, (c) the Scheduler, plain and with ``spec=``; then mamba2-370m
+    at full size through (a) and (c)."""
+    out = {}
+    for arch, seed, long in ((HYBRID_ARCH, 12, True), (SSM_ARCH, 13, False)):
+        model, cfg = blockwise_model(arch, dev, seed)
+        counts, t_prefill, tps, _, cache = main_path(
+            model, cfg, dev, what=f"{cfg.family} dense serve "
+            f"({describe(cfg)})", label=f"{cfg.name} dense serve")
+        del cache
+        res = {"cfg": cfg, "serve": (counts, t_prefill, tps)}
+        if long:
+            res["long"] = long_prompt_run(model, cfg, dev, ranges=SSM_RANGES)
+        res["sched"] = slot_sched_run(
+            f"{cfg.family} scheduler plain ({cfg.name}), dense slots", model,
+            cfg, dev, sched_trace(cfg.vocab_size))
+        print(f"{cfg.family}: torch.cuda.max_memory_allocated over the path "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del model
+        torch.cuda.empty_cache()
+        out[arch] = res
+    return out
+
+
+def card_vs_cpu_ssm(dev):
+    """Phase 5 for the SSM families: zamba2-7b at full width,
+    HYBRID_CHECK_LAYERS layers (one shared site), f32 ``none``, card
+    against CPU on the same weights: the one-pass prefill and decode steps,
+    and ``prefill(chunk=32)`` (two passes, each row's valid tokens as
+    ``n_valid``) and decode steps, within rel-err 1e-5, argmax >= 0.99,
+    launch counts exact; and the state each prefill commits (``ssm_h``,
+    the conv tails, ``shared_k/v``) within rel-err 1e-5 of the CPU's, with
+    equal ``seq_lens``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.engine import prefill
+    cfg = get_config(HYBRID_ARCH).replace(
+        n_layers=HYBRID_CHECK_LAYERS, quant_proj="none", dtype="float32")
+    model_cpu = init_model(torch.Generator(device=dev).manual_seed(14), cfg,
+                           device="cpu")
+    model = copy.deepcopy(model_cpu).to(dev)
+    n = len(BATCH_LENS) * (DECODE_STEPS + 1)
+    out = {}
+    for label, chunk in (("one pass", None), ("chunk=32", 32)):
+        what = f"card vs CPU: {describe(cfg)}, prefill {label}"
+        t0 = time.perf_counter()
+        e_pre, e_dec, agree = compare(model_cpu, cfg, dev, what, chunk=chunk)
+        states = {}
+        for side, d, m in (("card", dev, model), ("cpu", "cpu", model_cpu)):
+            prompts, lens = make_prompts(cfg, d)
+            cache = init_cache(cfg, len(BATCH_LENS), max(BATCH_LENS),
+                               dtype=torch.float32, device=d)
+            _, cache = prefill(m, cache, prompts, lens, cfg, chunk=chunk)
+            states[side] = {k: v.cpu() for k, v in cache.items()}
+        card, cpu = states["card"], states["cpu"]
+        if not torch.equal(card["seq_lens"], cpu["seq_lens"]):
+            fail(f"{what}: seq_lens {card['seq_lens'].tolist()} against "
+                 f"{cpu['seq_lens'].tolist()}")
+        e_state = {k: rel_err(card[k], cpu[k]) for k in cpu
+                   if k != "seq_lens"}
+        print(f"{what}, launches exact: rel-err prefill {e_pre:.3e}, worst "
+              f"decode step {e_dec:.3e} (limit {TOL_NONE}); argmax "
+              f"agreement {agree:.4f} over {n} positions (limit "
+              f"{TOL_ARGMAX}); committed state rel-err "
+              + ", ".join(f"{k} {e:.3e}" for k, e in e_state.items())
+              + f" (limit {TOL_NONE}); {time.perf_counter() - t0:.1f} s")
+        if not (e_pre <= TOL_NONE and e_dec <= TOL_NONE):
+            fail(f"{what}: rel-err above {TOL_NONE}")
+        if max(e_state.values()) > TOL_NONE:
+            fail(f"{what}: the committed state differs by more than "
+                 f"{TOL_NONE}")
+        if agree < TOL_ARGMAX:
+            fail(f"{what}: argmax agreement {agree} < {TOL_ARGMAX}")
+        out[label] = {"prefill_rel_err": e_pre, "decode_rel_err": e_dec,
+                      "argmax": agree, "state_rel_err": max(e_state.values())}
+    del model, model_cpu
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2912,6 +3202,37 @@ def timings(cfg, dev):
         shapes["moe tiled_matmul"].append(
             (phase, f"wo ({m},{MOE_WO[0]})x({MOE_WO[0]},{MOE_WO[1]}) bf16",
              1, time_gemm(m, *MOE_WO, bf16, dev, launches=n)))
+    # zamba2-7b's launches at decode (M=4) and prefill_step (8192 rows):
+    # a Mamba layer's (phase "decode" / "prefill") K1 over d_model (the five
+    # in-projections' input) and d_inner (out_proj's), K2 in_z / in_x,
+    # in_B / in_C, in_dt and out_proj; a shared site's ("... site") K1 over
+    # d_model (x 3), quant_act_glu over d_ff, K3 (MHA), K2 wo, gate / up,
+    # down
+    for name in ("quant_act", "quant_act_glu", "fused_qkv", "tiled_matmul"):
+        shapes[f"zamba2 {name}"] = []
+    z_mamba, z_site, (zd, zq, zkv) = zamba_shapes()
+    zdi, zf = z_mamba[0][1], z_site[1][1]
+    for phase, m in (("decode", 4), ("prefill", LONG_PROMPT)):
+        n = 10 if m == LONG_PROMPT else 200
+        site = f"{phase} site"
+        d_row = time_quant_act(m, zd, dev, n)
+        shapes["zamba2 quant_act"] += [
+            (phase, f"({m},{zd}) bf16", 1, d_row),
+            (phase, f"({m},{zdi}) bf16", 1, time_quant_act(m, zdi, dev, n)),
+            (site, f"({m},{zd}) bf16", 3, d_row)]
+        shapes["zamba2 quant_act_glu"].append(
+            (site, f"({m},{zf}) bf16", 1, time_quant_glu(m, zf, dev, n)))
+        shapes["zamba2 fused_qkv"].append(
+            (site, f"({m},{zd})x({zd},{zq}|{zkv}|{zkv}) f32", 1,
+             time_fused(m, zd, zq, zkv, dev, launches=n)))
+        for p_, names, gemm_shapes in (
+                (phase, (("in_z/in_x", 2), ("in_B/in_C", 2), ("in_dt", 1),
+                         ("out_proj", 1)), z_mamba),
+                (site, (("wo", 1), ("gate/up", 2), ("down", 1)), z_site)):
+            for (name, times), (k, nn) in zip(names, gemm_shapes):
+                shapes["zamba2 tiled_matmul"].append(
+                    (p_, f"{name} ({m},{k})x({k},{nn}) bf16", times,
+                     time_gemm(m, k, nn, bf16, dev, launches=n)))
     # the Scheduler's prefill forwards: K1 at d_model (x 3), quant_act_glu
     # at d_ff
     for m in SCHED_CHUNK_ROWS:
@@ -2973,6 +3294,8 @@ def timings(cfg, dev):
         ("global", f"gemma2-27b 1x{LONG_PROMPT} H32 KH16 cap50", 1,
          time_flash(1, LONG_PROMPT, 32, 16, 128, dev, scale=144 ** -0.5,
                     softcap=50.0)),
+        ("zamba2", f"zamba2-7b 1x{LONG_PROMPT} H32 KH32 D112 bf16", 1,
+         time_flash(1, LONG_PROMPT, 32, 32, 112, dev)),
         # the f32 path (the ALUs; phase 5's card-vs-CPU runs take it)
         ("prefill-f32", f"qwen2.5-3b 1x{LONG_PROMPT} H16 KH2 D128 f32", 1,
          time_flash(1, LONG_PROMPT, 16, 2, 128, dev, dtype=torch.float32,
@@ -3050,10 +3373,30 @@ def served_plans(name):
             for what, r in SERVED_PLANS.items() if r["counts"][name]}
 
 
-def moe_launches(name):
-    """``name``'s launches in each counted run of the MoE path."""
+def path_launches(name, model_name):
+    """``name``'s launches in each counted run of ``model_name``'s path."""
     return {what: r["counts"][name] for what, r in SERVED_PLANS.items()
-            if "qwen3-moe" in what}
+            if model_name in what}
+
+
+# the per-shape timing rows of each model's path in the kernels line, and
+# the phases they are summed over (zamba2-7b's: one Mamba layer, and one
+# shared site)
+PATH_ROWS = {"qwen": ("qwen2_5_3b", ("decode", "verify", "prefill")),
+             "moe": ("qwen3_moe_30b_a3b", ("decode", "verify", "prefill")),
+             "zamba2": ("zamba2_7b", ("decode", "prefill", "decode site",
+                                      "prefill site"))}
+
+
+def path_rows(rows, phases):
+    """One layer's launches summed per phase (those ``rows`` has), and the
+    rows."""
+    have = {p for p, _, _, _ in rows}
+    return {"work": "one layer's launches (sum over them)",
+            **{phase: per_layer(rows, phase) for phase in phases
+               if phase in have},
+            "shapes": [dict(phase=phase, shape=desc, times=times, **r)
+                       for phase, desc, times, r in rows]}
 
 
 T_START = time.perf_counter()
@@ -3110,6 +3453,8 @@ def main():
         sched_runs = scheduler_paths(dev)
         stamp("phase 4: the MoE path")
         moe = moe_paths(dev)
+        stamp("phase 4: the SSM and hybrid path")
+        ssm_res = ssm_paths(dev)
         stamp("phase 5: card vs CPU")
         card_vs_cpu(model_cpu, master, cfg, dev)
         card_vs_cpu_long(dev)
@@ -3117,6 +3462,8 @@ def main():
         sched_check = card_vs_cpu_scheduler(dev)
         stamp("phase 5: the MoE family, card vs CPU")
         moe_check = card_vs_cpu_moe(dev)
+        stamp("phase 5: the hybrid family, card vs CPU")
+        ssm_check = card_vs_cpu_ssm(dev)
     counts["paged_decode"] = paged_counts["paged_decode"]
     stamp("phase 6: timings")
     shapes = timings(cfg, dev)
@@ -3138,17 +3485,10 @@ def main():
                                            "library_ms", "library_note")
                        if k in dec},
         })
-        for prefix, key in (("qwen", "qwen2_5_3b"),
-                            ("moe", "qwen3_moe_30b_a3b")):
-            if f"{prefix} {name}" not in shapes:
-                continue
-            rows = shapes[f"{prefix} {name}"]
-            kernels[-1][key] = {
-                "work": "one layer's launches (sum over them)",
-                **{phase: per_layer(rows, phase)
-                   for phase in ("decode", "verify", "prefill")},
-                "shapes": [dict(phase=phase, shape=desc, times=times, **r)
-                           for phase, desc, times, r in rows]}
+        for prefix, (key, phases) in PATH_ROWS.items():
+            if f"{prefix} {name}" in shapes:
+                kernels[-1][key] = path_rows(shapes[f"{prefix} {name}"],
+                                             phases)
     k1 = kernels[0]
     k1["gemma2"] = {phase: {k: r[k] for k in (
         "ms", "plan", "plans", "plain_ms", "bound_ms", "bound_by",
@@ -3180,6 +3520,11 @@ def main():
             for phase in ("local", "global")},
         "f32": {k: fa["prefill-f32"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "zamba2": {"work": f"one zamba2-7b shared site of prefill_step: (1, "
+                           f"{LONG_PROMPT}, 32/32, 112) bf16, causal",
+                   **{k: fa["zamba2"][k] for k in (
+                       "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")}},
     })
     ver = {phase: r for phase, _, _, r in shapes["paged_decode_verify"]}
     kernels.append({
@@ -3225,10 +3570,14 @@ def main():
         "launches_by_plan": served_plans("quant_act_glu")[
             "qwen2.5-3b prefill_step"]["by_plan"],
         "launches_by_path": served_plans("quant_act_glu"),
+        "zamba2_7b": path_rows(shapes["zamba2 quant_act_glu"],
+                               PATH_ROWS["zamba2"][1]),
     })
     for k in kernels:
-        k["launches_qwen3_moe"] = moe_launches(k["name"])
-    sched_all = {**{(k, "qwen2.5-3b w8a8 bf16, 36 layers"): r
+        k["launches_qwen3_moe"] = path_launches(k["name"], "qwen3-moe")
+        k["launches_zamba2_7b"] = path_launches(k["name"], "zamba2-7b")
+        k["launches_mamba2_370m"] = path_launches(k["name"], "mamba2-370m")
+    sched_all = {**{(k, f"qwen2.5-3b w8a8 bf16, {SCHED_LAYERS} layers"): r
                     for k, r in sched_runs.items()},
                  **{(k, f"{MOE_ARCH} w8a8 bf16, 48 layers"): r
                     for k, r in moe["sched"].items()}}
@@ -3244,6 +3593,21 @@ def main():
     print(f"card vs CPU scheduler (2 layers f32): identical share "
           f"{sched_check}")
     print(f"card vs CPU {MOE_ARCH} (2 layers f32 'none'): {moe_check}")
+    print(f"card vs CPU {HYBRID_ARCH} ({HYBRID_CHECK_LAYERS} layers f32 "
+          f"'none'): {ssm_check}")
+    for arch, res in ssm_res.items():
+        s_counts, s_prefill, s_tps = res["serve"]
+        sc = res["sched"]
+        line = (f"{res['cfg'].family} serve ({arch}, "
+                f"{res['cfg'].n_layers} layers, w8a8 bf16, dense slots): "
+                f"prefill_ms={s_prefill * 1e3:.3f} decode_tok_s={s_tps:.1f}; "
+                f"scheduler plain {sc['ticks']} ticks, {sc['tok_s']:.1f} "
+                f"tok/s, {sc['ms_per_tick']:.3f} ms/tick")
+        if "long" in res:
+            line += (f"; prefill_step (1 x {LONG_PROMPT}) "
+                     f"{res['long'][1] * 1e3:.3f} ms, "
+                     f"{res['long'][0]['flash_attention']} K5 launches")
+        print(line)
     m_counts, m_prefill, m_tps = moe["serve"]
     print(f"moe serve ({MOE_ARCH}, 48 layers, w8a8 bf16, paged bf16 "
           f"pools): prefill_ms={m_prefill * 1e3:.3f} decode_tok_s="

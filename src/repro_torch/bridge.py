@@ -8,7 +8,10 @@ exactly, so the port and the JAX package run the same weights; quantized
 projection values are stored K-major, the layout the int8 GEMM kernels
 read.  An MoE layer's router, expert stacks (float ``gate``/``up``/``down``
 or quantized ``gate_q``/``up_q``/``down_q``, kept in their (E, K, N)
-layout: no kernel reads them) and shared FFN are carried the same way.
+layout: no kernel reads them) and shared FFN are carried the same way,
+as are an SSM layer's norm and Mamba2 block (five in-projections,
+``out_proj``, the three conv taps, ``A_log`` / ``D`` / ``dt_bias`` and the
+gated norm) and the hybrid family's unstacked ``shared_attn`` block.
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import FFN
 from repro_torch.models.layers import Embedding, LMHead, Norm
 from repro_torch.models.moe import Experts, MoE
-from repro_torch.models.transformer import (DecoderBlock, Model,
-                                            check_supported)
+from repro_torch.models.ssm import IN_PROJ, ConvWeight, Mamba2, SSMParams
+from repro_torch.models.transformer import (DecoderBlock, Model, SSMBlock,
+                                            check_supported, is_ssm_family)
 
 
 def _t(a) -> torch.Tensor:
@@ -87,13 +91,38 @@ def _block(layers: dict, i: int) -> DecoderBlock:
                         moe=_moe(layers.get("moe"), i))
 
 
+def _ssm_block(layers: dict, i: int) -> SSMBlock:
+    m = layers["mamba"]
+    s = m["ssm"]
+    mamba = Mamba2(*(_linear(m[name], i) for name in IN_PROJ),
+                   *(ConvWeight(_t(m[name]["w"][i]))
+                     for name in ("conv_x", "conv_B", "conv_C")),
+                   SSMParams(_t(s["A_log"][i]), _t(s["D"][i]),
+                             _t(s["dt_bias"][i])),
+                   _norm(m["norm"], i), _linear(m["out_proj"], i))
+    return SSMBlock(_norm(layers["norm"], i), mamba)
+
+
+def _with_layer_axis(node):
+    """An unstacked subtree (the shared block) as a stack of one."""
+    if isinstance(node, dict):
+        return {k: _with_layer_axis(v) for k, v in node.items()}
+    if isinstance(node, np.ndarray):
+        return node[None]
+    return node                           # a QTensor's ``bits``
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
     """The port's ``Model`` holding the weights of a numpy params tree."""
     check_supported(cfg)
     dev = resolve_device(device)
     head = tree.get("lm_head")
+    block = _ssm_block if is_ssm_family(cfg) else _block
+    shared = tree.get("shared_attn")
     model = Model(Embedding(_t(tree["embed"]["table"])),
                   _norm(tree["final_norm"]),
-                  [_block(tree["layers"], i) for i in range(cfg.n_layers)],
-                  LMHead(_t(head["w"])) if head is not None else None)
+                  [block(tree["layers"], i) for i in range(cfg.n_layers)],
+                  LMHead(_t(head["w"])) if head is not None else None,
+                  None if shared is None
+                  else _block(_with_layer_axis(shared), 0))
     return model.to(dev)

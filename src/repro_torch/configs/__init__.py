@@ -2,7 +2,7 @@
 
 Each module defines ``CONFIG`` (the full assigned configuration) and
 ``smoke_config()`` (a reduced same-family config for CPU smoke tests).
-The dense and MoE configs the port runs are here; the SSM, hybrid,
+The dense, MoE, SSM and hybrid configs the port runs are here; the
 vision and encoder-decoder configs come with their families (ROADMAP
 queue 1, item 12).
 """
@@ -17,6 +17,8 @@ ARCHITECTURES = [
     "distilbert_paper",          # the paper's own integration target
     "qwen3_moe_30b_a3b",
     "granite_moe_3b_a800m",
+    "mamba2_370m",
+    "zamba2_7b",
 ]
 
 _ALIASES = {name.replace("_", "-"): name for name in ARCHITECTURES}

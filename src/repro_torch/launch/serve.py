@@ -5,8 +5,11 @@
         [--device cuda|cpu] [--smoke]
 
 Random weights from a seeded generator → offline weight quantization
-(block by block as drawn; MoE experts too) → one-pass prefill → batched greedy decode, reporting per-phase latency and
-tokens/s.  ``--device cuda`` (the default) needs a card and runs the CUDA
+(block by block as drawn: decoder blocks with their MoE experts, Mamba2
+blocks and the hybrid family's shared block) → one-pass prefill → batched
+greedy decode, reporting per-phase latency and tokens/s.  Every ported
+family runs: dense, MoE, SSM (``mamba2_370m``) and hybrid
+(``zamba2_7b``), the last two on their dense slot state.  ``--device cuda`` (the default) needs a card and runs the CUDA
 kernels; ``--device cpu`` runs their plain PyTorch versions.
 """
 import argparse
@@ -38,7 +41,8 @@ def main(argv=None):
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch)).replace(quant_proj=args.quant)
     # quantized one block at a time as drawn (the MoE family's experts too,
-    # as the JAX launcher does), so the f32 master is never whole
+    # as the JAX launcher does; Mamba2 blocks and the shared block alike),
+    # so the f32 master is never whole
     def quantize(block):
         return quantize_model_params(block, quantize_experts=cfg.is_moe)
 

@@ -1,13 +1,18 @@
-"""Model assembly for the dense and MoE families: ``init_model`` /
-``apply_model``.
+"""Model assembly for the dense, MoE, SSM and hybrid families:
+``init_model`` / ``apply_model``.
 
 Pre-norm decoder blocks (optionally gemma2 sandwich post-norms) run as a
 Python loop over per-layer modules, the eager counterpart of the JAX
 package's layer scan.  A block's FFN is dense, or under ``cfg.is_moe`` a
 mixture of experts (``models/moe.py``), whose load-balance losses
-``apply_model`` sums over the layers.  SSM, hybrid, vision-frontend and
-encoder-decoder families are later ROADMAP items (queue 1, item 12) and
-raise ``NotImplementedError``.
+``apply_model`` sums over the layers.  The ``ssm`` family (mamba2) is a
+stack of Mamba2 blocks (``SSMBlock``, ``models/ssm.py``); the ``hybrid``
+family (zamba2) adds one parameter-shared attention + FFN block
+(``Model.shared_attn``) that runs before the Mamba block of every layer
+``i`` with ``i % shared_attn_every == shared_attn_every - 1``, each such
+site with its own KV cache.  Vision-frontend and encoder-decoder families
+are later ROADMAP items (queue 1, item 12) and raise
+``NotImplementedError``.
 
 Cache convention (decode) — see serving/cache.py:
   dense:  {"k","v"}: (L, B, S_max, KVH, hd); layer i attends through the
@@ -18,6 +23,12 @@ Cache convention (decode) — see serving/cache.py:
           layer i attends through the views of its pools, written in
           place, and ``apply_model`` sets seq_lens to cache_pos + S (or
           cache_pos + n_valid in the speculative verify mode).
+  ssm / hybrid: {"ssm_h"}: (L, B, H, P, N) f32, {"conv_x","conv_B",
+          "conv_C"}: (L, B, k-1, ·) f32 conv tails, {"seq_lens"}: (B,)
+          int32, and for hybrid {"shared_k","shared_v"}: (sites, B, S_max,
+          KVH, hd), site i the i-th application of the shared block; each
+          layer's state is written back in place, and ``apply_model`` sets
+          seq_lens to cache_pos + S (or + n_valid).
 """
 from __future__ import annotations
 
@@ -34,6 +45,12 @@ from repro_torch.models.layers import (Embedding, LMHead, Norm, apply_norm,
                                        init_norm, sinusoidal_positions,
                                        unembed)
 from repro_torch.models.moe import MoE, apply_moe, init_moe
+from repro_torch.models.ssm import Mamba2, apply_mamba2, init_mamba2
+
+# the per-layer recurrent state of an SSM or hybrid cache, as the blocks'
+# state dict names it ({"h", "conv_x", "conv_B", "conv_C"})
+SSM_STATE = {"ssm_h": "h", "conv_x": "conv_x", "conv_B": "conv_B",
+             "conv_C": "conv_C"}
 
 
 class DecoderBlock(nn.Module):
@@ -55,23 +72,52 @@ class DecoderBlock(nn.Module):
         self.norm_ffn_post = norm_ffn_post
 
 
+class SSMBlock(nn.Module):
+    """A pre-norm Mamba2 block: ``norm``, then ``mamba``."""
+
+    def __init__(self, norm: Norm, mamba: Mamba2):
+        super().__init__()
+        self.norm = norm
+        self.mamba = mamba
+
+
 class Model(nn.Module):
+    """Embedding, the layer stack (``DecoderBlock``s, or ``SSMBlock``s for
+    the SSM and hybrid families), the final norm, an untied head if any,
+    and the hybrid family's ``shared_attn`` block."""
+
     def __init__(self, embed: Embedding, final_norm: Norm,
-                 layers: list[DecoderBlock], lm_head: LMHead | None = None):
+                 layers: list[nn.Module], lm_head: LMHead | None = None,
+                 shared_attn: DecoderBlock | None = None):
         super().__init__()
         self.embed = embed
         self.final_norm = final_norm
         self.lm_head = lm_head
         self.layers = nn.ModuleList(layers)
+        self.shared_attn = shared_attn
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense and MoE families (for now)."""
-    if (cfg.family not in ("dense", "moe") or cfg.frontend is not None
-            or cfg.is_encoder_decoder):
+    """The port runs the dense, MoE, SSM and hybrid families (for now)."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.frontend is not None or cfg.is_encoder_decoder):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1, item 12); the port runs the dense and MoE families")
+            "queue 1, item 12); the port runs the dense, MoE, SSM and "
+            "hybrid families")
+
+
+def is_ssm_family(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def shared_sites(cfg: ModelConfig) -> list[bool]:
+    """Which layers run the hybrid family's shared block before their
+    Mamba block: ``i % every == every - 1`` (none outside the family)."""
+    every = cfg.shared_attn_every
+    if cfg.family != "hybrid" or every <= 0:
+        return [False] * cfg.n_layers
+    return [i % every == every - 1 for i in range(cfg.n_layers)]
 
 
 def _init_decoder_block(generator: torch.Generator,
@@ -91,9 +137,10 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
                device="cuda", each_block=None) -> Model:
     """Random model from ``generator``, drawn on the generator's device and
     placed on ``device``.  A CPU generator gives the same weights whatever
-    the target device.  ``each_block``, if given, maps each decoder block
-    as soon as it is drawn (``quantize_model_params``), so a model too
-    large in f32 is never whole in f32."""
+    the target device.  ``each_block``, if given, maps each block (decoder
+    or Mamba, and the hybrid family's shared block) as soon as it is drawn
+    (``quantize_model_params``), so a model too large in f32 is never
+    whole in f32."""
     cfg.validate()
     check_supported(cfg)
     dev = resolve_device(device)
@@ -105,10 +152,18 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
                                      device=generator.device)
                          * (cfg.d_model ** -0.5))
     each_block = each_block or (lambda block: block)
-    layers = [each_block(_init_decoder_block(generator, cfg))
-              for _ in range(cfg.n_layers)]
+    shared = None
+    if is_ssm_family(cfg):
+        layers = [each_block(SSMBlock(init_norm(cfg, device=generator.device),
+                                      init_mamba2(generator, cfg)))
+                  for _ in range(cfg.n_layers)]
+        if cfg.family == "hybrid":
+            shared = each_block(_init_decoder_block(generator, cfg))
+    else:
+        layers = [each_block(_init_decoder_block(generator, cfg))
+                  for _ in range(cfg.n_layers)]
     model = Model(embed, init_norm(cfg, device=generator.device), layers,
-                  lm_head)
+                  lm_head, shared)
     return model.to(dev)
 
 
@@ -135,6 +190,42 @@ def _decoder_block(p: DecoderBlock, x, cfg: ModelConfig, *, positions,
     return x, new_kv, aux
 
 
+def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, ssm_state,
+               n_valid=None):
+    h = apply_norm(p.norm, x, cfg)
+    y, new_state = apply_mamba2(p.mamba, h, cfg, state=ssm_state,
+                                n_valid=n_valid)
+    return x + cfg.residual_multiplier * y.to(x.dtype), new_state
+
+
+def _ssm_stack(model: Model, x, cfg: ModelConfig, *, positions, cache,
+               cache_pos, n_valid=None):
+    """The SSM / hybrid layer loop (the reference's ``_scan_ssm``): at a
+    shared site the shared block runs first, over its own KV cache
+    ``shared_k[site]`` / ``shared_v[site]`` (site = the sites before it);
+    then the Mamba block, whose new state is written into the cache's
+    layer row in place.  With a cache and S > 1 (or ``n_valid``) the
+    blocks run in prefill-commit mode."""
+    site = 0
+    for i, (layer, shared_here) in enumerate(zip(model.layers,
+                                                 shared_sites(cfg))):
+        if shared_here:
+            cache_kv = (None if cache is None else
+                        (cache["shared_k"][site], cache["shared_v"][site]))
+            x, _, _ = _decoder_block(model.shared_attn, x, cfg,
+                                     positions=positions, is_local=False,
+                                     cache_kv=cache_kv, cache_pos=cache_pos)
+            site += 1
+        state = (None if cache is None else
+                 {name: cache[key][i] for key, name in SSM_STATE.items()})
+        x, new_state = _ssm_block(layer, x, cfg, ssm_state=state,
+                                  n_valid=n_valid)
+        if cache is not None:
+            for key, name in SSM_STATE.items():
+                cache[key][i].copy_(new_state[name])
+    return x
+
+
 def _local_flags(cfg: ModelConfig) -> list[bool]:
     """Which layers use the sliding window (gemma2: even)."""
     if cfg.layer_pattern == "local_global" and cfg.sliding_window:
@@ -149,25 +240,29 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Returns (logits f32 (B, S, V), cache, aux); ``aux`` holds the
     load-balance loss summed over the layers (0 for a dense model).
 
-    tokens: (B, S) int decoder tokens.  ``cache``/``cache_pos``: the dense
-    or paged decode cache (updated in place, and returned) and the write
-    position — a scalar (batch-synchronous, made a (B,) vector here) or a
-    (B,) int vector of per-sequence positions.  A paged cache comes back
-    with ``seq_lens = cache_pos + S``.  DistilBERT runs causally here, as
-    in the JAX package.
+    tokens: (B, S) int decoder tokens.  ``cache``/``cache_pos``: the dense,
+    paged or SSM / hybrid decode cache (updated in place, and returned)
+    and the write position — a scalar (batch-synchronous, made a (B,)
+    vector here) or a (B,) int vector of per-sequence positions.  A paged
+    or SSM cache comes back with ``seq_lens = cache_pos + S``.  DistilBERT
+    runs causally here, as in the JAX package.
 
-    ``n_valid`` (B,) int runs the paged cache in the speculative verify
-    mode: of the S tokens only the first ``n_valid[b]`` of row b are
-    committed; the others write to the allocator's scratch page and
-    attend to nothing, and ``seq_lens`` comes back as ``cache_pos +
-    n_valid``.  It needs a paged cache that carries the allocator.
+    ``n_valid`` (B,) int marks how many of the S tokens each row
+    commits.  On an SSM / hybrid cache the recurrent state advances by
+    exactly that many (prefill of right-padded prompts).  On a paged cache
+    it is the speculative verify mode: the other rows write to the
+    allocator's scratch page and attend to nothing, which needs a cache
+    that carries the allocator.  Either cache comes back with
+    ``seq_lens = cache_pos + n_valid``.
     """
     check_supported(cfg)
     paged = cache is not None and "k_pages" in cache
-    if n_valid is not None:
+    ssm_cache = cache is not None and "ssm_h" in cache
+    if n_valid is not None and not ssm_cache:
         if not paged:
             raise NotImplementedError(
-                "n_valid (speculative verify) needs the paged cache layout")
+                "n_valid needs the paged cache layout (speculative verify) "
+                "or an SSM / hybrid cache")
         from repro_torch.serving.allocator import require_allocator
         require_allocator(cache, "apply_model(n_valid=)")
     x = embed_tokens(model.embed, tokens, cfg)
@@ -184,21 +279,27 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
         pe = sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
         x = x + (pe[None] if positions.dim() == 1 else pe)
 
-    # each layer's slice of the cache: dense k/v, or the paged pools (and
-    # the int8 layout's scale pools, which travel with their pages)
-    kv_keys = [key for key in ("k", "v", "k_pages", "v_pages", "k_scales",
-                               "v_scales") if cache is not None and key in cache]
-    page_table = cache["page_table"] if paged else None
     lb = torch.zeros((), device=dev)
-    for i, (layer, flag) in enumerate(zip(model.layers, _local_flags(cfg))):
-        cache_kv = tuple(cache[key][i] for key in kv_keys) or None
-        x, _, aux = _decoder_block(layer, x, cfg, positions=positions,
-                                   is_local=flag, cache_kv=cache_kv,
-                                   cache_pos=cache_pos,
-                                   page_table=page_table, n_new=n_valid)
-        if "load_balance_loss" in aux:
-            lb = lb + aux["load_balance_loss"]
-    if paged:
+    if is_ssm_family(cfg):
+        x = _ssm_stack(model, x, cfg, positions=positions, cache=cache,
+                       cache_pos=cache_pos, n_valid=n_valid)
+    else:
+        # each layer's slice of the cache: dense k/v, or the paged pools
+        # (and the int8 layout's scale pools, which travel with their pages)
+        kv_keys = [key for key in ("k", "v", "k_pages", "v_pages",
+                                   "k_scales", "v_scales")
+                   if cache is not None and key in cache]
+        page_table = cache["page_table"] if paged else None
+        for i, (layer, flag) in enumerate(zip(model.layers,
+                                              _local_flags(cfg))):
+            cache_kv = tuple(cache[key][i] for key in kv_keys) or None
+            x, _, aux = _decoder_block(layer, x, cfg, positions=positions,
+                                       is_local=flag, cache_kv=cache_kv,
+                                       cache_pos=cache_pos,
+                                       page_table=page_table, n_new=n_valid)
+            if "load_balance_loss" in aux:
+                lb = lb + aux["load_balance_loss"]
+    if paged or ssm_cache:
         cache["seq_lens"] = (cache_pos + (s if n_valid is None
                                           else n_valid)).to(torch.int32)
 

@@ -25,9 +25,20 @@ prefill padding, masked until decode overwrites it).  The serving engine
 and ``models/attention.py`` write new keys and values into these tensors
 in place.
 
+**SSM / hybrid** — per-slot recurrent state, dense (O(1) in context
+length, nothing to page):
+  ssm_h      (L, B, H, P, N) f32 — each Mamba layer's SSD state
+  conv_x     (L, B, k-1, d_inner) f32, conv_B / conv_C (L, B, k-1, N)
+             f32 — the conv windows' tails
+  shared_k/v (sites, B, S_max, KVH, hd) — hybrid only: the shared
+             attention block's KV, one row per application site
+  seq_lens   (B,) int32 — tokens committed per sequence
+The state stays f32 whatever the KV dtype: the recurrence and the conv
+windows accumulate across steps.
+
 Not ported yet: mesh sharding and per-shard free lists (ROADMAP queue
-1, item 13).  SSM and hybrid state come with item 12, and until then
-``init_cache`` refuses their configs as ``init_model`` does.
+1, item 13).  Vision and encoder-decoder state come with item 12, and
+until then ``init_cache`` refuses their configs as ``init_model`` does.
 """
 from __future__ import annotations
 
@@ -38,7 +49,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels.flash_attention.decode import ceil_div
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import (check_supported,
+                                            is_ssm_family, shared_sites)
 
 DEFAULT_PAGE_SIZE = 64
 
@@ -73,6 +85,12 @@ class CacheConfig:
     kv_quant: str = "none"
 
 
+def n_shared_sites(cfg: ModelConfig) -> int:
+    """Application sites of the hybrid family's shared block (0 outside
+    it): ``n_layers // shared_attn_every``."""
+    return sum(shared_sites(cfg))
+
+
 def default_page_table(batch: int, max_pages: int,
                        alloc: str = "contiguous") -> torch.Tensor:
     """(B, max_pages) int32 page table over a ``batch * max_pages`` pool.
@@ -104,9 +122,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``max_len`` tokens, on ``device``.
 
     ``dtype`` is the KV storage dtype (the int8 layout stores int8 values
-    and f32 scales instead).  ``config`` selects the layout (default: the
-    dense one).  Returns a dict of tensors, shapes in the module
-    docstring; the paged dict also carries ``page_table`` and
+    and f32 scales instead; SSM state is f32 whatever it is).  ``config``
+    selects the layout (default: the dense one; the SSM and hybrid
+    families take only that).  Returns a dict of tensors, shapes in the
+    module docstring; the paged dict also carries ``page_table`` and
     ``seq_lens``, and under ``alloc="dynamic"`` the allocator's state,
     with every table row pointing at the reserved scratch page.
     """
@@ -123,6 +142,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     check_supported(cfg)
     dev = resolve_device(device)
     kvh, hd, n_layers = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    if is_ssm_family(cfg):
+        if config.layout == "paged":
+            raise ValueError(
+                "the paged layout applies to attention-family KV caches; "
+                f"family {cfg.family!r} keeps its O(1) SSM state dense")
+        k = cfg.ssm_conv - 1
+        f32 = dict(dtype=torch.float32, device=dev)
+        cache = {
+            "ssm_h": torch.zeros((n_layers, batch, cfg.ssm_n_heads,
+                                  cfg.ssm_head_dim, cfg.ssm_state), **f32),
+            "conv_x": torch.zeros((n_layers, batch, k, cfg.d_inner), **f32),
+            "conv_B": torch.zeros((n_layers, batch, k, cfg.ssm_state), **f32),
+            "conv_C": torch.zeros((n_layers, batch, k, cfg.ssm_state), **f32),
+        }
+        sites = n_shared_sites(cfg)
+        if sites:
+            shape = (sites, batch, max_len, kvh, hd)
+            cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+            cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["seq_lens"] = torch.zeros((batch,), dtype=torch.int32,
+                                        device=dev)
+        return cache
     if config.layout == "dense":
         shape = (n_layers, batch, max_len, kvh, hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),

@@ -8,9 +8,11 @@ the batched decode loop.
     (S, S) score block.
   * ``prefill`` runs the whole (right-padded) prompt batch through the
     cache-writing path — one pass, or fixed-size chunks (``chunk=``) —
-    committing prompt KV into the cache (dense rows or paged pools) and
-    returning each sequence's next-token logits at its *own* last prompt
-    position; a batch may mix prompt lengths.
+    committing prompt KV into the cache (dense rows or paged pools; for
+    the SSM and hybrid families the recurrent state, advanced by each
+    row's own valid tokens, and the shared block's KV) and returning each
+    sequence's next-token logits at its *own* last prompt position; a
+    batch may mix prompt lengths.
   * ``serve_step`` is one decode step: B new tokens against per-sequence
     contexts.
   * ``greedy_decode`` is the batched serving loop, a Python loop over
@@ -62,6 +64,13 @@ def validate_decode_cache(cache: dict, cfg: ModelConfig) -> None:
     """Fail loudly on a cache built for another model config, or on a
     layout the decode path cannot execute (int8 pages without their scale
     pools would be read as raw integers)."""
+    if ("ssm_h" in cache) != (cfg.family in ("ssm", "hybrid")):
+        # a family/cache mismatch would run the wrong layer loop over the
+        # wrong state
+        got = "SSM slot state" if "ssm_h" in cache else "attention KV"
+        raise ValueError(
+            f"cache carries {got} but cfg.family is {cfg.family!r} — was "
+            "it built with a different model config?")
     paged = "k_pages" in cache
     want = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
     for name in PAGE_STATE_KEYS if paged else ("k", "v"):
@@ -94,7 +103,7 @@ def validate_decode_cache(cache: dict, cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"unsupported decode cache combo ({combo}): scale "
                     "pools are present but the pages are not int8")
-    elif not cache["k"].dtype.is_floating_point:
+    elif "k" in cache and not cache["k"].dtype.is_floating_point:
         raise NotImplementedError(
             f"unsupported decode cache combo (layout='dense', kv dtype "
             f"{cache['k'].dtype}): quantized KV is only implemented for "
@@ -102,11 +111,18 @@ def validate_decode_cache(cache: dict, cfg: ModelConfig) -> None:
             "kv_quant='int8'))")
 
 
-def cache_capacity(cache: dict) -> int:
-    """Token capacity of a decode cache."""
+def cache_capacity(cache: dict) -> int | None:
+    """Token capacity of a decode cache, or None for pure-SSM state (O(1)
+    in context length: no positional capacity to exceed)."""
     if "k_pages" in cache:
         return cache["page_table"].shape[1] * cache["k_pages"].shape[2]
-    return cache["k"].shape[2]
+    if "k" in cache:
+        return cache["k"].shape[2]
+    if "shared_k" in cache:
+        # hybrid: the shared block's sites hold the only positional
+        # buffers, and their S_max bounds the context
+        return cache["shared_k"].shape[2]
+    return None
 
 
 def prefill(model: Model, cache: dict, prompts: torch.Tensor,
@@ -126,23 +142,37 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
     on and the run sits at positions ``start_pos..``; ``prompt_lens``
     stays absolute (prefix and suffix).
 
+    On an SSM / hybrid cache each row's valid-token count (``prompt_lens
+    - start``, clipped to the pass's width) rides into the model: the
+    recurrence cannot mask padding after the fact, so padded steps leave
+    the state untouched.
+
     Returns (next_logits (B, V) f32 at each sequence's last real prompt
-    token, the cache — updated in place, a paged one with ``seq_lens =
-    prompt_lens``).
+    token, the cache — updated in place, a paged or SSM one with
+    ``seq_lens = prompt_lens``).
     """
     b, s_pad = prompts.shape
     validate_decode_cache(cache, cfg)
     capacity = cache_capacity(cache)
-    if start_pos + s_pad > capacity:
+    if capacity is not None and start_pos + s_pad > capacity:
         # past capacity the page-table lookup would fault on the card
         raise ValueError(f"prompt width {start_pos + s_pad} exceeds cache "
                          f"capacity {capacity} tokens")
     dev = prompts.device
     prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.long, device=dev)
     rows = torch.arange(b, device=dev)
+    is_ssm = "ssm_h" in cache
+
+    def valid(c0, width):
+        # the SSM state's committed tokens in the pass at c0 (else None)
+        if not is_ssm:
+            return None
+        return (prompt_lens - (start_pos + c0)).clamp(0, width)
+
     if chunk is None or s_pad <= chunk:
         logits, cache, _ = apply_model(model, prompts, cfg, cache=cache,
-                                       cache_pos=start_pos)
+                                       cache_pos=start_pos,
+                                       n_valid=valid(0, s_pad))
         next_logits = logits[rows, prompt_lens - 1 - start_pos]
     else:
         next_logits = None
@@ -150,7 +180,8 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
             cs = min(chunk, s_pad - c0)
             logits, cache, _ = apply_model(model, prompts[:, c0:c0 + cs],
                                            cfg, cache=cache,
-                                           cache_pos=start_pos + c0)
+                                           cache_pos=start_pos + c0,
+                                           n_valid=valid(c0, cs))
             if next_logits is None:
                 next_logits = torch.zeros((b, logits.shape[-1]),
                                           dtype=logits.dtype, device=dev)
@@ -172,23 +203,25 @@ def serve_step(model: Model, cache: dict, tokens: torch.Tensor,
 
     tokens (B, 1) int; pos is a scalar (batch-synchronous), a (B,) int
     vector of per-sequence lengths (mixed-length batches), or None to read
-    the paged cache's own ``seq_lens``.  Every position must lie below
-    ``cache_capacity(cache)``: a scalar is checked here, but a device
-    vector is not (that would read it on the host every step), and past
-    capacity its write faults on the card.  ``greedy_decode`` checks its
-    whole run once.
+    the cache's own ``seq_lens`` (paged and SSM caches carry them).  Every
+    position must lie below ``cache_capacity(cache)`` (where it is not
+    None): a scalar is checked here, but a device vector is not (that
+    would read it on the host every step), and past capacity its write
+    faults on the card.  ``greedy_decode`` checks its whole run once.
 
     Returns (logits (B, 1, V) f32, cache — updated in place).
     """
     validate_decode_cache(cache, cfg)
-    if isinstance(pos, int) and pos + tokens.shape[1] > cache_capacity(cache):
+    capacity = cache_capacity(cache)
+    if (isinstance(pos, int) and capacity is not None
+            and pos + tokens.shape[1] > capacity):
         raise ValueError(f"decode position {pos} exceeds cache capacity "
-                         f"{cache_capacity(cache)} tokens")
+                         f"{capacity} tokens")
     if pos is None:
         if "seq_lens" not in cache:
             raise ValueError("pos=None needs a cache carrying seq_lens (the "
-                             "paged layout); a dense cache needs an "
-                             "explicit pos")
+                             "paged layout or SSM state); a dense cache "
+                             "needs an explicit pos")
         pos = cache["seq_lens"]
     logits, cache, _ = apply_model(model, tokens, cfg, cache=cache,
                                    cache_pos=pos)
@@ -201,7 +234,7 @@ def greedy_decode(model: Model, cache: dict, first_token: torch.Tensor,
 
     first_token (B, 1) int; start_pos is an int (batch-synchronous), a
     (B,) int vector of per-sequence lengths, or None to start from the
-    paged cache's ``seq_lens``.
+    cache's ``seq_lens`` (paged and SSM caches).
 
     Returns (tokens (B, n_steps + 1) — ``first_token`` followed by the
     greedy continuations — and the cache, updated in place).
@@ -211,15 +244,17 @@ def greedy_decode(model: Model, cache: dict, first_token: torch.Tensor,
     if start_pos is None:
         if "seq_lens" not in cache:
             raise ValueError("start_pos=None needs a cache carrying "
-                             "seq_lens (the paged layout)")
+                             "seq_lens (the paged layout or SSM state)")
         start_pos = cache["seq_lens"]
     pos = torch.as_tensor(start_pos, device=dev).long()
     # one host read per call, not per step: past capacity a write would
-    # fault on the card
-    if n_steps and int(pos.max()) + n_steps > cache_capacity(cache):
+    # fault on the card (pure-SSM state has no capacity)
+    capacity = cache_capacity(cache)
+    if (n_steps and capacity is not None
+            and int(pos.max()) + n_steps > capacity):
         raise ValueError(f"{n_steps} decode steps from position "
                          f"{int(pos.max())} exceed cache capacity "
-                         f"{cache_capacity(cache)} tokens")
+                         f"{capacity} tokens")
     tok = first_token
     out = [first_token]
     for _ in range(n_steps):

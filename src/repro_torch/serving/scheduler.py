@@ -2,13 +2,16 @@
 
 The static serving loop (``engine.prefill`` → ``engine.greedy_decode``)
 holds every sequence's state until the slowest one finishes.  This loop
-serves a stream instead, speaking to the family's state handler
-(``serving/state.py``):
+serves a stream instead, speaking only the family's state-handler
+contract (``serving/state.py``), so attention models serve over a paged
+pool, mamba2 over per-row SSM slots and zamba2 over both through one
+code path:
 
   * **admit** — while a batch slot is free and the handler can claim
     state for ``prompt + budget`` tokens (pages: admission waits when the
-    pool cannot cover the head of the queue), pop the next request and
-    prefill its prompt.  If a live sequence shares a prompt prefix, the
+    pool cannot cover the head of the queue; SSM slots always admit),
+    pop the next request and prefill its prompt.  If a live sequence
+    shares a prompt prefix and the handler supports sharing, the
     prefix's full pages are aliased (``allocator.fork_sequence``:
     refcounted read-only sharing, the boundary page copied) and only the
     suffix is prefilled.
@@ -18,7 +21,8 @@ serves a stream instead, speaking to the family's state handler
     tokens per row.  Idle slots ride along masked (their table rows
     point at the scratch page; their lengths are pinned back to 0).
   * **retire** — finished sequences (budget spent or EOS) release their
-    pages; pages whose refcount reaches zero return to the free list.
+    state through the handler: pages whose refcount reaches zero return
+    to the free list, SSM slots zero their recurrent state.
 
 Prompts are right-padded to a multiple of ``bucket`` before prefill, as
 in the JAX package (there it bounds the number of compiled shapes; here
@@ -35,6 +39,7 @@ keywords are not ported: ``config=`` is their spelling.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections import deque
 from typing import NamedTuple
 
@@ -45,15 +50,16 @@ from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model
 from repro_torch.serving.cache import CacheConfig, init_cache
-from repro_torch.serving.engine import (cache_capacity, draft_prefill_row,
-                                        prefill, serve_step, spec_step)
+from repro_torch.serving.engine import (draft_prefill_row, prefill,
+                                        serve_step, spec_step)
 from repro_torch.serving.state import default_serving_config, state_handler
 
 __all__ = ["Request", "Scheduler", "PoolOccupancy", "SpecConfig"]
 
 
 class PoolOccupancy(NamedTuple):
-    """Pool usage: ``used``/``total`` pages, and ((used, size),) per pool
+    """Pool usage in the handler's units (pages, or busy batch slots for
+    the SSM families): ``used``/``total``, and ((used, size),) per pool
     shard (one shard in the port)."""
 
     used: int
@@ -70,6 +76,11 @@ class SpecConfig:
     vocabulary).  ``n_draft``: tokens proposed per tick; the target
     verifies them (and the input token) in one ``n_draft + 1``-row pass
     through K4's verify mode, so each tick emits 1..n_draft tokens.
+
+    The Scheduler honours it only where the family's state handler
+    ``supports_speculative`` (the attention families); the SSM and hybrid
+    families cannot rewind their recurrent state, and serve plain 1-token
+    decode with a warning.
     """
 
     draft_model: Model
@@ -102,18 +113,23 @@ class _Slot:
 
 
 class Scheduler:
-    """Continuous-batching serving loop over a paged, dynamically
-    allocated KV pool.
+    """Continuous-batching serving loop over any ported family's decode
+    state, through the state-handler registry (``serving/state.py``).
 
     Args:
-      model / cfg: the model (the dense or MoE family).
+      model / cfg: the model (dense, MoE, SSM or hybrid family);
+        ``cfg.family`` picks the state handler.
       slots: batch width B of the decode step.
-      max_len: per-sequence context bound (the page table's width).
-      config: a ``CacheConfig`` with ``layout="paged"`` and
-        ``alloc="dynamic"``: ``page_size``, ``pool_pages`` (may be far
-        below ``slots * ceil(max_len / page_size)``: admission control
-        and prefix sharing make oversubscription safe) and ``kv_quant``.
-        Default: ``default_serving_config`` (dynamic 16-token pages).
+      max_len: per-sequence context bound (the page table's width; the
+        shared-KV S_max for hybrid; nothing for pure SSM, whose state is
+        O(1)).
+      config: a ``CacheConfig``.  Attention families need
+        ``layout="paged"`` and ``alloc="dynamic"``: ``page_size``,
+        ``pool_pages`` (may be far below ``slots * ceil(max_len /
+        page_size)``: admission control and prefix sharing make
+        oversubscription safe) and ``kv_quant``.  The SSM families use the
+        dense layout.  Default: ``default_serving_config`` (dynamic
+        16-token pages; dense for SSM and hybrid).
       share_prefix: alias common prompt-prefix pages between live
         sequences instead of recomputing them.
       bucket: prompts are right-padded to a multiple of this.
@@ -121,6 +137,8 @@ class Scheduler:
       dtype: the KV storage dtype (int8 pools ignore it for the target).
       spec: a ``SpecConfig`` for speculative decode; greedy output is the
         plain decode's (bitwise with the plain versions on the CPU).
+        Families whose handler lacks ``supports_speculative`` (SSM,
+        hybrid) warn and serve plain decode.
       device: where the caches live (default the card; raises without
         one).
     """
@@ -132,12 +150,8 @@ class Scheduler:
                  spec: SpecConfig | None = None, device="cuda"):
         if config is None:
             config = default_serving_config(cfg)
-        if config.layout != "paged" or config.alloc != "dynamic":
-            raise ValueError(
-                "Scheduler needs CacheConfig(layout='paged', "
-                f"alloc='dynamic'); got layout={config.layout!r}, "
-                f"alloc={config.alloc!r}")
-        self.handler = state_handler(cfg)
+        self.handler = state_handler(cfg, config)
+        self.handler.require_scheduler_config()
         self.model, self.cfg, self.config = model, cfg, config
         self.device = resolve_device(device)
         self.page_size, self.bucket = config.page_size, bucket
@@ -151,13 +165,18 @@ class Scheduler:
         # speculative ticks
         self.spec_stats = {"ticks": 0, "proposed": 0, "accepted": 0,
                            "emitted": 0}
-        if spec is not None:
+        if spec is not None and not self.handler.supports_speculative:
+            warnings.warn(
+                f"state handler {self.handler.name!r} does not support "
+                "speculative rollback; degrading to 1-token decode",
+                stacklevel=2)
+        elif spec is not None:
             if spec.n_draft < 1:
                 raise ValueError(f"n_draft must be >= 1, got {spec.n_draft}")
             self.spec = spec
             # the draft's dense cache holds KV through position
             # c + n_draft - 1, and c reaches capacity - 1
-            cap = cache_capacity(self.cache)
+            cap = self.handler.capacity(self.cache) or max_len
             self.draft_cache = init_cache(spec.draft_cfg, slots,
                                           cap + spec.n_draft, dtype=dtype,
                                           device=self.device)
@@ -175,17 +194,28 @@ class Scheduler:
     def submit(self, prompt, max_new_tokens: int, rid: int | None = None):
         """Queue a request; returns its id.  Refuses, here rather than
         mid-tick, a request whose reservation could never fit the
-        per-sequence table (it would wedge the head of the queue)."""
+        per-sequence table, or the hybrid family's shared-KV capacity (it
+        would wedge the head of the queue)."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size < 1 or max_new_tokens < 1:
             raise ValueError("a request needs a prompt and a budget >= 1")
-        width = self.cache["page_table"].shape[1]
-        need = -(-(prompt.size + max_new_tokens) // self.page_size)
-        if need > width:
-            raise ValueError(
-                f"request needs {need} pages (prompt {prompt.size} + "
-                f"budget {max_new_tokens} tokens) but the table holds "
-                f"{width} (max_len {width * self.page_size})")
+        if "page_table" in self.cache:
+            width = self.cache["page_table"].shape[1]
+            need = -(-(prompt.size + max_new_tokens) // self.page_size)
+            if need > width:
+                raise ValueError(
+                    f"request needs {need} pages (prompt {prompt.size} + "
+                    f"budget {max_new_tokens} tokens) but the table holds "
+                    f"{width} (max_len {width * self.page_size})")
+        else:
+            # slot families: pure SSM has no positional bound (capacity
+            # None); hybrid is bounded by the shared KV's S_max
+            cap = self.handler.capacity(self.cache)
+            if cap is not None and prompt.size + max_new_tokens > cap:
+                raise ValueError(
+                    f"request needs {prompt.size + max_new_tokens} tokens "
+                    f"(prompt {prompt.size} + budget {max_new_tokens}) but "
+                    f"the cache capacity is {cap} tokens")
         if rid is None:
             rid = self._next_rid
         self._next_rid = max(self._next_rid, rid + 1)
@@ -236,10 +266,10 @@ class Scheduler:
         done = []
         for b, slot in enumerate(self.slots):
             if slot is not None and self._finished(slot):
-                # the draft's dense row needs no freeing: the target's
-                # seq_lens governs what it attends, and the next
-                # occupant's prefill overwrites it before a draft step
                 self.cache = self.handler.free(self.cache, b)
+                if self.spec is not None:
+                    self.draft_cache = self.handler.draft_free(
+                        self.draft_cache, b)
                 self.finished[slot.req.rid] = np.asarray(slot.generated,
                                                          np.int64)
                 self.request_log[slot.req.rid].update(
@@ -276,7 +306,7 @@ class Scheduler:
             req = self.queue[0]
             budget = int(req.prompt.size) + req.max_new_tokens
             parent, shared = -1, 0
-            if self.share_prefix:
+            if self.share_prefix and self.handler.supports_prefix_sharing:
                 parent, shared = self._prefix_match(req.prompt)
             if shared > 0:
                 self.cache, ok = self.handler.fork(

@@ -257,6 +257,12 @@ GEMM_VARIANTS = [
     ((513, 208, 300), ("wide", 256, 1)),      # ragged everything
     ((1024, 2048, 11008), ("wide", 256, 1)),
     ((5, 770, 100), ("general", 0, 1)),       # K % 16: no TMA
+    # zamba2-7b's narrowest outputs (in_B / in_C 64, in_dt 112) at decode,
+    # verify and a long prompt: fewer columns than one weight tile
+    ((4, 3584, 64), ("swap", 8, 7)),
+    ((20, 3584, 112), ("swap", 32, 7)),
+    ((8192, 3584, 64), ("wide", 256, 1)),
+    ((8192, 3584, 112), ("wide", 256, 1)),
 ]
 
 
@@ -290,6 +296,7 @@ QKV_VARIANTS = [
     ((256, 768, 768, 768), ("swap", 64, 1)),
     ((600, 2048, 520, 136), ("wide", 256, 1)),    # ragged N
     ((3, 70, 50, 20), ("general", 0, 1)),
+    ((4, 3584, 3584, 3584), ("swap", 8, 1)),      # zamba2-7b's MHA
 ]
 
 
@@ -735,6 +742,9 @@ FLASH_CASES = {
     "s_ne_t": (1, 100, 200, 4, 4, 16, dict(causal=False, softcap=50.0)),
     "odd_d": (1, 90, 90, 4, 2, 18, dict(window=20)),
     "long_walk": (1, 2048, 2048, 16, 2, 128, {}),
+    # zamba2-7b's shared block: MHA (g = 1) at head dim 112 (zero-padded
+    # to 128 in the bf16 kernel)
+    "mha_d112": (1, 1024, 1024, 32, 32, 112, {}),
 }
 
 
@@ -851,5 +861,69 @@ def test_apply_moe_on_the_card(cuda, arch):
     y1, _ = moe.apply_moe(qcard, xb, bcfg)
     y2, _ = moe.apply_moe(qcard, xb, bcfg)
     torch.cuda.synchronize()
+    assert y1.dtype == torch.bfloat16 and torch.equal(y1, y2)
+    assert bool(torch.isfinite(y1).all())
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_7b"])
+def test_apply_mamba2_on_the_card(cuda, arch):
+    """The Mamba2 block on the card in its three modes: in f32 ``none``
+    (TF32 off) within rel-err 1e-5 of the CPU, state included; in bf16
+    w8a8 one K1 serves the five in-projections and one out_proj (2 K1, 6
+    K2 a call), and two calls are bitwise equal."""
+    import copy
+
+    from repro_torch.core.quantize_params import quantize_model_params
+    from repro_torch.models import ssm
+    cfg = get_smoke_config(arch).replace(quant_proj="none", dtype="float32")
+    model = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    block = model.layers[1].mamba
+    g = torch.Generator().manual_seed(1)
+    k = cfg.ssm_conv - 1
+    state = {"h": torch.randn((3, cfg.ssm_n_heads, cfg.ssm_head_dim,
+                               cfg.ssm_state), generator=g) * 0.3,
+             "conv_x": torch.randn((3, k, cfg.d_inner), generator=g),
+             "conv_B": torch.randn((3, k, cfg.ssm_state), generator=g),
+             "conv_C": torch.randn((3, k, cfg.ssm_state), generator=g)}
+    nv = torch.tensor([13, 5, 0])
+    modes = {"cache-less": (torch.randn((3, 32, cfg.d_model), generator=g),
+                            None, None),
+             "decode": (torch.randn((3, 1, cfg.d_model), generator=g),
+                        state, None),
+             "prefill-commit": (torch.randn((3, 13, cfg.d_model),
+                                            generator=g), state, nv)}
+
+    def err(a, b):
+        return ((a.cpu().double() - b.double()).abs().max()
+                / b.double().abs().max()).item()
+
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = copy.deepcopy(block).to(cuda)
+        for name, (x, st, n_valid) in modes.items():
+            y, new = ssm.apply_mamba2(
+                card, x.to(cuda), cfg,
+                state=None if st is None
+                else {key: v.to(cuda) for key, v in st.items()},
+                n_valid=None if n_valid is None else n_valid.to(cuda))
+            y_cpu, new_cpu = ssm.apply_mamba2(block, x, cfg, state=st,
+                                              n_valid=n_valid)
+            assert err(y, y_cpu) <= 1e-5, name
+            for key in new_cpu or {}:
+                assert new[key].dtype == torch.float32
+                assert err(new[key], new_cpu[key]) <= 1e-5, (name, key)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+    qcard = quantize_model_params(card)
+    bcfg = cfg.replace(quant_proj="w8a8", dtype="bfloat16")
+    x = modes["cache-less"][0].to(cuda, torch.bfloat16)
+    reset_launch_counts()
+    y1, _ = ssm.apply_mamba2(qcard, x, bcfg)
+    counts = launch_counts()
+    y2, _ = ssm.apply_mamba2(qcard, x, bcfg)
+    torch.cuda.synchronize()
+    assert counts["quant_act"] == 2 and counts["tiled_matmul"] == 6
     assert y1.dtype == torch.bfloat16 and torch.equal(y1, y2)
     assert bool(torch.isfinite(y1).all())

@@ -89,8 +89,7 @@ def test_apply_model_matches_jax(arch, mode):
     assert float(aux["load_balance_loss"]) == 0.0
 
 
-@pytest.mark.parametrize("arch", [
-    "mamba2_370m", "zamba2_7b", "seamless_m4t_medium", "phi3_vision_4_2b"])
+@pytest.mark.parametrize("arch", ["seamless_m4t_medium", "phi3_vision_4_2b"])
 def test_other_families_raise(arch):
     """The JAX package's configs of families the port does not run yet,
     carried over field for field, are refused by the model and the cache."""

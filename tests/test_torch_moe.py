@@ -40,7 +40,8 @@ from repro_torch.serving import allocator as al
 from repro_torch.serving.cache import CacheConfig, init_cache
 from repro_torch.serving.engine import greedy_decode, prefill, serve_step
 from repro_torch.serving.scheduler import Scheduler, SpecConfig
-from repro_torch.serving.state import PagedKVHandler, state_handler
+from repro_torch.serving.state import (HybridHandler, PagedKVHandler,
+                                       SlotStateHandler, state_handler)
 from test_torch_bridge import numpy_tree, paired_configs, rel_err
 from test_torch_model import TOL
 from test_torch_paged import LENS, PAGED, _prompts, jax_paged_serve, \
@@ -293,15 +294,23 @@ def test_init_model_quantizes_block_by_block(arch):
 
 
 def test_check_supported_admits_moe_only():
+    """The MoE configs get the paged handler, the SSM and hybrid configs
+    their slot handlers; the vision and audio families still raise."""
     from repro import configs as jax_configs
     for arch in MOE_ARCHS:
         cfg = get_smoke_config(arch)
         init_cache(cfg, 2, 8, device="cpu")
         assert isinstance(state_handler(cfg), PagedKVHandler)
-    cfg = ModelConfig(**dataclasses.asdict(
-        jax_configs.get_smoke_config("mamba2_370m")))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for arch, handler in (("mamba2_370m", SlotStateHandler),
+                          ("zamba2_7b", HybridHandler)):
+        cfg = get_smoke_config(arch)
+        init_cache(cfg, 2, 8, device="cpu")
+        assert type(state_handler(cfg)) is handler
+    for arch in ("phi3_vision_4_2b", "seamless_m4t_medium"):
+        cfg = ModelConfig(**dataclasses.asdict(
+            jax_configs.get_smoke_config(arch)))
+        with pytest.raises(NotImplementedError, match="item 12"):
+            init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Port's continuous-batching stack vs the JAX package on the same inputs:
 the dynamic page allocator (free stack, refcounts, fork with copy-on-write),
 the dynamic paged cache, suffix prefill onto a committed prefix, the
-``paged_kv`` state handler and the ``Scheduler``.  Mirrors ``tests/test_serving.py``; the SSM handler's test
-waits for the SSM family (ROADMAP queue 1, item 12)."""
+``paged_kv`` state handler and the ``Scheduler``.  Mirrors
+``tests/test_serving.py``; the SSM and hybrid handlers' cases are in
+``tests/test_torch_ssm.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +22,7 @@ from repro_torch.serving.cache import (CacheConfig, default_page_table,
                                        init_cache, page_nbytes)
 from repro_torch.serving.engine import greedy_decode, prefill
 from repro_torch.serving.scheduler import Scheduler
-from repro_torch.serving.state import (PagedKVHandler,
+from repro_torch.serving.state import (PagedKVHandler, SlotStateHandler,
                                        default_serving_config, state_handler)
 from test_torch_bridge import paired_models, rel_err
 
@@ -317,8 +318,8 @@ def test_state_handler_registry_and_gate():
                    CacheConfig()):
         with pytest.raises(ValueError, match="dynamic"):
             Scheduler(model, cfg, config=config, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        state_handler(cfg.replace(family="ssm"))
+    assert type(state_handler(cfg.replace(family="ssm"))) is \
+        SlotStateHandler
     cache, _ = _dyn(batch=3, page=8, pool=12)
     cache, _ = handler.admit(cache, 1, 20)
     cache["seq_lens"][:] = torch.tensor([5, 9, 4], dtype=torch.int32)
