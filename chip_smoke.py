@@ -66,7 +66,7 @@
    2 layers (one local with the 4096 window, one global; softcap 50), the
    same way.
    The continuous-batching path: qwen2.5-3b (w8a8, bf16) at full width
-   and SCHED_LAYERS (12) of its 36 layers through the ``Scheduler`` (4 slots of 512 tokens, a dynamic
+   and depth through the ``Scheduler`` (4 slots of 512 tokens, a dynamic
    pool of 40 16-token pages, prefix sharing, bucket 16, an EOS id) on a
    trace of 8 requests (prompts of 40-300 tokens, three sharing a
    100-token prefix; budgets 16-48; arrivals over 12 ticks), five ways:
@@ -1076,8 +1076,9 @@ def forward_launches(cfg, *, paged=False, flash=False) -> dict:
     decoder layer's launches at each application site of the hybrid's
     shared block (its dense KV cache runs no K4; a cache-less prompt past
     the threshold runs K5 there)."""
+    from repro_torch.models.transformer import is_ssm_family
     from repro_torch.serving.cache import n_shared_sites
-    if cfg.family not in ("ssm", "hybrid"):
+    if not is_ssm_family(cfg):
         return {k: cfg.n_layers * n
                 for k, n in layer_launches(cfg, paged=paged,
                                            flash=flash).items()}
@@ -1455,9 +1456,10 @@ SSM_RANGES = {"ssm in-projections": (SSM_MODULE, "apply_linears"),
 
 def family_ranges(cfg):
     """The profiler ranges of ``cfg``'s family, or None."""
+    from repro_torch.models.transformer import is_ssm_family
     if cfg.is_moe:
         return MOE_RANGES
-    if cfg.family in ("ssm", "hybrid"):
+    if is_ssm_family(cfg):
         return SSM_RANGES
     return None
 
@@ -1600,7 +1602,8 @@ def check_swiglu_detector(dev):
 
 
 def describe(cfg):
-    if cfg.family in ("ssm", "hybrid"):
+    from repro_torch.models.transformer import is_ssm_family
+    if is_ssm_family(cfg):
         from repro_torch.serving.cache import n_shared_sites
         text = (f"{cfg.name} {cfg.quant_proj} {cfg.dtype}, {cfg.n_layers} "
                 f"layers, d={cfg.d_model}, d_inner={cfg.d_inner}, "
@@ -1905,10 +1908,6 @@ def card_vs_cpu_long(dev):
 # of the 39 usable pages 3 are free when the fourth request (4 pages)
 # arrives at tick 3: admission waits for a retire in every run
 SCHED_SLOTS, SCHED_MAX_LEN, SCHED_POOL, SCHED_BUCKET = 4, 512, 40, 16
-# the depth of qwen2.5-3b's Scheduler runs (of its 36 layers): cut when
-# the SSM and hybrid path came, so the script stays well inside its time
-# limit on a slow host (PERF.md §4)
-SCHED_LAYERS = 12
 SCHED_EOS = 151643
 N_DRAFT = 4
 DRAFT_LAYERS = 2
@@ -1921,7 +1920,7 @@ PROFILE_TICK_PLAIN, PROFILE_TICK_SPEC = 16, 6
 # (RMSNorm's mean) may sum in another order; under w8a8 such a last-bit
 # difference ahead of quant_act flips int8 roundings, which move logits by
 # up to the quantization error (7.7e-3 of the largest logit at 2 layers,
-# PERF.md): the limit allows 2.6x that for 36 layers (the runs take 12).  In f32 'none' (card
+# PERF.md): the limit allows 2.6x that for 36 layers.  In f32 'none' (card
 # against CPU) only the last bits differ (rel-err 1e-5 at most): 1e-4.
 NEAR_TIE = 2e-2
 NEAR_TIE_F32 = 1e-4
@@ -1950,11 +1949,6 @@ def sched_trace(vocab):
     return list(zip(prompts, budgets)), arrivals
 
 
-def truncated(model, n):
-    """The first ``n`` layers of ``model`` with its embed and head."""
-    return first_layers(model, n)
-
-
 def make_scheduler(model, cfg, dev, kv_quant, draft, dtype):
     """``draft``: None (plain decode), or (draft model, draft cfg)."""
     from repro_torch.serving.cache import CacheConfig
@@ -1969,16 +1963,16 @@ def make_scheduler(model, cfg, dev, kv_quant, draft, dtype):
                      eos_id=SCHED_EOS, dtype=dtype, spec=spec, device=dev)
 
 
-def drive(sched, trace, profile_tick=None, finish=False):
+def drive(sched, trace, profile_tick=None, after_tick=None):
     """Serve ``trace`` to the end; returns (host s, the ms of each tick,
     the ticks whose admission stopped at a full pool with a request
     queued and a slot free).  Each tick ends in a synchronize.  With
     ``profile_tick``, stop instead at the first tick from it on that
     admits nothing (nothing queued, or no slot free) and run that tick
-    under ``torch.profiler`` (with ``finish``, then serve on to the end;
-    the timings then include the profiled tick's)."""
+    under ``torch.profiler``.  ``after_tick`` is called after each tick,
+    outside the timings."""
     reqs, arrivals = trace
-    i, tick_ms, page_waits = 0, [], 0
+    i, tick_ms, page_waits, aside = 0, [], 0, 0.0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while i < len(reqs) or sched.queue or sched.n_active:
@@ -1988,8 +1982,8 @@ def drive(sched, trace, profile_tick=None, finish=False):
         if (profile_tick is not None and sched._ticks >= profile_tick
                 and (not sched.queue or None not in sched.slots)):
             tick = sched._ticks
-            print(f"  tick {tick} ({sched.n_active} live rows) of "
-                  f"{'this run' if finish else 'the same run again'}:")
+            print(f"  tick {tick} ({sched.n_active} live rows) of the same "
+                  "run again:")
             rows = device_breakdown(
                 sched.step, top=14,
                 label=f"this tick ({sched.cfg.name}, "
@@ -1997,10 +1991,7 @@ def drive(sched, trace, profile_tick=None, finish=False):
                 ranges=family_ranges(sched.cfg))
             if swiglu_is_fused(sched.cfg):
                 no_swiglu_kernels(f"tick {tick}", rows)
-            if not finish:
-                break
-            profile_tick = None
-            continue
+            break
         # _admit pops the queue in order until no slot is free or the
         # pool cannot cover the head: fewer admissions than both allow
         # means it waited for pages
@@ -2013,7 +2004,11 @@ def drive(sched, trace, profile_tick=None, finish=False):
         page_waits += queued - len(sched.queue) < can
         if sched._ticks > 1000:
             fail("the scheduler did not drain in 1000 ticks")
-    return time.perf_counter() - t0, tick_ms, page_waits
+        if after_tick is not None:
+            t = time.perf_counter()
+            after_tick()
+            aside += time.perf_counter() - t
+    return time.perf_counter() - t0 - aside, tick_ms, page_waits
 
 
 def decode_ticks(sched):
@@ -2261,16 +2256,15 @@ def sched_run(what, model, cfg, dev, kv_quant, draft, dtype, trace, *,
 
 
 def scheduler_paths(dev):
-    """Phase 4: qwen2.5-3b (w8a8, bf16, fused QKV) at full width and
-    SCHED_LAYERS layers, weights drawn on the card from a seeded generator, serving one trace
+    """Phase 4: qwen2.5-3b (w8a8, bf16, fused QKV) at full width and depth,
+    weights drawn on the card from a seeded generator, serving one trace
     through the Scheduler five ways: plain decode on bf16 and on int8
     pools, speculative decode with the first DRAFT_LAYERS target layers as
     the draft on both, and with the target as its own draft on bf16."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantize_params import quantize_model_params
     from repro_torch.models.transformer import init_model
-    cfg = get_config("qwen2_5_3b").replace(quant_proj="w8a8",
-                                           n_layers=SCHED_LAYERS)
+    cfg = get_config("qwen2_5_3b").replace(quant_proj="w8a8")
     master = init_model(torch.Generator(device=dev).manual_seed(5), cfg,
                         device=dev)
     model = quantize_model_params(master)
@@ -2284,7 +2278,7 @@ def scheduler_paths(dev):
           f"{[n for _, n in trace[0]]}, arrivals {trace[1]}; {SCHED_SLOTS} "
           f"slots x {SCHED_MAX_LEN} tokens, {SCHED_POOL} pages of {PAGE}, "
           f"n_draft {N_DRAFT}")
-    trunc = (truncated(model, DRAFT_LAYERS),
+    trunc = (first_layers(model, DRAFT_LAYERS),
              cfg.replace(n_layers=DRAFT_LAYERS))
     runs = {}
     for kv in ("none", "int8"):
@@ -2334,7 +2328,7 @@ def card_vs_cpu_scheduler(dev):
 
     # a committed state: the CPU serves the trace's first 3 ticks
     sched = make_scheduler(model_cpu, cfg, cpu, "none",
-                           (truncated(model_cpu, 1), dcfg), torch.float32)
+                           (first_layers(model_cpu, 1), dcfg), torch.float32)
     reqs, arrivals = trace
     i = 0
     while sched._ticks < 3:
@@ -2363,7 +2357,7 @@ def card_vs_cpu_scheduler(dev):
         engine.apply_model = capture
         try:
             pred, mm, acc, cache, _ = spec_step(
-                m, truncated(m, 1), cache, dense, tok.to(d), budget.to(d),
+                m, first_layers(m, 1), cache, dense, tok.to(d), budget.to(d),
                 active.to(d), cfg, dcfg, n_draft=N_DRAFT, eos_id=SCHED_EOS)
         finally:
             engine.apply_model = wrapped
@@ -2389,7 +2383,7 @@ def card_vs_cpu_scheduler(dev):
         for side, d, m in (("cpu", cpu, model_cpu), ("card", dev, model)):
             sched = make_scheduler(
                 m, cfg, d, "none",
-                None if draft is None else (truncated(m, draft), dcfg),
+                None if draft is None else (first_layers(m, draft), dcfg),
                 torch.float32)
             gaps, top2 = {}, {}
             reset_launch_counts()
@@ -2427,17 +2421,15 @@ def resident_gb(model):
     return sum(b.numel() * b.element_size() for b in model.buffers()) / 1e9
 
 
-def blockwise_model(arch, dev, seed, n_layers=None):
+def blockwise_model(arch, dev, seed):
     """``arch`` (w8a8, bf16, fused QKV; an MoE model's experts int8) at full
-    width (and ``n_layers`` layers, if given), its weights drawn on the
-    card from a seeded generator and quantized one block at a time as
-    drawn: the f32 model never exists whole."""
+    width and depth, its weights drawn on the card from a seeded generator
+    and quantized one block at a time as drawn: the f32 model never exists
+    whole."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantize_params import quantize_model_params
     from repro_torch.models.transformer import init_model
     cfg = get_config(arch).replace(quant_proj="w8a8")
-    if n_layers is not None:
-        cfg = cfg.replace(n_layers=n_layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2459,7 +2451,7 @@ def moe_scheduler(model, cfg, dev):
     self_trunc (its first DRAFT_LAYERS layers as the draft), bf16 pools;
     spec tokens held to the plain run's by the near-tie rule."""
     trace = sched_trace(cfg.vocab_size)
-    trunc = (truncated(model, DRAFT_LAYERS),
+    trunc = (first_layers(model, DRAFT_LAYERS),
              cfg.replace(n_layers=DRAFT_LAYERS))
     plain = sched_run(f"moe scheduler plain ({cfg.name}), bf16 pools", model,
                       cfg, dev, "none", None, torch.bfloat16, trace,
@@ -2604,21 +2596,44 @@ def slot_scheduler(model, cfg, dev, spec=None):
                      device=dev)
 
 
+def state_digests(sched, digests):
+    """An ``after_tick`` for ``drive`` that appends an exact fingerprint of
+    ``sched``'s slot state: each state tensor's bits, read as integers of
+    its width, summed per (layer or site, slot) in int64 on the card, and
+    ``seq_lens``."""
+    def after_tick():
+        parts = []
+        for t in sched.cache.values():
+            bits = t.view({1: torch.int8, 2: torch.int16,
+                           4: torch.int32}[t.element_size()])
+            parts.append(bits.sum(dim=tuple(range(2, t.dim())),
+                                  dtype=torch.int64).flatten()
+                         if t.dim() > 1 else bits.long())
+        digests.append(torch.cat(parts))
+    return after_tick
+
+
 def slot_sched_run(what, model, cfg, dev, trace):
     """The Scheduler trace through a slot family: counted and timed
     (launch counts exact: one forward per admission and per decoding
-    tick; every slot recycled), then a run with ``spec=`` (the first
-    DRAFT_LAYERS layers as the draft), which must warn that it degrades
-    to 1-token decode and give the counted run's tokens (the two are the
-    same plain serve, so this also holds the run to itself), one of its
-    ticks profiled by stage.  Returns the counted run's numbers."""
+    tick; every slot recycled), the slot state fingerprinted after every
+    tick (``state_digests``); then the same trace with ``spec=`` (the
+    first DRAFT_LAYERS layers as the draft) and the plain versions of
+    K1-K3 and quant_act_glu swapped in, which must warn that it degrades
+    to 1-token decode, launch no kernel, and give the counted run's
+    tokens and fingerprints bit for bit: every kernel call of the counted
+    run, at each per-row prefill's shapes too, is held to its plain
+    version in place.  Then once more up to PROFILE_TICK_PLAIN, whose
+    tick is profiled by stage.  Returns the counted run's numbers."""
     import warnings
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.scheduler import SpecConfig
     sched = slot_scheduler(model, cfg, dev)
+    digests = []
     reset_launch_counts()
-    seconds, tick_ms, _ = drive(sched, trace)
+    seconds, tick_ms, _ = drive(sched, trace,
+                                after_tick=state_digests(sched, digests))
     counts = launch_counts()
     n_ticks = decode_ticks(sched)
     per = forward_launches(cfg)
@@ -2627,7 +2642,6 @@ def slot_sched_run(what, model, cfg, dev, trace):
     if counts != want:
         fail(f"{what}: launch counts {counts} != {want}")
     check_served_plans(what, counts)
-    first = sched.finished
     occ = sched.pool_occupancy()
     if occ.used != 0:
         fail(f"{what}: {occ.used} slots held after the run")
@@ -2641,7 +2655,8 @@ def slot_sched_run(what, model, cfg, dev, trace):
           f"{out['ms_per_tick']:.3f} ms per tick (host clock after "
           f"torch.cuda.synchronize()), slots_peak {out['slots_peak']} of "
           f"{SCHED_SLOTS}")
-    draft = SpecConfig(truncated(model, DRAFT_LAYERS),
+
+    draft = SpecConfig(first_layers(model, DRAFT_LAYERS),
                        cfg.replace(n_layers=DRAFT_LAYERS), N_DRAFT)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2651,15 +2666,32 @@ def slot_sched_run(what, model, cfg, dev, trace):
             "degrading to 1-token decode" in m for m in said):
         fail(f"{what}: spec= did not degrade to 1-token decode with the "
              f"reference's warning (warnings: {said})")
-    drive(spec, trace, PROFILE_TICK_PLAIN, finish=True)
-    for rid, toks in first.items():
+    plain_digests = []
+    reset_launch_counts()
+    with plain_versions():
+        drive(spec, trace, after_tick=state_digests(spec, plain_digests))
+    left = {k: n for k, n in launch_counts().items() if n}
+    if left:
+        fail(f"{what}: the plain-version run launched kernels: {left}")
+    for rid, toks in sched.finished.items():
         if not torch.equal(torch.as_tensor(toks),
                            torch.as_tensor(spec.finished[rid])):
-            fail(f"{what}: the spec= run's tokens differ from the plain "
-                 f"run's (request {rid})")
-    print(f"  with spec= ({DRAFT_LAYERS}-layer draft): warned "
-          f"{said[0]!r}; all {len(first)} requests' tokens equal the plain "
-          "run's")
+            fail(f"{what}: the spec= run on the plain versions gives other "
+                 f"tokens than the counted run (request {rid})")
+    if len(digests) != len(plain_digests) or not all(
+            torch.equal(a, b) for a, b in zip(digests, plain_digests)):
+        tick = next((t for t, (a, b) in enumerate(zip(digests,
+                                                      plain_digests))
+                     if not torch.equal(a, b)), None)
+        fail(f"{what}: the slot state on the plain versions differs from "
+             f"the counted run's ({len(plain_digests)} ticks against "
+             f"{len(digests)}; first differing tick {tick})")
+    print(f"  with spec= ({DRAFT_LAYERS}-layer draft) and the plain versions "
+          f"of K1-K3 and quant_act_glu: warned {said[0]!r}; no kernel "
+          f"launched; all {len(sched.finished)} requests' tokens and the "
+          f"slot state ({', '.join(sched.cache)}) after each of the "
+          f"{len(digests)} ticks bitwise equal the counted run's")
+    drive(slot_scheduler(model, cfg, dev), trace, PROFILE_TICK_PLAIN)
     return out
 
 
@@ -3577,7 +3609,7 @@ def main():
         k["launches_qwen3_moe"] = path_launches(k["name"], "qwen3-moe")
         k["launches_zamba2_7b"] = path_launches(k["name"], "zamba2-7b")
         k["launches_mamba2_370m"] = path_launches(k["name"], "mamba2-370m")
-    sched_all = {**{(k, f"qwen2.5-3b w8a8 bf16, {SCHED_LAYERS} layers"): r
+    sched_all = {**{(k, "qwen2.5-3b w8a8 bf16, 36 layers"): r
                     for k, r in sched_runs.items()},
                  **{(k, f"{MOE_ARCH} w8a8 bf16, 48 layers"): r
                     for k, r in moe["sched"].items()}}

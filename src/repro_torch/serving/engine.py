@@ -36,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Model, apply_model
+from repro_torch.models.transformer import (Model, apply_model,
+                                            is_ssm_family)
 from repro_torch.serving.allocator import require_allocator
 from repro_torch.serving.cache import PAGE_STATE_KEYS, invalidate_token_rows
 
@@ -64,7 +65,7 @@ def validate_decode_cache(cache: dict, cfg: ModelConfig) -> None:
     """Fail loudly on a cache built for another model config, or on a
     layout the decode path cannot execute (int8 pages without their scale
     pools would be read as raw integers)."""
-    if ("ssm_h" in cache) != (cfg.family in ("ssm", "hybrid")):
+    if ("ssm_h" in cache) != is_ssm_family(cfg):
         # a family/cache mismatch would run the wrong layer loop over the
         # wrong state
         got = "SSM slot state" if "ssm_h" in cache else "attention KV"

@@ -16,8 +16,8 @@ names that contract and ``state_handler`` picks one handler per family:
                  ``capacity`` is None (no positional bound).
   ``hybrid``   — zamba2: ``ssm_slot`` plus the shared attention block's
                  dense KV rows (``shared_k/v``), which bound capacity at
-                 their S_max and travel with the slot in views and
-                 merges.  Admission does not zero them: ``seq_lens``
+                 their S_max and travel with the slot in its views.
+                 Admission does not zero them: ``seq_lens``
                  governs what is attended, and prefill and decode
                  overwrite a position before it becomes visible.
 
@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import is_ssm_family
 from repro_torch.serving import allocator as alloc
 from repro_torch.serving.cache import CacheConfig
 from repro_torch.serving.engine import cache_capacity
@@ -110,8 +111,10 @@ class StateHandler:
         raise NotImplementedError
 
     def merge_slot(self, cache: dict, view: dict, b: int) -> dict:
-        """Fold a prefilled ``slot_view`` back into row ``b``."""
-        raise NotImplementedError
+        """Fold a prefilled ``slot_view`` back into row ``b``: its state
+        rows are the cache's, written in place, so only the length."""
+        cache["seq_lens"][b] = view["seq_lens"][0]
+        return cache
 
     def draft_free(self, draft_cache: dict, slot: int) -> dict:
         """Retire row ``slot`` of the dense draft cache: nothing to do, the
@@ -176,10 +179,6 @@ class PagedKVHandler(StateHandler):
         view["seq_lens"] = cache["seq_lens"][b:b + 1]
         return view
 
-    def merge_slot(self, cache, view, b):
-        cache["seq_lens"][b] = view["seq_lens"][0]
-        return cache
-
     def draft_fork(self, draft_cache, parent, child):
         for key in ("k", "v"):
             draft_cache[key][:, child] = draft_cache[key][:, parent]
@@ -195,7 +194,7 @@ class SlotStateHandler(StateHandler):
     """
 
     name = "ssm_slot"
-    # the per-row tensors a view slices and a merge folds back
+    # the per-row tensors a view slices (the model writes them in place)
     ROW_KEYS = SLOT_STATE_KEYS
 
     def require_scheduler_config(self) -> None:
@@ -230,20 +229,11 @@ class SlotStateHandler(StateHandler):
         view["seq_lens"] = cache["seq_lens"][b:b + 1]
         return view
 
-    def merge_slot(self, cache, view, b):
-        for key in self.ROW_KEYS:
-            row = cache[key][:, b:b + 1]
-            if view[key].data_ptr() != row.data_ptr():
-                # the view was replaced, not written in place
-                row.copy_(view[key])
-        cache["seq_lens"][b] = view["seq_lens"][0]
-        return cache
-
 
 class HybridHandler(SlotStateHandler):
     """zamba2: SSM slots plus the shared attention block's dense KV rows.
 
-    ``shared_k/v`` travel with the slot in views and merges, but
+    ``shared_k/v`` travel with the slot in its views, but
     admission does not zero them: ``seq_lens`` governs visibility, so the
     previous occupant's stale KV is never attended, and zeroing S_max rows
     per admission would be write traffic for nothing.
@@ -267,6 +257,6 @@ def default_serving_config(cfg: ModelConfig) -> CacheConfig:
     """The continuous-batching default per family: dynamic 16-token pages
     for attention KV, the dense layout for the slot families (their state
     is O(1): nothing to page)."""
-    if cfg.family in ("ssm", "hybrid"):
+    if is_ssm_family(cfg):
         return CacheConfig()
     return CacheConfig(layout="paged", alloc="dynamic", page_size=16)

@@ -591,8 +591,9 @@ def test_advance_rezeros_idle_rows():
 
 @pytest.mark.parametrize("arch", SSM_ARCHS)
 def test_slot_view_merge_roundtrip(arch):
-    """slot_view slices exactly row b (views: a prefill writes in place);
-    merge_slot folds a replaced view back without touching other rows."""
+    """slot_view slices exactly row b as views of the cache (a prefill
+    writes them in place); merge_slot folds the length back, and no other
+    row changes."""
     cfg = get_smoke_config(arch)
     h = state_handler(cfg)
     cache = init_cache(cfg, 3, 16, device="cpu")
@@ -603,8 +604,8 @@ def test_slot_view_merge_roundtrip(arch):
     assert float(cache["conv_x"][:, 1].min()) == 2.0
     if arch == "zamba2_7b":
         assert view["shared_k"].shape[1] == 1
-        view["shared_k"] = view["shared_k"] + 1.0     # replaced
-    view["ssm_h"] = view["ssm_h"] + 3.0
+        view["shared_k"] += 1.0                       # written in place
+    view["ssm_h"].copy_(view["ssm_h"] + 3.0)          # as _ssm_stack does
     view["seq_lens"] = torch.tensor([6], dtype=torch.int32)
     cache = h.merge_slot(cache, view, 1)
     assert float(cache["ssm_h"][:, 1].min()) == 3.0
