@@ -116,10 +116,27 @@
    K5 a site (D = 112, MHA), each K5 call held against the plain version,
    profiled with the Mamba2 stages and the shared block as named ranges
    (``SSM_RANGES``); (c) the Scheduler trace on the dense slots (no pool,
-   no prefix sharing), launch counts exact, one tick profiled, and again
-   with ``spec=``, which must warn that it degrades to 1-token decode and
-   give the plain run's tokens.  mamba2-370m (48 layers, d=1024) at full
-   size through (a) and (c).
+   no prefix sharing) on the model's first 12 layers (two shared sites),
+   launch counts exact, one tick profiled, and again with ``spec=`` on the
+   plain versions, which must warn that it degrades to 1-token decode and
+   give the counted run's tokens and slot state after every tick.
+   mamba2-370m (48 layers, d=1024) at full size through (a) and (c).
+   The encoder-decoder path: seamless-m4t-medium (12 encoder + 12 decoder
+   layers, d 1024, 16/16 heads of 64, d_ff 4096 GELU, vocab 256206
+   untied; w8a8, bf16) at full width and depth, drawn on the card and
+   quantized block by block: (a) 4 requests of 4096 seeded frames each,
+   ``encode`` (12 K5, non-causal), then the serve above on the paged
+   cache with ``memory=`` (cross-attention recomputes K and V over the
+   16384 memory rows at every step), launch counts exact, each K4 and K5
+   call held against the plain version, then bitwise against the plain
+   K1-K3, memory included; 4 decode steps timed by stage with CUDA events
+   (``ENCDEC_STAGES``) and profiled by kernel; (b) ``prefill_step`` of one
+   request of 4096 frames and 256 tokens, timed by stage and profiled.
+   The vision path: phi-3-vision-4.2b (32 layers, d 3072, 32/32 heads of
+   96, d_ff 8192 SwiGLU) at full width and depth: (a) the text-only paged
+   serve (K4 at head dim 96), bitwise against the plain versions; (b)
+   ``prefill_step`` of 576 seeded patches and 7616 tokens, one K5 a layer,
+   each held against the plain version, profiled.
 5. Card against CPU in f32, same weights, with exact launch counts on the
    card: unquantized (``none``) at full depth within rel-err 1e-5 on the
    dense cache and on the paged cache (one pass and chunked prefill);
@@ -137,7 +154,12 @@
    paged cache: within rel-err 1e-5, argmax >= 0.99, and the routing of
    every token equal on both sides, or different only where the CPU's
    k-th and (k+1)-th router probabilities are a near tie (``ROUTE_TIE``;
-   the count printed).  zamba2-7b at full width, 6 layers (layer 5 is a
+   the count printed).  seamless-m4t-medium at full width, 2 + 2 layers,
+   4 x 1024 frames with ``blockwise_attn_threshold`` 1024 (K5 non-causal
+   in f32): the memory, then ``prefill(memory=)`` one pass and chunked and
+   32 decode steps on the dense and the paged cache; phi-3-vision's
+   ``prefill_step`` (576 patches + 448 tokens) beside qwen2.5-3b's and
+   gemma2-27b's.  zamba2-7b at full width, 6 layers (layer 5 is a
    shared site), f32 ``none``, dense slots: the one-pass prefill and
    ``prefill(chunk=32)`` (each row's valid tokens as ``n_valid``), each
    with 32 decode steps, within rel-err 1e-5, argmax >= 0.99, launch
@@ -157,7 +179,12 @@
    (the fused QKV and wo above, K1 over 4096) and zamba2-7b's (a Mamba
    layer's K1 over 3584 and 7168, K2 to 7168, 64, 112 and 7168 -> 3584;
    a site's K3 3584 -> 3584 x 3, K2 wo, gate / up, down, quant_act_glu
-   over 14336; at 4 and 8192 rows; K5 at (1, 8192, 32/32, 112)), 10
+   over 14336; at 4 and 8192 rows; K5 at (1, 8192, 32/32, 112)),
+   seamless-m4t-medium's (a decoder layer's at decode with the cross k /
+   v over 16384 memory rows, an encoder layer's at 16384 rows, K4 at 16/16
+   heads of 64, K5 at (4, 4096, 16/16, 64) non-causal) and phi-3-vision's
+   (decode and 8192 rows, K4 at 32/32 heads of 96, K5 at (1, 8192, 32/32,
+   96)), 10
    launches there and the plain versions timed eagerly; ``scaled_dot_product_attention`` over the gathered
    K/V for K4, and on the same q/k/v for K5 where it computes the same
    function: not with a softcap), beside the kernel's bound (for K4, the
@@ -229,6 +256,16 @@ MOE_WO = (4096, 2048)
 # the wgmma widths of K2 / K3's tensor-core variants (wide: 256; swap: the
 # activation rows padded), each built for K2 and for K3
 GEMM_TMA_COLS = (256, 64, 32, 16, 8)
+# the encoder-decoder and vision paths: seamless-m4t-medium serves 4
+# requests of its config's fixed 4096 encoder frames each (so its cross
+# K / V run over 16384 memory rows); its prefill_step takes one request of
+# 4096 frames and 256 decoder tokens (a speech-to-text decoder prompt is
+# short: the encoder carries the long sequence).  phi-3-vision's 576
+# patches lead its prefill_step's LONG_PROMPT positions.
+ENCDEC_ARCH, VLM_ARCH = "seamless_m4t_medium", "phi3_vision_4_2b"
+ENC_FRAMES = 4096
+ENCDEC_TEXT = 256
+MEMORY_ROWS = 4 * ENC_FRAMES
 
 
 def fail(msg: str):
@@ -390,6 +427,16 @@ def zamba_shapes():
             ((cfg.q_dim, d), (d, f), (f, d)), (d, cfg.q_dim, cfg.kv_dim))
 
 
+def model_shapes(arch):
+    """``arch``'s K2 shapes (K, N) in a decoder layer (wo, up or gate / up,
+    down) and its fused QKV (K, Nq, Nkv).  seamless-m4t-medium's cross q,
+    k, v and wo are its wo's shape, 1024 -> 1024."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    d, f = cfg.d_model, cfg.d_ff
+    return ((cfg.q_dim, d), (d, f), (f, d)), (d, cfg.q_dim, cfg.kv_dim)
+
+
 def quantized_operands(m, k, ns, dev, seed):
     """Per-row quantized A and per-channel quantized weights, K-major as
     the model stores them."""
@@ -421,11 +468,18 @@ K1_SHAPES = [(256, 768), (256, 3072), (4, 768), (4, 3072),
              *[(m, k) for m in QWEN_M for k in (2048, 11008)],
              *[(m, MOE_WO[0]) for m in QWEN_M],
              (4, 36864), (LONG_PROMPT, 36864), (5, 770), (129, 11008),
-             *[(m, k) for m in QWEN_M for k in (3584, 7168)]]
+             *[(m, k) for m in QWEN_M for k in (3584, 7168)],
+             # seamless-m4t-medium's rows (decode, the serve's prefill, the
+             # memory of one request and of four) over d_model and d_ff;
+             # phi-3-vision's (decode, prefill, prefill_step) over its own
+             *[(m, k) for m in (4, 256, ENC_FRAMES, MEMORY_ROWS)
+               for k in (1024, 4096)],
+             *[(m, k) for m in (4, 256, LONG_PROMPT) for k in (3072, 8192)]]
 # quant_act_glu's: qwen2.5-3b's d_ff at decode, verify and prefill, ragged,
 # zamba2-7b's shared d_ff
 GLU_SHAPES = [*[(m, 11008) for m in QWEN_M], (5, 770), (129, 11008),
-              (3, 64), *[(m, 14336) for m in QWEN_M]]
+              (3, 64), *[(m, 14336) for m in QWEN_M],
+              *[(m, 8192) for m in (4, 20, 256, LONG_PROMPT)]]
 
 
 def k1_rows(shape, seed, dev, dtype):
@@ -532,6 +586,18 @@ def check_kernels(dev):
     z_mamba, z_site, z_qkv = zamba_shapes()
     zamba = z_mamba + z_site
     gemms += [(m, k, n, bf16, False) for m in QWEN_M for k, n in zamba]
+    # seamless-m4t-medium's (wo and cross q / k / v / wo, up, down) at
+    # decode, the serve's prefill rows, and the memory rows of one request
+    # and of four (the cross k / v of every decode step); phi-3-vision's
+    # (wo, gate / up, down) at decode, prefill and prefill_step
+    (s_gemms, s_qkv), (v_gemms, v_qkv) = (model_shapes(ENCDEC_ARCH),
+                                          model_shapes(VLM_ARCH))
+    served = zamba + s_gemms + v_gemms
+    gemms += [(m, k, n, bf16, False) for m in (4, 256, ENC_FRAMES,
+                                               MEMORY_ROWS)
+              for k, n in s_gemms]
+    gemms += [(m, k, n, bf16, False) for m in (4, 256, LONG_PROMPT)
+              for k, n in v_gemms]
     for m, k, n, out_dtype, bias in gemms:
         a, (b,) = quantized_operands(m, k, [n], dev, seed=m + n)
         bi = randn((n,), 7, dev) if bias else None
@@ -540,7 +606,7 @@ def check_kernels(dev):
                                out_dtype)
         what = (f"tiled_matmul ({m},{k})x({k},{n}) {out_dtype} bias={bias} "
                 f"[{plan_text(m, [n], k, a, [b])}]")
-        if (k, n) == MOE_WO or (k, n) in zamba:
+        if (k, n) == MOE_WO or (k, n) in served:
             tensor_cores(what)
         errs["tiled_matmul"] = max(errs["tiled_matmul"],
                                    max_err(out, ref, what))
@@ -553,6 +619,10 @@ def check_kernels(dev):
             for dt in (f32, bf16)]
     qkv += [(m, *MOE_QKV, dt) for m in QWEN_M for dt in (f32, bf16)]
     qkv += [(m, *z_qkv, dt) for m in QWEN_M for dt in (f32, bf16)]
+    qkv += [(m, *s_qkv, dt) for m in (4, 256, MEMORY_ROWS)
+            for dt in (f32, bf16)]
+    qkv += [(m, *v_qkv, dt) for m in (4, 256, LONG_PROMPT)
+            for dt in (f32, bf16)]
     for m, k, nq, nkv, out_dtype in qkv:
         a, ws = quantized_operands(m, k, [nq, nkv, nkv], dev, seed=m + nq)
         outs = fused_qkv(a, *ws, out_dtype=out_dtype)
@@ -561,7 +631,7 @@ def check_kernels(dev):
                              ws[2].scale, out_dtype=out_dtype)
         what = (f"fused_qkv ({m},{k})x({k},{nq}|{nkv}|{nkv}) {out_dtype} "
                 f"[{plan_text(m, [nq, nkv, nkv], k, a, ws)}]")
-        if (k, nq, nkv) in (MOE_QKV, z_qkv):
+        if (k, nq, nkv) in (MOE_QKV, z_qkv, s_qkv, v_qkv):
             tensor_cores(what)
         for o, r in zip(outs, refs):
             errs["fused_qkv"] = max(errs["fused_qkv"], max_err(o, r, what))
@@ -622,7 +692,12 @@ PAGED_CHECKS = [
     ("gqa", 2, 256, 16, 2, 128, [256, 77], {}),
     ("window_softcap", 2, 128, 12, 12, 64, [100, 23],
      dict(window=20, softcap=50.0)),
+    # phi-3-vision's text decoder: MHA, 32/32 heads of 96
+    ("phi3 decode", 4, 96, 32, 32, 96, [65, 49, 34, 18], {}),
+    ("phi3 prefill", 4, 96, 32, 32, 96, [64] * 4, dict(qs=64, q_chunk=128)),
 ]
+# the cases held to K4's bitwise contracts
+PAGED_BITWISE = PAGED_CHECKS[:3] + PAGED_CHECKS[-2:]
 # kv pools, q dtype (the limit follows q's dtype: attention_agrees)
 PAGED_MODES = [("f32", torch.float32), ("bf16", torch.bfloat16),
                ("int8", torch.float32), ("int8", torch.bfloat16)]
@@ -694,7 +769,7 @@ def check_paged(dev):
 
     # bitwise: the same history through two page tables, and the int8
     # pools against the f32 launch on the pools dequantized beforehand
-    for name, b, t, h, kh, d, lens, opts in PAGED_CHECKS[:3]:
+    for name, b, t, h, kh, d, lens, opts in PAGED_BITWISE:
         qs, opts = split_opts(opts)
         outs = [paged_decode_attention(**paged_inputs(
                     b, t, h, kh, d, lens, dev, qs=qs, kv="bf16", alloc=alloc,
@@ -927,6 +1002,11 @@ SERVED_FLASH = [
     # MHA (one head a KV group) at head dim 112, zero-padded to 128 in the
     # bf16 kernel
     ("zamba2-7b causal", 1, LONG_PROMPT, 32, 32, 112, {}),
+    # seamless-m4t-medium's encoder (MHA at head dim 64, bidirectional,
+    # each row over all 4096 frames) and phi-3-vision (MHA at head dim 96)
+    ("seamless-m4t-medium encoder", 4, ENC_FRAMES, 16, 16, 64,
+     dict(causal=False)),
+    ("phi-3-vision causal", 1, LONG_PROMPT, 32, 32, 96, {}),
 ]
 FLASH_CHECKS = [
     *[(n, b, s, h, kh, d, dt, o) for dt in (torch.bfloat16, torch.float32)
@@ -974,25 +1054,44 @@ def make_prompts(cfg, dev):
     return prompts.to(dev), torch.tensor(BATCH_LENS, device=dev)
 
 
+def embeds_for(cfg, b, t, dev, seed=5):
+    """``b`` requests of ``t`` input embeddings (B, T, D) f32, drawn on
+    ``dev`` from a seed: an encoder-decoder's frames, the vision family's
+    patches."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((b, t, cfg.d_model), generator=g, device=dev)
+
+
 def serve(model, cfg, dev, config=None):
     """The smoke serve on a dense cache, or on the paged one ``config``
-    describes (whose decode starts from the cache's own ``seq_lens``)."""
+    describes (whose decode starts from the cache's own ``seq_lens``).  An
+    encoder-decoder first encodes ENC_FRAMES seeded frames a request (in
+    the prefill time), serves with that memory, and returns it in the
+    cache dict as ``memory``, for the checks."""
+    from repro_torch.models import transformer
     from repro_torch.serving.cache import init_cache
     from repro_torch.serving.engine import greedy_decode, prefill
     prompts, lens = make_prompts(cfg, dev)
     cache = init_cache(cfg, len(BATCH_LENS), max(BATCH_LENS) + DECODE_STEPS,
                        dtype=cfg.activation_dtype, config=config, device=dev)
+    frames = (embeds_for(cfg, len(BATCH_LENS), ENC_FRAMES, dev)
+              if cfg.is_encoder_decoder else None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    next_logits, cache = prefill(model, cache, prompts, lens, cfg)
+    memory = (None if frames is None
+              else transformer.encode(model, frames, cfg))
+    next_logits, cache = prefill(model, cache, prompts, lens, cfg,
+                                 memory=memory)
     first = torch.argmax(next_logits, dim=-1)[:, None]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     toks, cache = greedy_decode(model, cache, first,
                                 lens if config is None else None,
-                                DECODE_STEPS, cfg)
+                                DECODE_STEPS, cfg, memory=memory)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    if memory is not None:
+        cache["memory"] = memory
     return next_logits, toks, cache, t1 - t0, t2 - t1
 
 
@@ -1044,25 +1143,30 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def layer_launches(cfg, *, paged=False, flash=False, verify=False) -> dict:
+def layer_launches(cfg, *, paged=False, flash=False, verify=False,
+                   cross=False) -> dict:
     """One layer's kernel launches in one forward of ``cfg``.  Under w8a8:
     one quant_act for the fused QKV (one fused_qkv), one for wo, one for
     the FFN's input, which serves gate and up alike; the down projection's
     input is one quant_act_glu in SwiGLU (silu(gate) * up fused into K1),
     else one quant_act (GELU stays unfused); one tiled_matmul each for wo,
-    up, down and gate (gated FFNs).  Unquantized, none.  One attention
-    launch: paged_decode on the paged cache (paged_decode_verify in a
-    speculative verify pass), flash_attention on a cache-less prompt of at
-    least ``blockwise_attn_threshold`` tokens.  An MoE layer's experts run
-    no kernel (w8: dequantized, then PyTorch's einsums, as the reference):
-    its FFN launches are those of its shared experts' dense FFN, if any."""
+    up, down and gate (gated FFNs).  With ``cross`` (an encoder-decoder's
+    decoder layer) its cross-attention adds a quant_act each for q's input,
+    the memory rows (one serves k and v) and wo's input, and a tiled_matmul
+    each for q, k, v and wo: it attends densely, with no kernel.
+    Unquantized, none.  One attention launch: paged_decode on the paged
+    cache (paged_decode_verify in a speculative verify pass),
+    flash_attention on a cache-less prompt of at least
+    ``blockwise_attn_threshold`` tokens.  An MoE layer's experts run no
+    kernel (w8: dequantized, then PyTorch's einsums, as the reference): its
+    FFN launches are those of its shared experts' dense FFN, if any."""
     w8a8 = int(cfg.quant_proj == "w8a8")
     ffn = int(not cfg.is_moe or cfg.n_shared_experts > 0)
     gated = int(cfg.ffn_type in ("swiglu", "geglu")) * ffn
     glu = int(cfg.ffn_type == "swiglu") * ffn
-    return {"quant_act": (2 + 2 * ffn - glu) * w8a8,
+    return {"quant_act": (2 + 2 * ffn - glu + 3 * cross) * w8a8,
             "quant_act_glu": glu * w8a8, "fused_qkv": w8a8,
-            "tiled_matmul": (1 + 2 * ffn + gated) * w8a8,
+            "tiled_matmul": (1 + 2 * ffn + gated + 4 * cross) * w8a8,
             "paged_decode": int(paged and not verify),
             "paged_decode_verify": int(verify),
             "flash_attention": int(flash)}
@@ -1080,8 +1184,9 @@ def forward_launches(cfg, *, paged=False, flash=False) -> dict:
     from repro_torch.serving.cache import n_shared_sites
     if not is_ssm_family(cfg):
         return {k: cfg.n_layers * n
-                for k, n in layer_launches(cfg, paged=paged,
-                                           flash=flash).items()}
+                for k, n in layer_launches(
+                    cfg, paged=paged, flash=flash,
+                    cross=cfg.is_encoder_decoder).items()}
     w8a8 = int(cfg.quant_proj == "w8a8")
     sites = n_shared_sites(cfg)
     want = {k: sites * n for k, n in layer_launches(cfg, flash=flash).items()}
@@ -1090,18 +1195,38 @@ def forward_launches(cfg, *, paged=False, flash=False) -> dict:
     return want
 
 
-def expected_launches(cfg, paged: bool, prefill_forwards: int = 1) -> dict:
+def encoder_launches(cfg, frames: int) -> dict:
+    """Each kernel's launches in one ``encode`` of ``frames`` frames a
+    request: ``layer_launches`` of each encoder layer (no cross-attention;
+    flash_attention, non-causal, from the threshold on)."""
+    flash = frames >= cfg.blockwise_attn_threshold and cfg.attn_impl != "jnp"
+    return {k: cfg.n_encoder_layers * n
+            for k, n in layer_launches(cfg, flash=flash).items()}
+
+
+def plus(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def expected_launches(cfg, paged: bool, prefill_forwards: int = 1,
+                      frames: int | None = None) -> dict:
     """Each kernel's launches in a smoke serve of ``cfg``: its prefill
-    forwards and one forward per decode step, ``forward_launches`` each."""
+    forwards and one forward per decode step, ``forward_launches`` each,
+    and an encoder-decoder's one ``encode`` of ``frames`` frames."""
     forwards = prefill_forwards + DECODE_STEPS
-    return {k: forwards * n
+    want = {k: forwards * n
             for k, n in forward_launches(cfg, paged=paged).items()}
+    return want if frames is None else plus(want,
+                                            encoder_launches(cfg, frames))
 
 
-def prefill_step_launches(cfg, s: int) -> dict:
-    """Each kernel's launches in one ``prefill_step`` of ``s`` tokens."""
+def prefill_step_launches(cfg, s: int, frames: int | None = None) -> dict:
+    """Each kernel's launches in one ``prefill_step`` of ``s`` positions
+    (patches and tokens), and of an encoder-decoder's ``frames``."""
     flash = s >= cfg.blockwise_attn_threshold and cfg.attn_impl != "jnp"
-    return forward_launches(cfg, flash=flash)
+    want = forward_launches(cfg, flash=flash)
+    return want if frames is None else plus(want,
+                                            encoder_launches(cfg, frames))
 
 
 def check_serve(what, counts, want, next_logits, toks, cfg, t_prefill,
@@ -1128,35 +1253,41 @@ def main_path(model, cfg, dev, config=None, what="dense serve",
     """The serve on the dense cache (or the paged one ``config``
     describes), then the same serve with the plain versions of the exact
     kernels (K1-K3) swapped in: prefill logits, tokens and the whole KV
-    cache must be bitwise equal.  On the paged cache each K4 call of the
-    first serve is held against the plain version on its own operands; K4
-    sums in another order than its plain version, so it runs in both
-    serves."""
+    cache (and an encoder-decoder's memory) must be bitwise equal.  On the
+    paged cache each K4 call of the first serve is held against the plain
+    version on its own operands, and so is each K5 call of an
+    encoder-decoder's encoder; K4 and K5 sum in another order than their
+    plain versions, so they run in both serves."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    calls = []
-    with recorded_k4_calls(calls):                       # warm-up
+    calls, k5_calls = [], []
+    with recorded_k4_calls(calls), recorded_k5_calls(k5_calls):  # warm-up
         w_logits, w_toks, _, _, _ = serve(model, cfg, dev, config)
     reset_launch_counts()
     next_logits, toks, cache, t_prefill, t_decode = serve(model, cfg, dev,
                                                           config)
     counts = launch_counts()
     tps = check_serve(what, counts,
-                      expected_launches(cfg, config is not None),
+                      expected_launches(cfg, config is not None,
+                                        frames=ENC_FRAMES
+                                        if cfg.is_encoder_decoder else None),
                       next_logits, toks, cfg, t_prefill, t_decode)
     check_served_plans(label, counts)
     for b, row in enumerate(toks.tolist()):
         print(f"  request {b} (prompt {BATCH_LENS[b]}): {row}")
-    if config is not None:
-        if cache["seq_lens"].tolist() != [n + DECODE_STEPS
-                                          for n in BATCH_LENS]:
-            fail(f"{what}: seq_lens {cache['seq_lens'].tolist()}")
-        # the warm-up is the same serve, bit for bit, so the K4 operands
-        # it recorded are the counted serve's
+    if config is not None and cache["seq_lens"].tolist() != [
+            n + DECODE_STEPS for n in BATCH_LENS]:
+        fail(f"{what}: seq_lens {cache['seq_lens'].tolist()}")
+    if calls or k5_calls:
+        # the warm-up is the same serve, bit for bit, so the K4 and K5
+        # operands it recorded are the counted serve's
         if not (torch.equal(w_logits, next_logits)
                 and torch.equal(w_toks, toks)):
             fail(f"{what}: two runs of the same serve differ")
+    if config is not None:
         check_served_k4(what, calls, counts["paged_decode"])
-    del calls, w_logits, w_toks
+    if counts["flash_attention"]:
+        check_served_k5(what, k5_calls, counts["flash_attention"])
+    del calls, k5_calls, w_logits, w_toks
 
     # the same serve with the plain versions in place of the exact
     # kernels: everything must match bit for bit
@@ -1164,12 +1295,15 @@ def main_path(model, cfg, dev, config=None, what="dense serve",
     with plain_versions():
         p_logits, p_toks, p_cache, _, _ = serve(model, cfg, dev, config)
     left = {k: n for k, n in launch_counts().items() if n}
-    if left != {k: n for k, n in counts.items() if n and k == "paged_decode"}:
+    if left != {k: n for k, n in counts.items()
+                if n and k in ("paged_decode", "flash_attention")}:
         fail(f"the plain-version serve launched kernels: {left}")
     reset_launch_counts()
     keys = ("k", "v") if config is None else ("k_pages", "v_pages")
     if "ssm_h" in cache:
         keys = tuple(k for k in cache if k != "seq_lens")
+    if "memory" in cache:
+        keys += ("memory",)
     for name, got, want_ in (("prefill logits", next_logits, p_logits),
                              ("tokens", toks, p_toks),
                              *((f"cache {k}", cache[k], p_cache[k])
@@ -1180,6 +1314,7 @@ def main_path(model, cfg, dev, config=None, what="dense serve",
     print(f"{what} vs plain versions (K1-K3) on the card: prefill logits, "
           f"tokens and the {cfg.n_layers}-layer cache ({', '.join(keys)}) "
           "bitwise equal")
+    cache.pop("memory", None)
     return counts, t_prefill, tps, toks, cache
 
 
@@ -1468,8 +1603,9 @@ def swiglu_is_fused(cfg):
     """Must a profile of ``cfg`` hold no PyTorch silu or bf16 product
     kernel?  Yes for a dense SwiGLU model under w8a8 (quant_act_glu takes
     their place); an MoE model's experts and a Mamba2 block (its convs'
-    silu and its gate ``y * silu(z)``) run them as the reference does."""
-    return (cfg.ffn_type == "swiglu" and cfg.family == "dense"
+    silu and its gate ``y * silu(z)``) run them as the reference does.
+    The vision family's decoder is a dense one."""
+    return (cfg.ffn_type == "swiglu" and cfg.family in ("dense", "vlm")
             and cfg.quant_proj == "w8a8")
 
 
@@ -1603,6 +1739,12 @@ def check_swiglu_detector(dev):
 
 def describe(cfg):
     from repro_torch.models.transformer import is_ssm_family
+    if cfg.is_encoder_decoder:
+        return (f"{cfg.name} {cfg.quant_proj} {cfg.dtype}, "
+                f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder "
+                f"layers, d={cfg.d_model}, heads {cfg.n_heads}/"
+                f"{cfg.n_kv_heads}x{cfg.head_dim}, d_ff={cfg.d_ff} "
+                f"{cfg.ffn_type}, vocab={cfg.vocab_size} untied")
     if is_ssm_family(cfg):
         from repro_torch.serving.cache import n_shared_sites
         text = (f"{cfg.name} {cfg.quant_proj} {cfg.dtype}, {cfg.n_layers} "
@@ -1616,9 +1758,11 @@ def describe(cfg):
         return text + f", vocab={cfg.vocab_size}"
     ffn = (f"{cfg.n_experts} experts top-{cfg.top_k} x d_ff "
            f"{cfg.d_ff_expert}" if cfg.is_moe else f"d_ff={cfg.d_ff}")
+    patches = (f", {cfg.frontend_len} patches ahead of the text"
+               if cfg.frontend == "vision" else "")
     return (f"{cfg.name} {cfg.quant_proj} {cfg.dtype}, {cfg.n_layers} "
             f"layers, d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}"
-            f"x{cfg.head_dim}, {ffn}, vocab={cfg.vocab_size}")
+            f"x{cfg.head_dim}, {ffn}, vocab={cfg.vocab_size}{patches}")
 
 
 def long_prompt_path(arch, dev, n_layers=None):
@@ -1641,35 +1785,59 @@ def long_prompt_path(arch, dev, n_layers=None):
     return out
 
 
-def long_prompt_run(model, cfg, dev, ranges=None):
-    """``prefill_step`` of ``model`` on one prompt of LONG_PROMPT random
-    tokens.  A warm-up run records every K5 call; the counted run must
+def prefill_inputs(cfg, dev, seed=2):
+    """``prefill_step``'s inputs for ``cfg``: one prompt of LONG_PROMPT
+    random tokens; for the vision family LONG_PROMPT positions, its
+    ``frontend_len`` seeded patches first; for an encoder-decoder
+    ENCDEC_TEXT tokens and ENC_FRAMES seeded frames.  Returns (tokens,
+    keyword inputs, positions of the logits, frames a request or None)."""
+    text, kw, frames = LONG_PROMPT, {}, None
+    if cfg.frontend == "vision":
+        text -= cfg.frontend_len
+        kw["frontend_embeds"] = embeds_for(cfg, 1, cfg.frontend_len, dev,
+                                           seed + 1)
+    if cfg.is_encoder_decoder:
+        text, frames = ENCDEC_TEXT, ENC_FRAMES
+        kw["encoder_frames"] = embeds_for(cfg, 1, frames, dev, seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, text),
+                           generator=torch.Generator().manual_seed(seed))
+    n_pos = text + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+    return tokens.to(dev), kw, n_pos, frames
+
+
+def long_prompt_run(model, cfg, dev, ranges=None, stages=None):
+    """``prefill_step`` of ``model`` on ``prefill_inputs``: a prompt of
+    LONG_PROMPT random tokens (positions, patches included, for the vision
+    family; an encoder-decoder's ENC_FRAMES frames and ENCDEC_TEXT
+    tokens).  A warm-up run records every K5 call; the counted run must
     equal it bit for bit, have exact launch counts and finite logits; each
     recorded call is held against the plain version; one more run is
-    profiled (with ``ranges`` named).  Returns (launch counts, prefill s on
+    profiled (with ``ranges`` named), and with ``stages`` one more is
+    timed by stage (``stage_times``).  Returns (launch counts, prefill s on
     the host clock, the window of each K5 call)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.engine import prefill_step
-    what = f"prefill_step {describe(cfg)}, 1 x {LONG_PROMPT} tokens"
-    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
-                           generator=torch.Generator().manual_seed(2)).to(dev)
+    tokens, kw, n_pos, frames = prefill_inputs(cfg, dev)
+    inputs = ", ".join([f"1 x {tokens.shape[1]} tokens"]
+                       + [f"{x.shape[1]} seeded {k}" for k, x in kw.items()])
+    what = f"prefill_step {describe(cfg)}, {inputs}"
     calls = []
     glu = dict(calls=0, shapes=set())
     with recorded_k5_calls(calls), checked_glu_calls(glu):   # warm-up
-        w_logits, _ = prefill_step(model, tokens, cfg)
+        w_logits, _ = prefill_step(model, tokens, cfg, **kw)
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, _ = prefill_step(model, tokens, cfg)
+    logits, _ = prefill_step(model, tokens, cfg, **kw)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     counts = launch_counts()
-    want = prefill_step_launches(cfg, LONG_PROMPT)
+    want = prefill_step_launches(cfg, n_pos, frames)
     print(f"{what}: launches {counts} (expected {want})")
     if counts != want:
         fail(f"{what}: launch counts {counts} != {want}")
     check_served_plans(f"{cfg.name} prefill_step", counts)
-    if logits.shape != (1, LONG_PROMPT, cfg.vocab_size) \
+    if logits.shape != (1, n_pos, cfg.vocab_size) \
             or logits.dtype != torch.float32:
         fail(f"{what}: logits {tuple(logits.shape)} {logits.dtype}")
     if not bool(torch.isfinite(logits).all()):
@@ -1679,9 +1847,12 @@ def long_prompt_run(model, cfg, dev, ranges=None):
     if not torch.equal(w_logits, logits):
         fail(f"{what}: two runs of the same prefill_step differ")
     del w_logits, logits
-    print(f"  prefill_step: {t_prefill * 1e3:.3f} ms for 1 x {LONG_PROMPT} "
-          "tokens (host clock, after torch.cuda.synchronize())")
-    rows = device_breakdown(lambda: prefill_step(model, tokens, cfg),
+    print(f"  prefill_step: {t_prefill * 1e3:.3f} ms for {inputs} (host "
+          "clock, after torch.cuda.synchronize())")
+    if stages:
+        stage_times(lambda: prefill_step(model, tokens, cfg, **kw), stages,
+                    f"one more prefill_step of {cfg.name}")
+    rows = device_breakdown(lambda: prefill_step(model, tokens, cfg, **kw),
                             label=f"one more prefill_step of {cfg.name}",
                             ranges=ranges)
     if swiglu_is_fused(cfg):
@@ -1726,51 +1897,63 @@ def rel_err(a, b):
 
 def first_layers(model, n):
     """A model sharing ``model``'s tensors, cut to its first ``n`` layers
-    (and the hybrid family's shared block)."""
+    (and the hybrid family's shared block, an encoder-decoder's encoder)."""
     from repro_torch.models.transformer import Model
     return Model(model.embed, model.final_norm, list(model.layers[:n]),
-                 model.lm_head, model.shared_attn)
+                 model.lm_head, model.shared_attn, model.encoder)
 
 
-def teacher_forced(model, cfg, d, tokens=None, config=None, chunk=None):
+def teacher_forced(model, cfg, d, tokens=None, config=None, chunk=None,
+                   frames=None):
     """Prefill (in chunks of ``chunk``, if given), then decode in f32:
     greedy, or fed ``tokens`` when given.  On the dense cache, or on the
-    paged one ``config`` describes (positions from its ``seq_lens``).
+    paged one ``config`` describes (positions from its ``seq_lens``).  An
+    encoder-decoder encodes ``frames`` first and serves with that memory.
     Returns (the logits of each position, on the CPU; the tokens fed)."""
+    from repro_torch.models.transformer import encode
     from repro_torch.serving.cache import init_cache
     from repro_torch.serving.engine import prefill, serve_step
     prompts, lens = make_prompts(cfg, d)
     cache = init_cache(cfg, len(BATCH_LENS), max(BATCH_LENS) + DECODE_STEPS,
                        dtype=torch.float32, config=config, device=d)
-    nl, cache = prefill(model, cache, prompts, lens, cfg, chunk=chunk)
+    memory = None if frames is None else encode(model, frames.to(d), cfg)
+    nl, cache = prefill(model, cache, prompts, lens, cfg, chunk=chunk,
+                        memory=memory)
     logits = [nl]
     fed = [torch.argmax(nl, -1)[:, None] if tokens is None
            else tokens[:, :1].to(d)]
     for t in range(DECODE_STEPS):
         lg, cache = serve_step(model, cache, fed[-1],
-                               lens + t if config is None else None, cfg)
+                               lens + t if config is None else None, cfg,
+                               memory=memory)
         logits.append(lg[:, -1])
         fed.append(torch.argmax(lg[:, -1], -1)[:, None] if tokens is None
                    else tokens[:, t + 1:t + 2].to(d))
     return [x.cpu() for x in logits], torch.cat(fed, 1).cpu()
 
 
-def compare(model_cpu, cfg, dev, what, config=None, chunk=None):
+def compare(model_cpu, cfg, dev, what, config=None, chunk=None,
+            frames=None):
     """The card (kernels) against the CPU (plain versions) on the same f32
-    weights, the CPU teacher-forced with the card's tokens; the card's
-    launch counts must be exact.  Returns (prefill rel-err, worst decode
-    step rel-err, argmax agreement)."""
+    weights, the CPU teacher-forced with the card's tokens (an
+    encoder-decoder's memory encoded from ``frames`` on each side); the
+    card's launch counts must be exact.  Returns (prefill rel-err, worst
+    decode step rel-err, argmax agreement)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     model = copy.deepcopy(model_cpu).to(dev)
     reset_launch_counts()
-    card, tokens = teacher_forced(model, cfg, dev, config=config, chunk=chunk)
+    card, tokens = teacher_forced(model, cfg, dev, config=config, chunk=chunk,
+                                  frames=frames)
     counts = launch_counts()
+    del model
     prefill_forwards = 1 if chunk is None else -(-max(BATCH_LENS) // chunk)
-    want = expected_launches(cfg, config is not None, prefill_forwards)
+    want = expected_launches(cfg, config is not None, prefill_forwards,
+                             frames=None if frames is None
+                             else frames.shape[1])
     if counts != want:
         fail(f"card vs CPU ({what}): launch counts {counts} != {want}")
     cpu, _ = teacher_forced(model_cpu, cfg, torch.device("cpu"), tokens,
-                            config=config, chunk=chunk)
+                            config=config, chunk=chunk, frames=frames)
     agree = torch.cat([(a.argmax(-1) == b.argmax(-1)).float()
                        for a, b in zip(card, cpu)]).mean().item()
     return (rel_err(card[0], cpu[0]),
@@ -1852,8 +2035,9 @@ def card_vs_cpu(model_cpu, master_cpu, cfg, dev):
 
 def card_vs_cpu_long(dev):
     """``prefill_step`` in f32 ``none``, the card (K5) against the CPU (its
-    plain version) on the same weights: qwen2.5-3b and gemma2-27b at full
-    width, CHECK_LAYERS layers, one prompt of CHECK_PROMPT tokens.
+    plain version) on the same weights: qwen2.5-3b, gemma2-27b and
+    phi-3-vision (its 576 seeded patches ahead of the text) at full width,
+    CHECK_LAYERS layers, one prompt of CHECK_PROMPT positions.
     ``blockwise_attn_threshold`` is cut to the prompt so K5 is on the
     path, and gemma2's window to 256 so it bites (layer 0 local); these
     change routing and the window, not width.  Limits as ``card_vs_cpu``'s
@@ -1863,30 +2047,40 @@ def card_vs_cpu_long(dev):
     from repro_torch.models.transformer import init_model
     from repro_torch.serving.engine import prefill_step
     for arch, extra in (("qwen2_5_3b", {}),
-                        ("gemma2_27b", {"sliding_window": 256})):
+                        ("gemma2_27b", {"sliding_window": 256}),
+                        (VLM_ARCH, {})):
         cfg = get_config(arch).replace(
             n_layers=CHECK_LAYERS, quant_proj="none", dtype="float32",
             blockwise_attn_threshold=CHECK_PROMPT, **extra)
         model_cpu = init_model(torch.Generator(device=dev).manual_seed(3),
                                cfg, device="cpu")
         model = copy.deepcopy(model_cpu).to(dev)
-        tokens = torch.randint(0, cfg.vocab_size, (1, CHECK_PROMPT),
+        # phi-3-vision: its patches, then the text, CHECK_PROMPT in all
+        patches = (embeds_for(cfg, 1, cfg.frontend_len, "cpu", 6)
+                   if cfg.frontend == "vision" else None)
+        text = CHECK_PROMPT - (0 if patches is None else patches.shape[1])
+        tokens = torch.randint(0, cfg.vocab_size, (1, text),
                                generator=torch.Generator().manual_seed(4))
         reset_launch_counts()
-        card, _ = prefill_step(model, tokens.to(dev), cfg)
+        card, _ = prefill_step(model, tokens.to(dev), cfg,
+                               frontend_embeds=None if patches is None
+                               else patches.to(dev))
         torch.cuda.synchronize()
         counts = launch_counts()
         want = prefill_step_launches(cfg, CHECK_PROMPT)
         what = (f"card vs CPU: prefill_step {cfg.name} f32 'none', "
-                f"{cfg.n_layers} layers, 1 x {CHECK_PROMPT} tokens, "
-                f"threshold {cfg.blockwise_attn_threshold}, window "
-                f"{cfg.sliding_window}")
+                f"{cfg.n_layers} layers, 1 x {CHECK_PROMPT} positions ("
+                f"{text} tokens), threshold {cfg.blockwise_attn_threshold}, "
+                f"window {cfg.sliding_window}")
         if counts != want:
             fail(f"{what}: launch counts {counts} != {want}")
         card = card.cpu()
         del model
         torch.cuda.empty_cache()
-        cpu, _ = prefill_step(model_cpu, tokens, cfg)
+        cpu, _ = prefill_step(model_cpu, tokens, cfg,
+                              frontend_embeds=patches)
+        if card.shape != (1, CHECK_PROMPT, cfg.vocab_size):
+            fail(f"{what}: logits {tuple(card.shape)}")
         err = rel_err(card, cpu)
         agree = (card.argmax(-1) == cpu.argmax(-1)).float().mean().item()
         print(f"{what}, launches exact ({counts['flash_attention']} K5): "
@@ -2584,6 +2778,12 @@ HYBRID_ARCH, SSM_ARCH = "zamba2_7b", "mamba2_370m"
 # phase 5's depth for zamba2-7b: layer 5 is its first shared site (every
 # 6th layer), so 6 layers hold one application of the shared block
 HYBRID_CHECK_LAYERS = 6
+# the depth of the slot families' Scheduler runs (zamba2-7b: two shared
+# sites, layers 5 and 11).  At full depth they took ~70 s of the
+# script's 1200 s; what they check (exact launch counts, tokens and the
+# slot state after every tick bitwise against the plain versions) holds
+# at any depth, and the serve and prefill_step keep full depth.
+SLOT_SCHED_LAYERS = 12
 
 
 def slot_scheduler(model, cfg, dev, spec=None):
@@ -2699,8 +2899,9 @@ def ssm_paths(dev):
     """Phase 4's SSM and hybrid path: zamba2-7b (w8a8, bf16) at full width
     and all 81 layers through (a) the dense serve with the plain versions
     swapped in, (b) ``prefill_step`` of LONG_PROMPT tokens, profiled by
-    stage, (c) the Scheduler, plain and with ``spec=``; then mamba2-370m
-    at full size through (a) and (c)."""
+    stage, (c) the Scheduler, plain and with ``spec=``, on the model's
+    first SLOT_SCHED_LAYERS layers; then mamba2-370m at full size through
+    (a) and (c)."""
     out = {}
     for arch, seed, long in ((HYBRID_ARCH, 12, True), (SSM_ARCH, 13, False)):
         model, cfg = blockwise_model(arch, dev, seed)
@@ -2711,9 +2912,11 @@ def ssm_paths(dev):
         res = {"cfg": cfg, "serve": (counts, t_prefill, tps)}
         if long:
             res["long"] = long_prompt_run(model, cfg, dev, ranges=SSM_RANGES)
+        depth = min(SLOT_SCHED_LAYERS, cfg.n_layers)
         res["sched"] = slot_sched_run(
-            f"{cfg.family} scheduler plain ({cfg.name}), dense slots", model,
-            cfg, dev, sched_trace(cfg.vocab_size))
+            f"{cfg.family} scheduler plain ({cfg.name}, first {depth} "
+            "layers), dense slots", first_layers(model, depth),
+            cfg.replace(n_layers=depth), dev, sched_trace(cfg.vocab_size))
         print(f"{cfg.family}: torch.cuda.max_memory_allocated over the path "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del model
@@ -2776,6 +2979,264 @@ def card_vs_cpu_ssm(dev):
                       "argmax": agree, "state_rel_err": max(e_state.values())}
     del model, model_cpu
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4-5. the encoder-decoder and vision families: seamless-m4t-medium and
+# phi-3-vision-4.2b
+# ---------------------------------------------------------------------------
+TRANSFORMER = "repro_torch.models.transformer"
+ATTENTION = "repro_torch.models.attention"
+# an encoder-decoder's stages, timed with CUDA events (which see K1-K5's
+# ctypes launches, unlike the profiler's ranges): {stage: (module,
+# function, pick)}, ``pick(kwargs, active)`` choosing the calls of the
+# stage (``active``: the stages running now).  The cross K / V
+# projections are attention.py's only apply_linears call (one K1 of the
+# memory rows, two K2); its only non-causal dense attend outside the
+# encoder is cross-attention's
+ENCDEC_STAGES = {
+    "encoder": (TRANSFORMER, "encode", None),
+    "encoder self-attention": (
+        TRANSFORMER, "apply_attention",
+        lambda kw, active: not kw.get("causal", True)),
+    "decoder self-attention": (
+        TRANSFORMER, "apply_attention",
+        lambda kw, active: kw.get("causal", True)
+        and kw.get("memory") is None),
+    "cross-attention": (TRANSFORMER, "apply_attention",
+                        lambda kw, active: kw.get("memory") is not None),
+    "cross k / v projections (K1 + 2 K2)": (ATTENTION, "apply_linears",
+                                            None),
+    "cross attend (dense, f32 scores)": (
+        ATTENTION, "_attend_dense",
+        lambda kw, active: not kw.get("causal", True)
+        and not active["encoder"]),
+    "decoder FFN": (TRANSFORMER, "apply_ffn",
+                    lambda kw, active: not active["encoder"]),
+    "logits": (TRANSFORMER, "unembed", None),
+}
+
+
+@contextlib.contextmanager
+def timed_stages(stages, spans):
+    """Within the block, each call of a function ``stages`` names that its
+    pick chooses is bracketed by two CUDA events on the current stream,
+    appended to ``spans`` as (stage, start, end)."""
+    import collections
+    active = collections.Counter()
+    saved = []
+    for name, (mod_name, fn_name, pick) in stages.items():
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, fn_name)
+
+        def timed(*args, _fn=fn, _name=name, _pick=pick, **kwargs):
+            if _pick is not None and not _pick(kwargs, active):
+                return _fn(*args, **kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            active[_name] += 1
+            start.record()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                end.record()
+                active[_name] -= 1
+                spans.append((_name, start, end))
+
+        saved.append((mod, fn_name, fn))
+        setattr(mod, fn_name, timed)
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in reversed(saved):
+            setattr(mod, fn_name, fn)
+
+
+def stage_times(fn, stages, label, calls=1):
+    """``fn()`` with ``stages`` timed (``timed_stages``): the stream's ms
+    between each stage's two CUDA events, summed over its calls, and its
+    share of the whole run's (events around ``fn()``), per one of
+    ``calls`` calls of what ``fn`` repeats.  A span holds the stage's
+    device work and the gaps the host leaves in it, so in a host-bound
+    run it measures the host; ``device_breakdown`` gives device time by
+    kernel.  Stages nest (the encoder holds its attention and FFN).
+    Returns {stage: ms}, and the whole as "total"."""
+    spans = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with timed_stages(stages, spans):
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    total = start.elapsed_time(end) / calls
+    got = {name: 0.0 for name in stages}
+    count = {name: 0 for name in stages}
+    for name, a, b in spans:
+        got[name] += a.elapsed_time(b) / calls
+        count[name] += 1
+    print(f"  stream time by stage (CUDA events: device work and the host's "
+          f"gaps; {label}): {total:.3f} ms{' a call' if calls > 1 else ''}")
+    for name, ms in got.items():
+        print(f"    {ms:10.3f} ms {ms / total:6.3f} x{count[name] // calls:<4d}"
+              f" {name}")
+    return {**got, "total": total}
+
+
+def encdec_step_breakdown(model, cfg, dev, steps=4):
+    """A decode step of the encoder-decoder serve by stage: the serve's
+    requests prefilled on a fresh paged cache with their memory, then
+    ``steps`` steps timed (``stage_times``, per step) and profiled by
+    kernel.  Each step's cross-attention projects K and V from all
+    MEMORY_ROWS rows again in every decoder layer, as the reference
+    does."""
+    from repro_torch.models.transformer import encode
+    from repro_torch.serving.cache import CacheConfig, init_cache
+    from repro_torch.serving.engine import prefill, serve_step
+    prompts, lens = make_prompts(cfg, dev)
+    cache = init_cache(cfg, len(BATCH_LENS), max(BATCH_LENS) + DECODE_STEPS,
+                       dtype=cfg.activation_dtype,
+                       config=CacheConfig(layout="paged", page_size=PAGE,
+                                          alloc="striped"), device=dev)
+    memory = encode(model, embeds_for(cfg, len(BATCH_LENS), ENC_FRAMES, dev),
+                    cfg)
+    nl, cache = prefill(model, cache, prompts, lens, cfg, memory=memory)
+    tok = torch.argmax(nl, dim=-1)[:, None]
+
+    def run():
+        nonlocal tok, cache
+        for _ in range(steps):
+            lg, cache = serve_step(model, cache, tok, None, cfg,
+                                   memory=memory)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+
+    run()                                                     # warm-up
+    label = (f"{steps} decode steps of the {cfg.name} serve, "
+             f"{len(BATCH_LENS)} x {ENC_FRAMES} memory rows")
+    out = stage_times(run, ENCDEC_STAGES, label, calls=steps)
+    # at M = 4 every K2 but the cross k / v over the memory rows plans
+    # onto swap: its wide rows (gemm_tma<256, 1>) are those
+    device_breakdown(run, top=12, label=label)
+    del cache, memory
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_paths(dev):
+    """Phase 4's encoder-decoder path: seamless-m4t-medium (w8a8, bf16) at
+    full width and depth (12 + 12 layers), drawn on the card and quantized
+    block by block: (a) the serve on the paged cache (``encode`` of
+    ENC_FRAMES frames a request, 12 K5 non-causal; ``prefill(memory=)``;
+    ``greedy_decode(memory=)``), launch counts exact, every K4 and K5 call
+    held against the plain version, then bitwise against the plain K1-K3
+    (memory included); a decode step by stage; (b) ``prefill_step(
+    encoder_frames=)`` of one request, profiled by kernel and timed by
+    stage."""
+    from repro_torch.serving.cache import CacheConfig
+    model, cfg = blockwise_model(ENCDEC_ARCH, dev, 15)
+    config = CacheConfig(layout="paged", page_size=PAGE, alloc="striped")
+    counts, t_prefill, tps, _, cache = main_path(
+        model, cfg, dev, config,
+        what=f"encoder-decoder paged serve ({describe(cfg)}; {ENC_FRAMES} "
+             f"frames a request; page {PAGE}, striped, bf16 pools)",
+        label=f"{cfg.name} paged serve")
+    del cache
+    step = encdec_step_breakdown(model, cfg, dev)
+    long = long_prompt_run(model, cfg, dev, stages=ENCDEC_STAGES)
+    print(f"{cfg.family}: torch.cuda.max_memory_allocated over the path "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "serve": (counts, t_prefill, tps), "step": step,
+            "long": long}
+
+
+def vlm_paths(dev):
+    """Phase 4's vision path: phi-3-vision-4.2b (w8a8, bf16) at full width
+    and all 32 layers, drawn on the card and quantized block by block: (a)
+    the text-only serve on the paged cache (K4 at head dim 96, 32/32
+    heads), bitwise against the plain K1-K3; (b) ``prefill_step`` of its
+    576 seeded patches and LONG_PROMPT - 576 tokens, one K5 a layer, each
+    held against the plain version, profiled by kernel."""
+    from repro_torch.serving.cache import CacheConfig
+    model, cfg = blockwise_model(VLM_ARCH, dev, 16)
+    config = CacheConfig(layout="paged", page_size=PAGE, alloc="striped")
+    counts, t_prefill, tps, _, cache = main_path(
+        model, cfg, dev, config,
+        what=f"vision paged serve, text-only ({describe(cfg)}; page {PAGE}, "
+             "striped, bf16 pools)", label=f"{cfg.name} paged serve")
+    del cache
+    long = long_prompt_run(model, cfg, dev)
+    print(f"{cfg.family}: torch.cuda.max_memory_allocated over the path "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "serve": (counts, t_prefill, tps), "long": long}
+
+
+def card_vs_cpu_encdec(dev):
+    """Phase 5 for the encoder-decoder: seamless-m4t-medium at full width,
+    CHECK_LAYERS encoder and CHECK_LAYERS decoder layers, f32 ``none``,
+    card against CPU on the same weights and CHECK_PROMPT seeded frames a
+    request, with ``blockwise_attn_threshold`` cut to CHECK_PROMPT so the
+    encoder runs K5 (non-causal, f32): the memory, then ``prefill(
+    memory=)`` (one pass and ``chunk=32``) and 32 decode steps on the
+    dense and the paged cache, each within rel-err 1e-5, argmax >= 0.99,
+    launch counts exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import encode, init_model
+    from repro_torch.serving.cache import CacheConfig
+    cfg = get_config(ENCDEC_ARCH).replace(
+        n_layers=CHECK_LAYERS, n_encoder_layers=CHECK_LAYERS,
+        quant_proj="none", dtype="float32",
+        blockwise_attn_threshold=CHECK_PROMPT)
+    model_cpu = init_model(torch.Generator(device=dev).manual_seed(17), cfg,
+                           device="cpu")
+    frames = embeds_for(cfg, len(BATCH_LENS), CHECK_PROMPT, "cpu", 18)
+    model = copy.deepcopy(model_cpu).to(dev)
+    reset_launch_counts()
+    memory = encode(model, frames.to(dev), cfg).cpu()
+    counts = launch_counts()
+    del model
+    torch.cuda.empty_cache()
+    want = encoder_launches(cfg, CHECK_PROMPT)
+    e_mem = rel_err(memory, encode(model_cpu, frames, cfg))
+    what = (f"card vs CPU: {describe(cfg)}, {len(BATCH_LENS)} x "
+            f"{CHECK_PROMPT} frames, threshold {cfg.blockwise_attn_threshold}")
+    print(f"{what}: memory rel-err {e_mem:.3e} (limit {TOL_NONE}), "
+          f"launches {counts['flash_attention']} K5 (expected "
+          f"{want['flash_attention']})")
+    if counts != want:
+        fail(f"{what}: encode's launch counts {counts} != {want}")
+    if e_mem > TOL_NONE:
+        fail(f"{what}: the memory differs by more than {TOL_NONE}")
+    n = len(BATCH_LENS) * (DECODE_STEPS + 1)
+    paged = dict(layout="paged", page_size=PAGE, alloc="striped")
+    out = {"memory_rel_err": e_mem}
+    for label, config, chunk in (("dense", None, None),
+                                 ("dense, chunk=32", None, 32),
+                                 ("paged", CacheConfig(**paged), None),
+                                 ("paged, chunk=32", CacheConfig(**paged),
+                                  32)):
+        t0 = time.perf_counter()
+        e_pre, e_dec, agree = compare(model_cpu, cfg, dev,
+                                      f"{what}, {label}", config=config,
+                                      chunk=chunk, frames=frames)
+        print(f"{what}, {label}, prefill(memory=) and {DECODE_STEPS} decode "
+              f"steps, launches exact: rel-err prefill {e_pre:.3e}, worst "
+              f"decode step {e_dec:.3e} (limit {TOL_NONE}); argmax agreement "
+              f"{agree:.4f} over {n} positions (limit {TOL_ARGMAX}); "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not (e_pre <= TOL_NONE and e_dec <= TOL_NONE):
+            fail(f"{what}, {label}: rel-err above {TOL_NONE}")
+        if agree < TOL_ARGMAX:
+            fail(f"{what}, {label}: argmax agreement {agree} < {TOL_ARGMAX}")
+        out[label] = {"prefill_rel_err": e_pre, "decode_rel_err": e_dec,
+                      "argmax": agree}
+    del model_cpu
     return out
 
 
@@ -3141,7 +3602,7 @@ def visible_pairs(s_len, t_len, *, causal=True, window=None):
 def time_flash(b, s, h, kh, d, dev, *, dtype=torch.bfloat16, launches=10,
                **opts):
     """K5 at one shape (t = s): kernel, plain version and, where it
-    computes the same function (causal, no window, no softcap),
+    computes the same function (causal or not, no window, no softcap),
     ``scaled_dot_product_attention``; the bound from the visible pairs'
     flops (QK and PV: 4 * d per pair and head) at the tensor-core peak of
     the dtype, and from q, k, v and out moved once."""
@@ -3159,16 +3620,16 @@ def time_flash(b, s, h, kh, d, dev, *, dtype=torch.bfloat16, launches=10,
                            launches, replays=3),
            "plain_ms": eager_ms(lambda *x: attention_ref(*x, **opts), sets),
            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
-    if opts.get("causal", True) and not opts.get("window") \
-            and not opts.get("softcap"):
+    if not opts.get("window") and not opts.get("softcap"):
         lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in st)
                     for st in sets]
         try:
             row["library_ms"] = device_ms(
                 lambda q, k, v:
                 torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True,
-                    scale=opts.get("scale")), lib_sets, launches, replays=3)
+                    q, k, v, is_causal=opts.get("causal", True),
+                    enable_gqa=True, scale=opts.get("scale")), lib_sets,
+                launches, replays=3)
         except RuntimeError as e:    # a yardstick only: report, go on
             print(f"  (library yardstick unavailable: {e})")
     return row
@@ -3273,6 +3734,65 @@ def timings(cfg, dev):
         shapes["qwen quant_act_glu"].append(
             (f"chunk-{m}", f"({m},11008) bf16", 1,
              time_quant_glu(m, 11008, dev)))
+    # seamless-m4t-medium: a decoder layer's launches at decode ("decode",
+    # M = 4: K1 over d_model for the self QKV, wo, cross q, cross wo and up
+    # (x 5), over d_ff for down; every step's K1 of the MEMORY_ROWS memory
+    # rows and its cross k / v K2; K3; K2 wo, cross q and wo (x 3), up,
+    # down) and an encoder layer's at the serve's MEMORY_ROWS frames
+    # ("encoder"); phi-3-vision's at decode and prefill_step (LONG_PROMPT
+    # rows): K1 over d_model (x 3), quant_act_glu over d_ff, K3 (MHA), K2
+    # wo, gate / up, down
+    for fam in ("seamless", "phi3"):
+        for name in ("quant_act", "quant_act_glu", "fused_qkv",
+                     "tiled_matmul"):
+            shapes[f"{fam} {name}"] = []
+    (s_wo, s_up, s_down), s_qkv = model_shapes(ENCDEC_ARCH)
+    sd, sf = s_up
+    mem_k1 = time_quant_act(MEMORY_ROWS, sd, dev, 10)
+    shapes["seamless quant_act"] += [
+        ("decode", f"(4,{sd}) bf16", 5, time_quant_act(4, sd, dev)),
+        ("decode", f"(4,{sf}) bf16", 1, time_quant_act(4, sf, dev)),
+        ("decode", f"memory ({MEMORY_ROWS},{sd}) bf16", 1, mem_k1),
+        ("encoder", f"({MEMORY_ROWS},{sd}) bf16", 3, mem_k1),
+        ("encoder", f"({MEMORY_ROWS},{sf}) bf16", 1,
+         time_quant_act(MEMORY_ROWS, sf, dev, 10))]
+    shapes["seamless fused_qkv"] += [
+        (phase, f"({m},{s_qkv[0]})x({s_qkv[0]},{s_qkv[1]}|{s_qkv[2]}|"
+                f"{s_qkv[2]}) f32", 1,
+         time_fused(m, *s_qkv, dev, launches=10 if m > 1024 else 200))
+        for phase, m in (("decode", 4), ("encoder", MEMORY_ROWS))]
+    mem_kv = time_gemm(MEMORY_ROWS, *s_wo, bf16, dev, launches=10)
+    shapes["seamless tiled_matmul"] += [
+        ("decode", f"wo, cross q / wo (4,{s_wo[0]})x({s_wo[0]},{s_wo[1]}) "
+                   "bf16", 3, time_gemm(4, *s_wo, bf16, dev)),
+        ("decode", f"cross k / v ({MEMORY_ROWS},{s_wo[0]})x({s_wo[0]},"
+                   f"{s_wo[1]}) bf16", 2, mem_kv),
+        ("decode", f"up (4,{sd})x({sd},{sf}) bf16", 1,
+         time_gemm(4, *s_up, bf16, dev)),
+        ("decode", f"down (4,{sf})x({sf},{sd}) bf16", 1,
+         time_gemm(4, *s_down, bf16, dev)),
+        ("encoder", f"wo ({MEMORY_ROWS},{s_wo[0]})x({s_wo[0]},{s_wo[1]}) "
+                    "bf16", 1, mem_kv),
+        ("encoder", f"up ({MEMORY_ROWS},{sd})x({sd},{sf}) bf16", 1,
+         time_gemm(MEMORY_ROWS, *s_up, bf16, dev, launches=10)),
+        ("encoder", f"down ({MEMORY_ROWS},{sf})x({sf},{sd}) bf16", 1,
+         time_gemm(MEMORY_ROWS, *s_down, bf16, dev, launches=10))]
+    (v_wo, v_up, v_down), v_qkv = model_shapes(VLM_ARCH)
+    vd, vf = v_up
+    for phase, m in (("decode", 4), ("prefill", LONG_PROMPT)):
+        n = 10 if m == LONG_PROMPT else 200
+        shapes["phi3 quant_act"].append(
+            (phase, f"({m},{vd}) bf16", 3, time_quant_act(m, vd, dev, n)))
+        shapes["phi3 quant_act_glu"].append(
+            (phase, f"({m},{vf}) bf16", 1, time_quant_glu(m, vf, dev, n)))
+        shapes["phi3 fused_qkv"].append(
+            (phase, f"({m},{vd})x({vd},{v_qkv[1]}|{v_qkv[2]}|{v_qkv[2]}) "
+                    "f32", 1, time_fused(m, *v_qkv, dev, launches=n)))
+        for name, (k, nn), times in (("wo", v_wo, 1), ("gate/up", v_up, 2),
+                                     ("down", v_down, 1)):
+            shapes["phi3 tiled_matmul"].append(
+                (phase, f"{name} ({m},{k})x({k},{nn}) bf16", times,
+                 time_gemm(m, k, nn, bf16, dev, launches=n)))
     # gemma2-27b's K1 at d_ff (its GELU stays unfused): decode, prefill
     shapes["gemma2 quant_act"] = [
         (phase, f"({m},36864) bf16", 1,
@@ -3306,6 +3826,20 @@ def timings(cfg, dev):
                      time_paged(8, 4096, hh, kk, dd, [4096] * 8, dev,
                                 page=64, kv="bf16", launches=50)))
     shapes["paged_decode"] = rows
+    # the serve's K4 launches of seamless-m4t-medium's decoder (16/16 heads
+    # of 64) and phi-3-vision's (32/32 of 96): the prefill's 4 x 64 rows,
+    # the first decode step; bf16 pools
+    for fam, hh, dd in (("seamless", 16, 64), ("phi3", 32, 96)):
+        shapes[f"{fam} paged_decode"] = [
+            ("prefill", f"{len(BATCH_LENS)}x64 H{hh} KH{hh} D{dd} bf16 page "
+                        f"{PAGE}", 1,
+             time_paged(len(BATCH_LENS), t, hh, hh, dd,
+                        [max(BATCH_LENS)] * len(BATCH_LENS), dev,
+                        qs=max(BATCH_LENS), kv="bf16",
+                        q_dtype=torch.bfloat16, q_chunk=128)),
+            ("decode", f"H{hh} KH{hh} D{dd} lens {first_step} bf16", 1,
+             time_paged(len(BATCH_LENS), t, hh, hh, dd, first_step, dev,
+                        kv="bf16", q_dtype=torch.bfloat16))]
     # K4's verify mode: one launch per layer of a spec tick's verify pass,
     # at the served shape (qwen2.5-3b's heads, 4 sequences of 5 rows over
     # contexts of 45-560 tokens), bf16 and int8 pools
@@ -3328,6 +3862,11 @@ def timings(cfg, dev):
                     softcap=50.0)),
         ("zamba2", f"zamba2-7b 1x{LONG_PROMPT} H32 KH32 D112 bf16", 1,
          time_flash(1, LONG_PROMPT, 32, 32, 112, dev)),
+        ("seamless", f"seamless-m4t-medium encoder 4x{ENC_FRAMES} H16 KH16 "
+                     "D64 bf16 non-causal", 1,
+         time_flash(4, ENC_FRAMES, 16, 16, 64, dev, causal=False)),
+        ("phi3", f"phi-3-vision 1x{LONG_PROMPT} H32 KH32 D96 bf16", 1,
+         time_flash(1, LONG_PROMPT, 32, 32, 96, dev)),
         # the f32 path (the ALUs; phase 5's card-vs-CPU runs take it)
         ("prefill-f32", f"qwen2.5-3b 1x{LONG_PROMPT} H16 KH2 D128 f32", 1,
          time_flash(1, LONG_PROMPT, 16, 2, 128, dev, dtype=torch.float32,
@@ -3417,7 +3956,10 @@ def path_launches(name, model_name):
 PATH_ROWS = {"qwen": ("qwen2_5_3b", ("decode", "verify", "prefill")),
              "moe": ("qwen3_moe_30b_a3b", ("decode", "verify", "prefill")),
              "zamba2": ("zamba2_7b", ("decode", "prefill", "decode site",
-                                      "prefill site"))}
+                                      "prefill site")),
+             "seamless": ("seamless_m4t_medium", ("decode", "encoder",
+                                                  "prefill")),
+             "phi3": ("phi3_vision_4_2b", ("decode", "prefill"))}
 
 
 def path_rows(rows, phases):
@@ -3487,6 +4029,10 @@ def main():
         moe = moe_paths(dev)
         stamp("phase 4: the SSM and hybrid path")
         ssm_res = ssm_paths(dev)
+        stamp("phase 4: the encoder-decoder path")
+        encdec = encdec_paths(dev)
+        stamp("phase 4: the vision path")
+        vlm = vlm_paths(dev)
         stamp("phase 5: card vs CPU")
         card_vs_cpu(model_cpu, master, cfg, dev)
         card_vs_cpu_long(dev)
@@ -3496,6 +4042,8 @@ def main():
         moe_check = card_vs_cpu_moe(dev)
         stamp("phase 5: the hybrid family, card vs CPU")
         ssm_check = card_vs_cpu_ssm(dev)
+        stamp("phase 5: the encoder-decoder family, card vs CPU")
+        encdec_check = card_vs_cpu_encdec(dev)
     counts["paged_decode"] = paged_counts["paged_decode"]
     stamp("phase 6: timings")
     shapes = timings(cfg, dev)
@@ -3557,6 +4105,16 @@ def main():
                    **{k: fa["zamba2"][k] for k in (
                        "ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")}},
+        "seamless_m4t_medium": {
+            "work": f"one seamless-m4t-medium encoder layer of the serve: "
+                    f"(4, {ENC_FRAMES}, 16/16, 64) bf16, non-causal",
+            **{k: fa["seamless"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        "phi3_vision_4_2b": {
+            "work": f"one phi-3-vision layer of prefill_step: (1, "
+                    f"{LONG_PROMPT}, 32/32, 96) bf16, causal",
+            **{k: fa["phi3"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     })
     ver = {phase: r for phase, _, _, r in shapes["paged_decode_verify"]}
     kernels.append({
@@ -3604,11 +4162,17 @@ def main():
         "launches_by_path": served_plans("quant_act_glu"),
         "zamba2_7b": path_rows(shapes["zamba2 quant_act_glu"],
                                PATH_ROWS["zamba2"][1]),
+        "phi3_vision_4_2b": path_rows(shapes["phi3 quant_act_glu"],
+                                      PATH_ROWS["phi3"][1]),
     })
     for k in kernels:
         k["launches_qwen3_moe"] = path_launches(k["name"], "qwen3-moe")
         k["launches_zamba2_7b"] = path_launches(k["name"], "zamba2-7b")
         k["launches_mamba2_370m"] = path_launches(k["name"], "mamba2-370m")
+        k["launches_seamless_m4t_medium"] = path_launches(
+            k["name"], "seamless-m4t-medium")
+        k["launches_phi3_vision_4_2b"] = path_launches(k["name"],
+                                                       "phi-3-vision-4.2b")
     sched_all = {**{(k, "qwen2.5-3b w8a8 bf16, 36 layers"): r
                     for k, r in sched_runs.items()},
                  **{(k, f"{MOE_ARCH} w8a8 bf16, 48 layers"): r
@@ -3633,13 +4197,33 @@ def main():
         line = (f"{res['cfg'].family} serve ({arch}, "
                 f"{res['cfg'].n_layers} layers, w8a8 bf16, dense slots): "
                 f"prefill_ms={s_prefill * 1e3:.3f} decode_tok_s={s_tps:.1f}; "
-                f"scheduler plain {sc['ticks']} ticks, {sc['tok_s']:.1f} "
-                f"tok/s, {sc['ms_per_tick']:.3f} ms/tick")
+                f"scheduler plain (first "
+                f"{min(SLOT_SCHED_LAYERS, res['cfg'].n_layers)} layers) "
+                f"{sc['ticks']} ticks, {sc['tok_s']:.1f} tok/s, "
+                f"{sc['ms_per_tick']:.3f} ms/tick")
         if "long" in res:
             line += (f"; prefill_step (1 x {LONG_PROMPT}) "
                      f"{res['long'][1] * 1e3:.3f} ms, "
                      f"{res['long'][0]['flash_attention']} K5 launches")
         print(line)
+    print(f"card vs CPU {ENCDEC_ARCH} ({CHECK_LAYERS} + {CHECK_LAYERS} "
+          f"layers f32 'none'): {encdec_check}")
+    for res, text in ((encdec, f"{ENC_FRAMES} frames a request"),
+                      (vlm, "text-only")):
+        r_counts, r_prefill, r_tps = res["serve"]
+        print(f"{res['cfg'].family} serve ({res['cfg'].name}, "
+              f"{res['cfg'].n_layers} layers, w8a8 bf16, paged bf16 pools, "
+              f"{text}): prefill_ms={r_prefill * 1e3:.3f} "
+              f"decode_tok_s={r_tps:.1f}; prefill_step "
+              f"{res['long'][1] * 1e3:.3f} ms, "
+              f"{res['long'][0]['flash_attention']} K5 launches")
+    step = encdec["step"]
+    cross = step["cross k / v projections (K1 + 2 K2)"]
+    print(f"{ENCDEC_ARCH} decode step (stream time, CUDA events): "
+          f"{step['total']:.3f} ms, cross-attention "
+          f"{step['cross-attention']:.3f} ms, its k / v projections over "
+          f"{MEMORY_ROWS} memory rows {cross:.3f} ms ("
+          f"{cross / step['total']:.3f} of the step)")
     m_counts, m_prefill, m_tps = moe["serve"]
     print(f"moe serve ({MOE_ARCH}, 48 layers, w8a8 bf16, paged bf16 "
           f"pools): prefill_ms={m_prefill * 1e3:.3f} decode_tok_s="

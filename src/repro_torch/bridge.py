@@ -11,7 +11,10 @@ or quantized ``gate_q``/``up_q``/``down_q``, kept in their (E, K, N)
 layout: no kernel reads them) and shared FFN are carried the same way,
 as are an SSM layer's norm and Mamba2 block (five in-projections,
 ``out_proj``, the three conv taps, ``A_log`` / ``D`` / ``dt_bias`` and the
-gated norm) and the hybrid family's unstacked ``shared_attn`` block.
+gated norm) and the hybrid family's unstacked ``shared_attn`` block.  An
+encoder-decoder's decoder blocks carry their ``norm_cross`` and ``cross``
+attention, and its ``encoder`` stack and final norm come across as the
+decoder's layers do.
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ from repro_torch.models.ffn import FFN
 from repro_torch.models.layers import Embedding, LMHead, Norm
 from repro_torch.models.moe import Experts, MoE
 from repro_torch.models.ssm import IN_PROJ, ConvWeight, Mamba2, SSMParams
-from repro_torch.models.transformer import (DecoderBlock, Model, SSMBlock,
-                                            check_supported, is_ssm_family)
+from repro_torch.models.transformer import (DecoderBlock, Encoder, Model,
+                                            SSMBlock, check_supported,
+                                            is_ssm_family)
 
 
 def _t(a) -> torch.Tensor:
@@ -78,17 +82,24 @@ def _moe(m, i) -> MoE | None:
     return MoE(_linear(m["router"], i), experts, _ffn(m.get("shared"), i))
 
 
-def _block(layers: dict, i: int) -> DecoderBlock:
-    a = layers["attn"]
-    attn = Attention(_linear(a["wq"], i), _linear(a["wk"], i),
+def _attention(a, i) -> Attention | None:
+    if a is None:
+        return None
+    return Attention(_linear(a["wq"], i), _linear(a["wk"], i),
                      _linear(a["wv"], i), _linear(a["wo"], i),
                      _norm(a.get("q_norm"), i), _norm(a.get("k_norm"), i))
-    return DecoderBlock(_norm(layers["norm_attn"], i), attn,
+
+
+def _block(layers: dict, i: int) -> DecoderBlock:
+    return DecoderBlock(_norm(layers["norm_attn"], i),
+                        _attention(layers["attn"], i),
                         _norm(layers["norm_ffn"], i),
                         _ffn(layers.get("ffn"), i),
                         _norm(layers.get("norm_attn_post"), i),
                         _norm(layers.get("norm_ffn_post"), i),
-                        moe=_moe(layers.get("moe"), i))
+                        moe=_moe(layers.get("moe"), i),
+                        norm_cross=_norm(layers.get("norm_cross"), i),
+                        cross=_attention(layers.get("cross"), i))
 
 
 def _ssm_block(layers: dict, i: int) -> SSMBlock:
@@ -119,10 +130,14 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
     head = tree.get("lm_head")
     block = _ssm_block if is_ssm_family(cfg) else _block
     shared = tree.get("shared_attn")
+    enc = tree.get("encoder")
+    encoder = None if enc is None else Encoder(
+        [_block(enc["layers"], i) for i in range(cfg.n_encoder_layers)],
+        _norm(enc["final_norm"]))
     model = Model(Embedding(_t(tree["embed"]["table"])),
                   _norm(tree["final_norm"]),
                   [block(tree["layers"], i) for i in range(cfg.n_layers)],
                   LMHead(_t(head["w"])) if head is not None else None,
                   None if shared is None
-                  else _block(_with_layer_axis(shared), 0))
+                  else _block(_with_layer_axis(shared), 0), encoder)
     return model.to(dev)

@@ -2,9 +2,9 @@
 
 Each module defines ``CONFIG`` (the full assigned configuration) and
 ``smoke_config()`` (a reduced same-family config for CPU smoke tests).
-The dense, MoE, SSM and hybrid configs the port runs are here; the
-vision and encoder-decoder configs come with their families (ROADMAP
-queue 1, item 12).
+Every config of the JAX package is here, field for field: the dense,
+MoE, SSM, hybrid, vision (``phi3_vision_4_2b``) and encoder-decoder
+(``seamless_m4t_medium``) families.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ ARCHITECTURES = [
     "granite_moe_3b_a800m",
     "mamba2_370m",
     "zamba2_7b",
+    "phi3_vision_4_2b",
+    "seamless_m4t_medium",
 ]
 
 _ALIASES = {name.replace("_", "-"): name for name in ARCHITECTURES}

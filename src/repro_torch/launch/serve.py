@@ -7,10 +7,15 @@
 Random weights from a seeded generator → offline weight quantization
 (block by block as drawn: decoder blocks with their MoE experts, Mamba2
 blocks and the hybrid family's shared block) → one-pass prefill → batched
-greedy decode, reporting per-phase latency and tokens/s.  Every ported
-family runs: dense, MoE, SSM (``mamba2_370m``) and hybrid
-(``zamba2_7b``), the last two on their dense slot state.  ``--device cuda`` (the default) needs a card and runs the CUDA
-kernels; ``--device cpu`` runs their plain PyTorch versions.
+greedy decode, reporting per-phase latency and tokens/s.  The dense, MoE,
+SSM (``mamba2_370m``), hybrid (``zamba2_7b``, these two on their dense
+slot state) and vision (``phi3_vision_4_2b``, text-only) families run.
+An encoder-decoder (``seamless_m4t_medium``) is refused: it needs frames
+encoded into memory, which this launcher does not take; drive it with
+``encode`` and ``prefill`` / ``greedy_decode(memory=)``
+(``repro_torch.models.transformer``, ``repro_torch.serving.engine``).
+``--device cuda`` (the default) needs a card and runs the CUDA kernels;
+``--device cpu`` runs their plain PyTorch versions.
 """
 import argparse
 import time
@@ -40,6 +45,11 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch)).replace(quant_proj=args.quant)
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: this launcher takes no "
+            "frames; encode them with encode(model, frames, cfg) and serve "
+            "with prefill / greedy_decode(memory=)")
     # quantized one block at a time as drawn (the MoE family's experts too,
     # as the JAX launcher does; Mamba2 blocks and the shared block alike),
     # so the f32 master is never whole

@@ -1,5 +1,6 @@
 """Attention: MHA/GQA/MQA with RoPE variants, sliding window, softcap,
-QK-norm, a dense or paged KV cache, and blockwise (flash-style) execution.
+QK-norm, cross-attention, a dense or paged KV cache, and blockwise
+(flash-style) execution.
 
 The Q/K/V projections — the paper's target bottleneck — route through
 ``core.qkv_fusion.apply_fused_qkv`` (the persistent-A / update_A mechanism)
@@ -15,8 +16,12 @@ gemma2's sliding window in-kernel and skips the KV blocks the window
 hides), ``jnp`` through the double-chunked online softmax
 ``_attend_blockwise`` in plain PyTorch, on the CPU only: on the card that
 path raises, so no config value takes a long prompt past K5.  Sequence
-lengths need not divide any tile or chunk size.  Cross-attention is not
-ported yet (ROADMAP queue 1, item 12).
+lengths need not divide any tile or chunk size.  The encoder's
+bidirectional self-attention (``causal=False``) takes the same routes
+without the causal mask.  Cross-attention (``memory=``: Q from x, K and V
+from the encoder's output, no rope, no cache) always attends densely and
+non-causally, whatever the memory's length, as in the JAX package; it
+recomputes K and V from ``memory`` at every call.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from torch import nn
 
 from repro_torch.core.qkv_fusion import apply_fused_qkv
 from repro_torch.core.quantization import quantize_kv
-from repro_torch.core.quantized_linear import Linear, apply_linear, init_linear
+from repro_torch.core.quantized_linear import (Linear, apply_linear,
+                                               apply_linears, init_linear)
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      paged_decode_attention)
 from repro_torch.models.config import ModelConfig
@@ -98,18 +104,23 @@ def _mask_bias(q_pos, k_pos, *, window, is_local: bool,
     return torch.where(allowed, 0.0, NEG_INF).float()
 
 
-def _attend_dense(q, k, v, q_pos, k_pos, *, scale, cap, window, is_local):
+def _attend_dense(q, k, v, q_pos, k_pos, *, scale, cap, window, is_local,
+                  causal: bool = True):
     """q (B,S,K,G,hd); k,v (B,T,K,hd) → (B,S,K,G,hd).  Scores in f32.
 
     ``q_pos`` may be (S,) (batch-synchronous) or (B, S) (per-sequence
     positions — mixed-length batches); it is aligned to the (B,K,G,S,T)
-    score block so the mask broadcasts per sequence.
+    score block so the mask broadcasts per sequence.  A mask that hides
+    nothing (non-causal, no window on this layer) is not built: its bias
+    is all zeros.
     """
     if q_pos.dim() == 2:
         q_pos = q_pos[:, None, None, :]        # (B,1,1,S) → bias (B,1,1,S,T)
     s = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
     s = softcap(s, cap)
-    s = s + _mask_bias(q_pos, k_pos, window=window, is_local=is_local)
+    if causal or (window is not None and is_local):
+        s = s + _mask_bias(q_pos, k_pos, window=window, is_local=is_local,
+                           causal=causal)
     p = torch.softmax(s, dim=-1)
     # probabilities rounded to v's dtype, products summed in f32
     o = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype).float(), v.float())
@@ -225,17 +236,25 @@ def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
 def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor,
                     is_local: bool = False,
+                    causal: bool = True,
+                    memory: torch.Tensor | None = None,
                     cache: tuple | None = None,
                     cache_pos: torch.Tensor | None = None,
                     page_table: torch.Tensor | None = None,
                     n_new: torch.Tensor | None = None):
-    """Causal self-attention over x (B, S, D), without a cache or with a
-    dense or paged one (the bidirectional encoder path comes with item 12).
+    """Self-attention over x (B, S, D), causal or (``causal=False``, the
+    encoder's) bidirectional, without a cache or with a dense or paged one;
+    or cross-attention from x to ``memory`` (B, T, D).
 
     Without a cache, ``s >= cfg.blockwise_attn_threshold`` takes the
     blockwise path: ``flash_attention`` (K5) or, for ``attn_impl="jnp"`` on
     the CPU, ``_attend_blockwise``, with the sliding window on local
     layers.
+
+    Cross-attention projects Q from x and K, V from ``memory`` (one K1 of
+    the memory rows serves both under w8a8), applies no rope and attends
+    densely over all T memory rows, non-causally and with no window; it
+    takes no cache.
 
     With ``cache`` = (k, v), each (B, S_max, K, hd), the new keys and values
     are written **in place** into the cache tensors at ``cache_pos``, a (B,)
@@ -246,12 +265,19 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 
     Returns (y, the layer's cache tuple or None).
     """
+    if memory is not None and cache is not None:
+        raise ValueError("cross-attention (memory=) takes no cache: K and V "
+                         "come from the memory at every call")
     b, s, _ = x.shape
     kh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     hd = cfg.head_dim
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
 
-    if cfg.fuse_qkv:
+    if memory is not None:
+        q = apply_linear(params.wq, x, mode=cfg.quant_proj)
+        k, v = apply_linears((params.wk, params.wv), memory,
+                             mode=cfg.quant_proj)
+    elif cfg.fuse_qkv:
         q, k, v = apply_fused_qkv(params.wq, params.wk, params.wv, x,
                                   mode=cfg.quant_proj)
     else:
@@ -266,6 +292,15 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.qk_norm:
         q = apply_norm(params.q_norm, q, cfg)
         k = apply_norm(params.k_norm, k, cfg)
+
+    if memory is not None:
+        o = _attend_dense(q.reshape(b, s, kh, g, hd), k, v, positions,
+                          torch.arange(k.shape[1], device=x.device),
+                          scale=scale, cap=cfg.attn_logit_softcap,
+                          window=None, is_local=False, causal=False)
+        y = apply_linear(params.wo, o.reshape(b, s, cfg.q_dim),
+                         mode=cfg.quant_proj)
+        return y, None
 
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
@@ -295,7 +330,7 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
 
         def _flash(window):
-            return flash_attention(q, k, v, scale=scale, causal=True,
+            return flash_attention(q, k, v, scale=scale, causal=causal,
                                    window=window,
                                    softcap=cfg.attn_logit_softcap)
 
@@ -303,13 +338,14 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     elif use_blockwise:
         o = _attend_blockwise(
             q.reshape(b, s, kh, g, hd), k, v, 0, scale=scale,
-            cap=cfg.attn_logit_softcap, causal=True,
+            cap=cfg.attn_logit_softcap, causal=causal,
             window=cfg.sliding_window, is_local=is_local,
             q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv)
     else:
         o = _attend_dense(q.reshape(b, s, kh, g, hd), k, v, positions, k_pos,
                           scale=scale, cap=cfg.attn_logit_softcap,
-                          window=cfg.sliding_window, is_local=is_local)
+                          window=cfg.sliding_window, is_local=is_local,
+                          causal=causal)
     o = o.reshape(b, s, cfg.q_dim)
     y = apply_linear(params.wo, o, mode=cfg.quant_proj)
     return y, new_cache

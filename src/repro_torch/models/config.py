@@ -2,8 +2,8 @@
 
 One frozen dataclass; every architecture in ``repro_torch.configs`` is an
 instance.  Field for field the same as the JAX package's ``ModelConfig``
-(so the families the port does not run yet can still be described and
-refused); only ``activation_dtype`` differs, returning a torch dtype.
+(so a config carries across unchanged); only ``activation_dtype``
+differs, returning a torch dtype.
 The paper's technique enters through ``quant_proj`` (projection quantization
 mode) and ``fuse_qkv`` (the update_A persistent-A fusion) — flipping
 ``quant_proj`` between "none" and "w8a8" is exactly the paper's

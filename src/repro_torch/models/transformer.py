@@ -1,5 +1,5 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families:
-``init_model`` / ``apply_model``.
+"""Model assembly for every family: ``init_model`` / ``apply_model`` /
+``encode``.
 
 Pre-norm decoder blocks (optionally gemma2 sandwich post-norms) run as a
 Python loop over per-layer modules, the eager counterpart of the JAX
@@ -10,9 +10,16 @@ stack of Mamba2 blocks (``SSMBlock``, ``models/ssm.py``); the ``hybrid``
 family (zamba2) adds one parameter-shared attention + FFN block
 (``Model.shared_attn``) that runs before the Mamba block of every layer
 ``i`` with ``i % shared_attn_every == shared_attn_every - 1``, each such
-site with its own KV cache.  Vision-frontend and encoder-decoder families
-are later ROADMAP items (queue 1, item 12) and raise
-``NotImplementedError``.
+site with its own KV cache.  The vision family (phi-3-vision) splices
+precomputed patch embeddings ahead of the text tokens of a cache-less
+forward (``frontend_embeds``); its decode is text-only.  The
+encoder-decoder family (seamless-m4t) adds a bidirectional ``Encoder``
+over precomputed frame embeddings (``encode``) and a cross-attention
+sub-block in every decoder block, which attends to the encoder's output
+(``memory``): ``apply_model`` encodes ``encoder_frames`` itself on a
+cache-less call, and a decode call takes the ``memory`` encoded once
+beforehand.  Where the JAX package would silently drop an input (frames
+or patches it cannot use, a cached call without memory) the port raises.
 
 Cache convention (decode) — see serving/cache.py:
   dense:  {"k","v"}: (L, B, S_max, KVH, hd); layer i attends through the
@@ -54,15 +61,21 @@ SSM_STATE = {"ssm_h": "h", "conv_x": "conv_x", "conv_B": "conv_B",
 
 
 class DecoderBlock(nn.Module):
-    """Attention and a dense ``ffn``, or a mixture of experts ``moe``."""
+    """Attention and a dense ``ffn``, or a mixture of experts ``moe``; in
+    an encoder-decoder's decoder also ``cross``-attention to the encoder's
+    output, after its norm ``norm_cross``."""
 
     def __init__(self, norm_attn: Norm, attn: Attention, norm_ffn: Norm,
                  ffn: FFN | None, norm_attn_post: Norm | None = None,
                  norm_ffn_post: Norm | None = None, *,
-                 moe: MoE | None = None):
+                 moe: MoE | None = None, norm_cross: Norm | None = None,
+                 cross: Attention | None = None):
         super().__init__()
         if (ffn is None) == (moe is None):
             raise ValueError("DecoderBlock takes exactly one of ffn and moe")
+        if (norm_cross is None) != (cross is None):
+            raise ValueError("DecoderBlock takes norm_cross and cross "
+                             "together")
         self.norm_attn = norm_attn
         self.attn = attn
         self.norm_ffn = norm_ffn
@@ -70,6 +83,18 @@ class DecoderBlock(nn.Module):
         self.moe = moe
         self.norm_attn_post = norm_attn_post
         self.norm_ffn_post = norm_ffn_post
+        self.norm_cross = norm_cross
+        self.cross = cross
+
+
+class Encoder(nn.Module):
+    """The encoder-decoder family's bidirectional encoder: pre-norm blocks
+    (``DecoderBlock``s without cross-attention) and its final norm."""
+
+    def __init__(self, layers: list[DecoderBlock], final_norm: Norm):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = final_norm
 
 
 class SSMBlock(nn.Module):
@@ -84,27 +109,32 @@ class SSMBlock(nn.Module):
 class Model(nn.Module):
     """Embedding, the layer stack (``DecoderBlock``s, or ``SSMBlock``s for
     the SSM and hybrid families), the final norm, an untied head if any,
-    and the hybrid family's ``shared_attn`` block."""
+    the hybrid family's ``shared_attn`` block and the encoder-decoder
+    family's ``encoder``."""
 
     def __init__(self, embed: Embedding, final_norm: Norm,
                  layers: list[nn.Module], lm_head: LMHead | None = None,
-                 shared_attn: DecoderBlock | None = None):
+                 shared_attn: DecoderBlock | None = None,
+                 encoder: Encoder | None = None):
         super().__init__()
         self.embed = embed
         self.final_norm = final_norm
         self.lm_head = lm_head
         self.layers = nn.ModuleList(layers)
         self.shared_attn = shared_attn
+        self.encoder = encoder
+
+
+# every family of the JAX package; the port runs them all
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense, MoE, SSM and hybrid families (for now)."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.frontend is not None or cfg.is_encoder_decoder):
+    """Refuse a config of a family the port does not know."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1, item 12); the port runs the dense, MoE, SSM and "
-            "hybrid families")
+            f"{cfg.name}: unknown family {cfg.family!r}; the port runs "
+            f"{', '.join(FAMILIES)}")
 
 
 def is_ssm_family(cfg: ModelConfig) -> bool:
@@ -120,8 +150,8 @@ def shared_sites(cfg: ModelConfig) -> list[bool]:
     return [i % every == every - 1 for i in range(cfg.n_layers)]
 
 
-def _init_decoder_block(generator: torch.Generator,
-                        cfg: ModelConfig) -> DecoderBlock:
+def _init_decoder_block(generator: torch.Generator, cfg: ModelConfig, *,
+                        cross: bool = False) -> DecoderBlock:
     dev = generator.device
     post = cfg.post_block_norm
     attn = init_attention(generator, cfg)
@@ -130,7 +160,9 @@ def _init_decoder_block(generator: torch.Generator,
         init_norm(cfg, device=dev), attn, init_norm(cfg, device=dev), ffn,
         init_norm(cfg, device=dev) if post else None,
         init_norm(cfg, device=dev) if post else None,
-        moe=init_moe(generator, cfg) if cfg.is_moe else None)
+        moe=init_moe(generator, cfg) if cfg.is_moe else None,
+        norm_cross=init_norm(cfg, device=dev) if cross else None,
+        cross=init_attention(generator, cfg) if cross else None)
 
 
 def init_model(generator: torch.Generator, cfg: ModelConfig, *,
@@ -140,7 +172,9 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
     the target device.  ``each_block``, if given, maps each block (decoder
     or Mamba, and the hybrid family's shared block) as soon as it is drawn
     (``quantize_model_params``), so a model too large in f32 is never
-    whole in f32."""
+    whole in f32.  An encoder-decoder config also gets its ``Encoder``
+    (``n_encoder_layers`` blocks, each mapped alike) and cross-attention
+    in every decoder block."""
     cfg.validate()
     check_supported(cfg)
     dev = resolve_device(device)
@@ -152,7 +186,7 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
                                      device=generator.device)
                          * (cfg.d_model ** -0.5))
     each_block = each_block or (lambda block: block)
-    shared = None
+    shared = encoder = None
     if is_ssm_family(cfg):
         layers = [each_block(SSMBlock(init_norm(cfg, device=generator.device),
                                       init_mamba2(generator, cfg)))
@@ -160,16 +194,22 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
         if cfg.family == "hybrid":
             shared = each_block(_init_decoder_block(generator, cfg))
     else:
-        layers = [each_block(_init_decoder_block(generator, cfg))
+        if cfg.is_encoder_decoder:
+            encoder = Encoder(
+                [each_block(_init_decoder_block(generator, cfg))
+                 for _ in range(cfg.n_encoder_layers)],
+                init_norm(cfg, device=generator.device))
+        layers = [each_block(_init_decoder_block(
+                      generator, cfg, cross=cfg.is_encoder_decoder))
                   for _ in range(cfg.n_layers)]
     model = Model(embed, init_norm(cfg, device=generator.device), layers,
-                  lm_head, shared)
+                  lm_head, shared, encoder)
     return model.to(dev)
 
 
 def _decoder_block(p: DecoderBlock, x, cfg: ModelConfig, *, positions,
                    is_local, cache_kv, cache_pos, page_table=None,
-                   n_new=None):
+                   n_new=None, memory=None):
     h = apply_norm(p.norm_attn, x, cfg)
     a_out, new_kv = apply_attention(p.attn, h, cfg, positions=positions,
                                     is_local=is_local, cache=cache_kv,
@@ -178,6 +218,12 @@ def _decoder_block(p: DecoderBlock, x, cfg: ModelConfig, *, positions,
     if p.norm_attn_post is not None:
         a_out = apply_norm(p.norm_attn_post, a_out, cfg)
     x = x + cfg.residual_multiplier * a_out.to(x.dtype)
+
+    if memory is not None:
+        h = apply_norm(p.norm_cross, x, cfg)
+        c_out, _ = apply_attention(p.cross, h, cfg, positions=positions,
+                                   memory=memory)
+        x = x + cfg.residual_multiplier * c_out.to(x.dtype)
 
     h = apply_norm(p.norm_ffn, x, cfg)
     if p.moe is not None:
@@ -233,9 +279,63 @@ def _local_flags(cfg: ModelConfig) -> list[bool]:
     return [bool(cfg.sliding_window)] * cfg.n_layers
 
 
+def _check_inputs(cfg: ModelConfig, *, cache, frontend_embeds,
+                  encoder_frames, memory) -> None:
+    """Refuse what the JAX package's ``apply_model`` would silently drop or
+    fail on without saying why."""
+    if frontend_embeds is not None and cache is not None:
+        raise ValueError(
+            "frontend_embeds are spliced ahead of the text of a cache-less "
+            "forward only (prefill_step); decode is text-only")
+    if not cfg.is_encoder_decoder:
+        if encoder_frames is not None or memory is not None:
+            raise ValueError(
+                f"{cfg.name} is not an encoder-decoder: it takes no "
+                "encoder_frames or memory")
+        return
+    if encoder_frames is not None and memory is not None:
+        raise ValueError("pass encoder_frames or their encoded memory, not "
+                         "both")
+    if cache is not None and memory is None:
+        raise ValueError(
+            f"{cfg.name}: a cached (decode or prefill) call needs memory= "
+            "(encode(model, frames, cfg)): without it the decoder would run "
+            "with no cross-attention")
+    if cache is None and memory is None and encoder_frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
+                         "encoder_frames or memory")
+
+
+def encode(model: Model, frames: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frame embeddings (B, T,
+    D): frames in the activation dtype plus sinusoidal positions, then per
+    layer norm → non-causal self-attention → residual, norm → FFN →
+    residual (no residual multiplier, no post-norms), then the final
+    norm.  Returns the memory (B, T, D)."""
+    enc = model.encoder
+    if enc is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    x = frames.to(cfg.activation_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.pos_embedding == "sinusoidal":
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)[None]
+    for layer in enc.layers:
+        h = apply_norm(layer.norm_attn, x, cfg)
+        a_out, _ = apply_attention(layer.attn, h, cfg, positions=positions,
+                                   causal=False)
+        x = x + a_out
+        h = apply_norm(layer.norm_ffn, x, cfg)
+        x = x + apply_ffn(layer.ffn, h, cfg)
+    return apply_norm(enc.final_norm, x, cfg)
+
+
 def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
                 cache: dict | None = None,
                 cache_pos: torch.Tensor | int | None = None,
+                frontend_embeds: torch.Tensor | None = None,
+                encoder_frames: torch.Tensor | None = None,
+                memory: torch.Tensor | None = None,
                 n_valid: torch.Tensor | None = None):
     """Returns (logits f32 (B, S, V), cache, aux); ``aux`` holds the
     load-balance loss summed over the layers (0 for a dense model).
@@ -247,6 +347,14 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     or SSM cache comes back with ``seq_lens = cache_pos + S``.  DistilBERT
     runs causally here, as in the JAX package.
 
+    ``frontend_embeds`` (B, P, D) (the vision family's patches; cache-less
+    only) are spliced ahead of the token embeddings before positions are
+    formed: the logits cover P + S positions and the text starts at
+    position P.  ``encoder_frames`` (B, T, D) (encoder-decoder, cache-less)
+    are encoded here; ``memory`` (B, T, D) is their encoding made
+    beforehand (``encode``), which every cached call of an encoder-decoder
+    needs.  Every decoder layer cross-attends to it.
+
     ``n_valid`` (B,) int marks how many of the S tokens each row
     commits.  On an SSM / hybrid cache the recurrent state advances by
     exactly that many (prefill of right-padded prompts).  On a paged cache
@@ -256,6 +364,8 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``seq_lens = cache_pos + n_valid``.
     """
     check_supported(cfg)
+    _check_inputs(cfg, cache=cache, frontend_embeds=frontend_embeds,
+                  encoder_frames=encoder_frames, memory=memory)
     paged = cache is not None and "k_pages" in cache
     ssm_cache = cache is not None and "ssm_h" in cache
     if n_valid is not None and not ssm_cache:
@@ -266,6 +376,8 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
         from repro_torch.serving.allocator import require_allocator
         require_allocator(cache, "apply_model(n_valid=)")
     x = embed_tokens(model.embed, tokens, cfg)
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     dev = x.device
     ar = torch.arange(s, device=dev)
@@ -278,6 +390,9 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     if cfg.pos_embedding == "sinusoidal":
         pe = sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
         x = x + (pe[None] if positions.dim() == 1 else pe)
+
+    if cfg.is_encoder_decoder and memory is None:
+        memory = encode(model, encoder_frames, cfg)
 
     lb = torch.zeros((), device=dev)
     if is_ssm_family(cfg):
@@ -296,7 +411,8 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
             x, _, aux = _decoder_block(layer, x, cfg, positions=positions,
                                        is_local=flag, cache_kv=cache_kv,
                                        cache_pos=cache_pos,
-                                       page_table=page_table, n_new=n_valid)
+                                       page_table=page_table, n_new=n_valid,
+                                       memory=memory)
             if "load_balance_loss" in aux:
                 lb = lb + aux["load_balance_loss"]
     if paged or ssm_cache:

@@ -36,9 +36,14 @@ length, nothing to page):
 The state stays f32 whatever the KV dtype: the recurrence and the conv
 windows accumulate across steps.
 
+The vision family's cache is its text decoder's, like any dense model's.
+An encoder-decoder keeps its decoder's self-attention KV only, over its
+``n_layers`` decoder layers, dense or paged: its cross-attention reads
+the encoder's output (``memory``), which the caller keeps and passes to
+every step, and recomputes K and V from it, so nothing of it is cached.
+
 Not ported yet: mesh sharding and per-shard free lists (ROADMAP queue
-1, item 13).  Vision and encoder-decoder state come with item 12, and
-until then ``init_cache`` refuses their configs as ``init_model`` does.
+1, item 13).
 """
 from __future__ import annotations
 

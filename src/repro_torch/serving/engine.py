@@ -5,7 +5,9 @@ the batched decode loop.
     for every position, no cache written.  Prompts of at least
     ``cfg.blockwise_attn_threshold`` tokens attend blockwise (the
     block-sparse flash kernel K5 on the card), never holding the whole
-    (S, S) score block.
+    (S, S) score block.  It takes the vision family's patch embeddings
+    (``frontend_embeds``, spliced ahead of the text) and the
+    encoder-decoder family's frames (``encoder_frames``, encoded first).
   * ``prefill`` runs the whole (right-padded) prompt batch through the
     cache-writing path — one pass, or fixed-size chunks (``chunk=``) —
     committing prompt KV into the cache (dense rows or paged pools; for
@@ -29,7 +31,11 @@ cache's own ``seq_lens``) make mixed-length batches exact: prefill padding
 beyond a short prompt is written but not committed, masked until the
 decode loop overwrites it, one slot per step.  ``prefill(start_pos=)``
 prefills a suffix onto a committed prefix (a prefix-shared admission).
-Cross-attention ``memory=`` is not ported yet (ROADMAP queue 1, item 12).
+An encoder-decoder is served by ``encode`` once, then ``prefill``,
+``serve_step`` and ``greedy_decode`` with that ``memory=``: every
+decoder layer cross-attends to it at every step (the cache holds the
+decoder's self-attention KV only).  ``spec_step`` takes no memory, as in
+the JAX package, so it raises on an encoder-decoder.
 """
 from __future__ import annotations
 
@@ -46,18 +52,15 @@ def prefill_step(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
                  frontend_embeds=None, encoder_frames=None):
     """Cache-less forward pass producing logits for a prompt batch.
 
-    tokens (B, S) int.  Returns (logits f32 (B, S, V), aux).  This is the
-    throughput-shape entry of long-prompt prefill; the serving handoff that
-    also commits KV is ``prefill``.  Vision frontends (``frontend_embeds``)
-    and encoder-decoder models (``encoder_frames``) come with their
-    families: ROADMAP queue 1, item 12.
+    tokens (B, S) int.  Returns (logits f32 (B, S, V), aux), or (B, P +
+    S, V) with ``frontend_embeds`` (B, P, D).  ``encoder_frames`` (B, T, D)
+    are encoded first and every decoder layer cross-attends to them.  This
+    is the throughput-shape entry of long-prompt prefill; the serving
+    handoff that also commits KV is ``prefill``.
     """
-    if frontend_embeds is not None or encoder_frames is not None:
-        raise NotImplementedError(
-            "prefill_step: frontend_embeds / encoder_frames belong to the "
-            "vision and encoder-decoder families, not ported yet (ROADMAP "
-            "queue 1, item 12)")
-    logits, _, aux = apply_model(model, tokens, cfg)
+    logits, _, aux = apply_model(model, tokens, cfg,
+                                 frontend_embeds=frontend_embeds,
+                                 encoder_frames=encoder_frames)
     return logits, aux
 
 
@@ -128,6 +131,7 @@ def cache_capacity(cache: dict) -> int | None:
 
 def prefill(model: Model, cache: dict, prompts: torch.Tensor,
             prompt_lens: torch.Tensor, cfg: ModelConfig, *,
+            memory: torch.Tensor | None = None,
             chunk: int | None = None, start_pos: int = 0):
     """Prefill → decode handoff: commit prompt KV, return first logits.
 
@@ -147,6 +151,9 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
     - start``, clipped to the pass's width) rides into the model: the
     recurrence cannot mask padding after the fact, so padded steps leave
     the state untouched.
+
+    ``memory`` (B, T, D): an encoder-decoder's encoded frames
+    (``encode``), which every pass cross-attends to (required there).
 
     Returns (next_logits (B, V) f32 at each sequence's last real prompt
     token, the cache — updated in place, a paged or SSM one with
@@ -172,7 +179,7 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
 
     if chunk is None or s_pad <= chunk:
         logits, cache, _ = apply_model(model, prompts, cfg, cache=cache,
-                                       cache_pos=start_pos,
+                                       cache_pos=start_pos, memory=memory,
                                        n_valid=valid(0, s_pad))
         next_logits = logits[rows, prompt_lens - 1 - start_pos]
     else:
@@ -182,6 +189,7 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
             logits, cache, _ = apply_model(model, prompts[:, c0:c0 + cs],
                                            cfg, cache=cache,
                                            cache_pos=start_pos + c0,
+                                           memory=memory,
                                            n_valid=valid(c0, cs))
             if next_logits is None:
                 next_logits = torch.zeros((b, logits.shape[-1]),
@@ -199,7 +207,7 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
 
 
 def serve_step(model: Model, cache: dict, tokens: torch.Tensor,
-               pos, cfg: ModelConfig):
+               pos, cfg: ModelConfig, *, memory: torch.Tensor | None = None):
     """One decode step.
 
     tokens (B, 1) int; pos is a scalar (batch-synchronous), a (B,) int
@@ -209,6 +217,7 @@ def serve_step(model: Model, cache: dict, tokens: torch.Tensor,
     None): a scalar is checked here, but a device vector is not (that
     would read it on the host every step), and past capacity its write
     faults on the card.  ``greedy_decode`` checks its whole run once.
+    ``memory``: an encoder-decoder's encoded frames (required there).
 
     Returns (logits (B, 1, V) f32, cache — updated in place).
     """
@@ -225,17 +234,19 @@ def serve_step(model: Model, cache: dict, tokens: torch.Tensor,
                              "needs an explicit pos")
         pos = cache["seq_lens"]
     logits, cache, _ = apply_model(model, tokens, cfg, cache=cache,
-                                   cache_pos=pos)
+                                   cache_pos=pos, memory=memory)
     return logits, cache
 
 
 def greedy_decode(model: Model, cache: dict, first_token: torch.Tensor,
-                  start_pos, n_steps: int, cfg: ModelConfig):
+                  start_pos, n_steps: int, cfg: ModelConfig, *,
+                  memory: torch.Tensor | None = None):
     """Batched greedy serving loop over ``n_steps`` decode steps.
 
     first_token (B, 1) int; start_pos is an int (batch-synchronous), a
     (B,) int vector of per-sequence lengths, or None to start from the
-    cache's ``seq_lens`` (paged and SSM caches).
+    cache's ``seq_lens`` (paged and SSM caches).  ``memory``: an
+    encoder-decoder's encoded frames, which every step cross-attends to.
 
     Returns (tokens (B, n_steps + 1) — ``first_token`` followed by the
     greedy continuations — and the cache, updated in place).
@@ -259,7 +270,8 @@ def greedy_decode(model: Model, cache: dict, first_token: torch.Tensor,
     tok = first_token
     out = [first_token]
     for _ in range(n_steps):
-        logits, cache = serve_step(model, cache, tok, pos, cfg)
+        logits, cache = serve_step(model, cache, tok, pos, cfg,
+                                   memory=memory)
         tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(
             first_token.dtype)
         out.append(tok)

@@ -117,7 +117,9 @@ class Scheduler:
     state, through the state-handler registry (``serving/state.py``).
 
     Args:
-      model / cfg: the model (dense, MoE, SSM or hybrid family);
+      model / cfg: the model (dense, MoE, SSM, hybrid or vision family,
+        the last text-only; an encoder-decoder is refused: its requests
+        need memory, which the Scheduler's interface has no place for);
         ``cfg.family`` picks the state handler.
       slots: batch width B of the decode step.
       max_len: per-sequence context bound (the page table's width; the
@@ -148,6 +150,13 @@ class Scheduler:
                  share_prefix: bool = True, bucket: int = 16,
                  eos_id: int | None = None, dtype=torch.float32,
                  spec: SpecConfig | None = None, device="cuda"):
+        if cfg.is_encoder_decoder:
+            # the JAX Scheduler would prefill and decode without memory,
+            # i.e. with no cross-attention at all
+            raise NotImplementedError(
+                f"{cfg.name}: the Scheduler serves decoder-only families; "
+                "serve an encoder-decoder with encode(model, frames, cfg), "
+                "then prefill / greedy_decode with memory=")
         if config is None:
             config = default_serving_config(cfg)
         self.handler = state_handler(cfg, config)

@@ -346,13 +346,18 @@ def test_prefill_step_matches_jax(arch, mode):
 
 
 def test_prefill_step_refuses_other_families_inputs():
+    """On a decoder-only model ``encoder_frames`` raise (the JAX package
+    ignores them); ``frontend_embeds`` are spliced ahead of the text, as
+    the JAX package splices them on any family."""
     cfg = get_smoke_config("qwen2_5_3b").replace(dtype="float32")
     model = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    for kw in ({"frontend_embeds": torch.zeros((1, 2, cfg.d_model))},
-               {"encoder_frames": torch.zeros((1, 2, cfg.d_model))}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            prefill_step(model, toks, cfg, **kw)
+    with pytest.raises(ValueError, match="not an encoder-decoder"):
+        prefill_step(model, toks, cfg,
+                     encoder_frames=torch.zeros((1, 2, cfg.d_model)))
+    logits, _ = prefill_step(model, toks, cfg,
+                             frontend_embeds=torch.zeros((1, 2, cfg.d_model)))
+    assert logits.shape == (1, 6, cfg.vocab_size)
 
 
 def test_windowed_layers_use_the_window_only_when_local():

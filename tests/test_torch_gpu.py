@@ -514,6 +514,10 @@ PAGED_CASES = {
     "gqa": (2, 256, 16, 2, 128, 64, [256, 77], {}),
     "window_softcap": (2, 128, 4, 1, 64, 16, [100, 23],
                        dict(window=20, softcap=50.0)),
+    # phi-3-vision's text decoder: MHA (32/32 heads) at head dim 96
+    "mha_d96_decode": (4, 96, 32, 32, 96, 16, [65, 49, 34, 18], {}),
+    "mha_d96_prefill": (2, 208, 32, 32, 96, 16, [200, 140],
+                        dict(qs=200, q_chunk=128)),
 }
 
 
@@ -745,6 +749,10 @@ FLASH_CASES = {
     # zamba2-7b's shared block: MHA (g = 1) at head dim 112 (zero-padded
     # to 128 in the bf16 kernel)
     "mha_d112": (1, 1024, 1024, 32, 32, 112, {}),
+    # seamless-m4t-medium's encoder: MHA at head dim 64, bidirectional
+    "mha_d64_noncausal": (2, 1024, 1024, 16, 16, 64, dict(causal=False)),
+    # phi-3-vision: MHA at head dim 96 (zero-padded to 128 in bf16)
+    "mha_d96": (1, 1024, 1024, 32, 32, 96, {}),
 }
 
 
@@ -927,3 +935,72 @@ def test_apply_mamba2_on_the_card(cuda, arch):
     assert counts["quant_act"] == 2 and counts["tiled_matmul"] == 6
     assert y1.dtype == torch.bfloat16 and torch.equal(y1, y2)
     assert bool(torch.isfinite(y1).all())
+
+
+@pytest.mark.parametrize("mode", ["w8a8", "none"])
+def test_cross_attention_on_the_card(cuda, mode):
+    """seamless-m4t's cross-attention at smoke size: in f32 ``none`` (TF32
+    off) within rel-err 1e-5 of the CPU; under w8a8 in bf16 one K1 of the
+    memory rows serves K and V (3 K1 and 4 K2 a call, no K3, no K4 / K5),
+    bitwise the plain versions run on the card's own operands."""
+    import copy
+
+    from repro_torch.core.quantize_params import quantize_model_params
+    from repro_torch.models.attention import apply_attention
+    cfg = get_smoke_config("seamless_m4t_medium").replace(
+        quant_proj=mode, dtype="float32")
+    model = init_model(torch.Generator().manual_seed(0),
+                       cfg.replace(quant_proj="none"), device="cpu")
+    block = model.layers[1].cross
+    if mode == "w8a8":
+        block = quantize_model_params(block)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 7, cfg.d_model), generator=g)
+    mem = torch.randn((3, 40, cfg.d_model), generator=g)
+    pos = torch.arange(7)
+    card = copy.deepcopy(block).to(cuda)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if mode == "none":
+            y, _ = apply_attention(card, x.to(cuda), cfg,
+                                   positions=pos.to(cuda),
+                                   memory=mem.to(cuda))
+            want, _ = apply_attention(block, x, cfg, positions=pos,
+                                      memory=mem)
+            err = ((y.cpu().double() - want.double()).abs().max()
+                   / want.double().abs().max()).item()
+            assert err <= 1e-5, err
+            return
+        bcfg = cfg.replace(dtype="bfloat16")
+        xb, mb = (t.to(cuda, torch.bfloat16) for t in (x, mem))
+        reset_launch_counts()
+        y, _ = apply_attention(card, xb, bcfg, positions=pos.to(cuda),
+                               memory=mb)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert {k: n for k, n in counts.items() if n} == {"quant_act": 3,
+                                                      "tiled_matmul": 4}
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    from repro_torch.core import quantized_linear as ql
+    from repro_torch.core.quantization import QTensor
+
+    def plain_quant(v):
+        values, scale = quant_ref.quant_act_ref(v)
+        return QTensor(values=values, scale=scale, bits=8)
+
+    def plain_matmul(a, b, bias=None, *, out_dtype=torch.bfloat16):
+        return matmul_ref.tiled_matmul_ref(a.values, a.scale, b.values,
+                                           b.scale, bias, out_dtype)
+
+    saved = ql.quant_act, ql.tiled_matmul
+    ql.quant_act, ql.tiled_matmul = plain_quant, plain_matmul
+    try:
+        plain, _ = apply_attention(card, xb, bcfg, positions=pos.to(cuda),
+                                   memory=mb)
+    finally:
+        ql.quant_act, ql.tiled_matmul = saved
+    torch.cuda.synchronize()
+    assert torch.equal(y, plain)

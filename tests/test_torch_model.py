@@ -91,13 +91,20 @@ def test_apply_model_matches_jax(arch, mode):
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_medium", "phi3_vision_4_2b"])
 def test_other_families_raise(arch):
-    """The JAX package's configs of families the port does not run yet,
-    carried over field for field, are refused by the model and the cache."""
+    """The JAX package's vision and encoder-decoder configs, carried over
+    field for field, build a model and a cache (the encoder only for the
+    encoder-decoder); a family the port does not know is refused by both."""
     cfg = ModelConfig(**dataclasses.asdict(jax_configs.get_smoke_config(arch)))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        init_cache(cfg, 2, 8, device="cpu")
+    model = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert (model.encoder is not None) == cfg.is_encoder_decoder
+    assert len(model.layers) == cfg.n_layers
+    cache = init_cache(cfg, 2, 8, device="cpu")
+    assert cache["k"].shape[:3] == (cfg.n_layers, 2, 8)
+    unknown = cfg.replace(family="retrieval")
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        init_model(torch.Generator().manual_seed(0), unknown, device="cpu")
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        init_cache(unknown, 2, 8, device="cpu")
 
 
 def test_init_model_is_seeded_and_quantizes():

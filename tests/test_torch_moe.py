@@ -295,7 +295,9 @@ def test_init_model_quantizes_block_by_block(arch):
 
 def test_check_supported_admits_moe_only():
     """The MoE configs get the paged handler, the SSM and hybrid configs
-    their slot handlers; the vision and audio families still raise."""
+    their slot handlers; the vision and audio families build a model and a
+    cache and get the paged handler, and the Scheduler refuses the audio
+    (encoder-decoder) family."""
     from repro import configs as jax_configs
     for arch in MOE_ARCHS:
         cfg = get_smoke_config(arch)
@@ -309,8 +311,15 @@ def test_check_supported_admits_moe_only():
     for arch in ("phi3_vision_4_2b", "seamless_m4t_medium"):
         cfg = ModelConfig(**dataclasses.asdict(
             jax_configs.get_smoke_config(arch)))
-        with pytest.raises(NotImplementedError, match="item 12"):
-            init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+        model = init_model(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+        init_cache(cfg, 2, 8, device="cpu")
+        assert isinstance(state_handler(cfg), PagedKVHandler)
+        if cfg.is_encoder_decoder:
+            with pytest.raises(NotImplementedError, match="memory="):
+                Scheduler(model, cfg, slots=2, max_len=32, device="cpu")
+        else:
+            Scheduler(model, cfg, slots=2, max_len=32, device="cpu")
 
 
 # ---------------------------------------------------------------------------

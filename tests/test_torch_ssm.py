@@ -730,10 +730,21 @@ def test_ssm_family_degrades_to_plain_decode(arch):
 
 
 def test_other_families_still_raise():
-    """Vision and encoder-decoder configs stay refused (item 12)."""
+    """The vision and encoder-decoder configs, carried over field for
+    field, build attention models with a dense KV cache, not slot state;
+    a slot family's cache refuses them and theirs refuses a slot family."""
     from repro_torch.models.config import ModelConfig
+    zamba = get_smoke_config("zamba2_7b")
+    zamba_cache = init_cache(zamba, 2, 8, torch.float32, device="cpu")
     for arch in ("seamless_m4t_medium", "phi3_vision_4_2b"):
         cfg = ModelConfig(**dataclasses.asdict(
             jax_configs.get_smoke_config(arch)))
-        with pytest.raises(NotImplementedError, match="item 12"):
-            init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+        model = init_model(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+        assert not any(isinstance(layer, SSMBlock) for layer in model.layers)
+        cache = init_cache(cfg, 2, 8, torch.float32, device="cpu")
+        assert "ssm_h" not in cache and "k" in cache
+        with pytest.raises(ValueError, match="SSM slot state"):
+            validate_decode_cache(zamba_cache, cfg)
+        with pytest.raises(ValueError, match="attention KV"):
+            validate_decode_cache(cache, zamba)
