@@ -9,7 +9,8 @@
    any performance warning, such as serialized wgmmas), and
    each kernel's tensor-core (HGMMA, HMMA, IGMMA, IMMA), IDP4A and FFMA
    counts from ``cuobjdump -sass``: K5's bf16 kernels must hold HGMMA,
-   its f32 kernel none; K2 / K3's tensor-core variants (``gemm_tma``,
+   its f32 kernel none, its backward kernels FFMA and none; K2 / K3's
+   tensor-core variants (``gemm_tma``,
    every width) int8 tensor-core instructions and no IDP4A.  K1's 44
    instantiations (f32 / bf16, plain / SwiGLU, 8 values or one an access,
    block / cluster rows, register arrays) with their 16-byte
@@ -45,7 +46,16 @@
    ~4096 tokens whose page walks span many splits (pages of 16 and 64,
    plain and verify, every pool type): the same limits, and the four
    bitwise contracts (two launches, striped and contiguous tables, one-row
-   verify against plain, int8 against pre-dequantized f32).
+   verify against plain, int8 against pre-dequantized f32).  K5's
+   backward (dQ, dK, dV through autograd) against the step-by-step plain
+   backward and against autograd through the plain forward, in f32 and
+   bf16, at qwen2.5-3b's training shape (1, 4096, 16/2, 128), gemma2-27b's
+   local layer with S and window cut 4x (softcap 50), seamless's
+   non-causal D = 64, D = 96 and 112, partial tiles and rows that see no
+   key (their gradients exactly 0): f32 within atol 1e-5 / rtol 1e-4,
+   bf16 each row within 2e-2 of its largest value (``BWD_*``); two
+   backward runs bitwise equal, and K5's O bitwise the same with and
+   without the log-sum-exps its forward writes for the backward.
 4. The main paths: ``distilbert_paper`` (w8a8, bf16) at full width from a
    seeded generator, 4 requests of 64/48/33/17 prompt tokens through
    ``prefill`` then 32 steps of ``greedy_decode``, each with exact kernel
@@ -137,6 +147,20 @@
    serve (K4 at head dim 96), bitwise against the plain versions; (b)
    ``prefill_step`` of 576 seeded patches and 7616 tokens, one K5 a layer,
    each held against the plain version, profiled.
+   The training path: qwen2.5-3b (bf16, ``quant_proj="none"``, remat per
+   block) at full width and all 36 layers, its ZeRO-1 state (bf16 compute
+   copy, f32 master and AdamW moments, ~43 GB) drawn on the card from a
+   seeded generator: the first step's loss and gradient norm with the
+   plain attention swapped in (autograd through it), then 3 steps of
+   ``make_train_step`` (``warmup_cosine`` AdamW) over 1 x 4096 SyntheticLM
+   tokens, launch counts exact (K5 twice a layer, the forward and the
+   remat recompute, its backward once, K1-K4 never), loss and gradient
+   norm finite, the first step within 1e-2 / 5e-2 of the plain one; the
+   step times, the peak allocation and a 4th step under
+   ``torch.profiler``.  No checkpoint of that state is written (~43 GB).
+   ``run_with_restarts`` at the smoke config on the card (checkpoints to a
+   temporary directory, a failure injected at step 3): the restarted
+   steps' losses equal the uninterrupted run's, bitwise or within 1e-6.
 5. Card against CPU in f32, same weights, with exact launch counts on the
    card: unquantized (``none``) at full depth within rel-err 1e-5 on the
    dense cache and on the paged cache (one pass and chunked prefill);
@@ -164,7 +188,14 @@
    ``prefill(chunk=32)`` (each row's valid tokens as ``n_valid``), each
    with 32 decode steps, within rel-err 1e-5, argmax >= 0.99, launch
    counts exact, and the state each prefill commits within rel-err 1e-5.
-6. Timings at the slices' shapes: K1 at every row mapping that takes
+   One f32 train step's gradients of qwen2.5-3b at full width, 2 layers,
+   256 tokens with ``blockwise_attn_threshold=256`` (K5 and its backward on
+   the card): loss within 1e-5, each leaf's gradient within 1e-4 relative
+   norm, launch counts exact.
+6. Timings at the slices' shapes: K5's backward at the training shape
+   (the backward kernels alone, the plain backward, and SDPA's backward as
+   the yardstick, eagerly between CUDA events; bound 10 D flops a visible
+   pair and head at the bf16 peak); K1 at every row mapping that takes
    each shape (distilbert's; qwen2.5-3b's decode, verify and prefill rows
    and the Scheduler trace's prefill rows over 2048 and 11008;
    gemma2-27b's 36864), each checked bitwise first, ``quant_act_glu``
@@ -205,6 +236,7 @@ import contextlib
 import copy
 import importlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -224,6 +256,13 @@ INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
+# phase 6's launches in one timed CUDA graph (each graph replayed 3 times):
+# LAUNCHES at decode and chunk shapes, LONG_LAUNCHES at 8192-row ones (200,
+# 10 and 5 replays until the training path's phases made room for
+# themselves in the script's time: these rows' kernels are unchanged and
+# their numbers stand in PERF.md)
+LAUNCHES = 50
+LONG_LAUNCHES = 4
 
 BATCH_LENS = (64, 48, 33, 17)
 DECODE_STEPS = 32
@@ -380,10 +419,12 @@ def check_k1_sass():
 def check_sass():
     """K5's bf16 kernels must run their products on the tensor cores
     (HGMMA in their SASS) and its f32 kernel on the ALUs (no tensor-core
-    instruction: no TF32).  K2 / K3's tensor-core variants (``gemm_tma``)
+    instruction: no TF32), as must its backward kernels (FFMA, no
+    tensor-core instruction).  K2 / K3's tensor-core variants (``gemm_tma``)
     must hold int8 tensor-core instructions (IGMMA or IMMA) and no
     IDP4A."""
-    for name in ("flash_attention", "paged_decode", "int8_gemm"):
+    for name in ("flash_attention", "flash_attention_bwd", "paged_decode",
+                 "int8_gemm"):
         counts = sass_counts(name)
         if counts is None:
             if name == "int8_gemm":
@@ -403,6 +444,10 @@ def check_sass():
                      "cores")
             if "flash_attention_f32" in fn and (c["HGMMA"] or c["HMMA"]):
                 fail(f"{fn}: tensor-core instructions in K5's f32 path")
+            if "attention_bwd" in fn and (c["HGMMA"] or c["HMMA"]
+                                          or not c["FFMA"]):
+                fail(f"{fn}: K5's backward is to run on the f32 ALUs "
+                     "(FFMA, no tensor-core instruction)")
         if name == "flash_attention" and not any(
                 "flash_attention_bf16" in fn for fn in counts):
             fail("K5's bf16 kernel not found in the SASS listing")
@@ -1169,7 +1214,7 @@ def layer_launches(cfg, *, paged=False, flash=False, verify=False,
             "tiled_matmul": (1 + 2 * ffn + gated + 4 * cross) * w8a8,
             "paged_decode": int(paged and not verify),
             "paged_decode_verify": int(verify),
-            "flash_attention": int(flash)}
+            "flash_attention": int(flash), "flash_attention_backward": 0}
 
 
 def forward_launches(cfg, *, paged=False, flash=False) -> dict:
@@ -1664,6 +1709,8 @@ def device_breakdown(fn, top=10, label="one more run", ranges=None):
             ("K4 (paged_decode_kernel + paged_decode_combine)",
              ("paged_decode",)),
             ("K5 (flash_attention_*)", ("flash_attention",)),
+            ("K5's backward (attention_bwd_delta, _dkdv, _dq)",
+             ("attention_bwd",)),
             ("K2 (gemm_tma / gemm_kernel + splitk_epilogue, 1 product)",
              ("Params<1>", "Args<1>")),
             ("K3 (the same, 3 products)", ("Params<3>", "Args<3>")),
@@ -3243,10 +3290,11 @@ def card_vs_cpu_encdec(dev):
 # ---------------------------------------------------------------------------
 # 6. timings
 # ---------------------------------------------------------------------------
-def device_ms(fn, sets, launches=200, replays=5):
+def device_ms(fn, sets, launches=None, replays=3):
     """Device time of one ``fn(*set)`` call: a CUDA graph of ``launches``
-    calls that rotate over ``sets`` (so operands are cold in L2), replayed
-    and timed with CUDA events."""
+    (default LAUNCHES) calls that rotate over ``sets`` (so operands are
+    cold in L2), replayed and timed with CUDA events."""
+    launches = launches or LAUNCHES
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -3299,7 +3347,7 @@ def k1_plans(fn, ref, sets, m, k, launches):
     return str(chosen), plans
 
 
-def time_quant_act(m, k, dev, launches=200):
+def time_quant_act(m, k, dev, launches=None):
     """K1 at x (m, k) bf16: every row mapping (``k1_plans``), the plain
     version; the bound from one read of x and one write of the int8
     values and scales."""
@@ -3322,7 +3370,7 @@ def unfused_swiglu(gate, up):
     return quant_act(torch.nn.functional.silu(gate) * up)
 
 
-def time_quant_glu(m, k, dev, launches=200):
+def time_quant_glu(m, k, dev, launches=None):
     """quant_act_glu at gate, up (m, k) bf16: every row mapping, the plain
     version and the unfused path it replaces; the bound from one read of
     gate and of up and one write of the int8 values and scales (7 f32
@@ -3423,7 +3471,7 @@ def plain_timer(m, launches):
     return lambda fn, sets: device_ms(fn, sets, launches)
 
 
-def time_gemm(m, k, n, out_dtype, dev, launches=200):
+def time_gemm(m, k, n, out_dtype, dev, launches=None):
     from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
     from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
     out_b = torch.tensor([], dtype=out_dtype).element_size()
@@ -3452,7 +3500,7 @@ def time_gemm(m, k, n, out_dtype, dev, launches=200):
     return row
 
 
-def time_fused(m, k, nq, nkv, dev, launches=200):
+def time_fused(m, k, nq, nkv, dev, launches=None):
     from repro_torch.kernels.fused_qkv.ops import fused_qkv
     from repro_torch.kernels.fused_qkv.ref import fused_qkv_ref
     n_all = nq + 2 * nkv
@@ -3493,7 +3541,7 @@ def sdpa_gathered(q, k, v, mask):
 
 
 def time_paged(b, t, h, kh, d, lens, dev, *, qs=1, page=PAGE, kv="bf16",
-               q_dtype=None, q_chunk=None, window=None, launches=200,
+               q_dtype=None, q_chunk=None, window=None, launches=None,
                new_lens=None):
     """K4 at one shape: kernel, plain version and library yardstick, and
     the bound from the K/V rows this run's lengths make visible.  With
@@ -3599,7 +3647,8 @@ def visible_pairs(s_len, t_len, *, causal=True, window=None):
     return total
 
 
-def time_flash(b, s, h, kh, d, dev, *, dtype=torch.bfloat16, launches=10,
+def time_flash(b, s, h, kh, d, dev, *, dtype=torch.bfloat16,
+               launches=None,
                **opts):
     """K5 at one shape (t = s): kernel, plain version and, where it
     computes the same function (causal or not, no window, no softcap),
@@ -3608,6 +3657,7 @@ def time_flash(b, s, h, kh, d, dev, *, dtype=torch.bfloat16, launches=10,
     the dtype, and from q, k, v and out moved once."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    launches = launches or LONG_LAUNCHES
     elt = torch.tensor([], dtype=dtype).element_size()
     nbytes = elt * 2 * (b * s * h * d + b * s * kh * d)
     pairs = visible_pairs(s, s, causal=opts.get("causal", True),
@@ -3657,10 +3707,11 @@ def timings(cfg, dev):
     # (M=20) and an 8192-token prefill (fewer launches there): K1 three
     # times at d_model (QKV, wo, the FFN's input), quant_act_glu once at
     # d_ff; K1 alone at d_ff is the unfused down input of earlier PRs (x 0)
+    stamp("phase 6: qwen2.5-3b's K1-K3 rows")
     for name in ("quant_act", "quant_act_glu", "fused_qkv", "tiled_matmul"):
         shapes[f"qwen {name}"] = []
     for phase, m in (("decode", 4), ("verify", 20), ("prefill", LONG_PROMPT)):
-        n = 10 if m == LONG_PROMPT else 200
+        n = LONG_LAUNCHES if m == LONG_PROMPT else LAUNCHES
         shapes["qwen quant_act"] += [
             (phase, f"({m},2048) bf16", 3, time_quant_act(m, 2048, dev, n)),
             (phase, f"({m},11008) bf16", 0, time_quant_act(m, 11008, dev, n))]
@@ -3678,10 +3729,11 @@ def timings(cfg, dev):
     # qwen3-moe-30b-a3b's attention launches of one layer at the same rows:
     # K1 at d_model (the fused QKV's input; the row above) and at 4096 (wo's
     # input), the fused QKV 2048 -> 4096 | 512 | 512, wo 4096 -> 2048
+    stamp("phase 6: qwen3-moe's rows")
     for name in ("quant_act", "fused_qkv", "tiled_matmul"):
         shapes[f"moe {name}"] = []
     for phase, m in (("decode", 4), ("verify", 20), ("prefill", LONG_PROMPT)):
-        n = 10 if m == LONG_PROMPT else 200
+        n = LONG_LAUNCHES if m == LONG_PROMPT else LAUNCHES
         d_row = next(r for p, desc, _, r in shapes["qwen quant_act"]
                      if p == phase and desc == f"({m},2048) bf16")
         shapes["moe quant_act"] += [
@@ -3701,12 +3753,13 @@ def timings(cfg, dev):
     # in_B / in_C, in_dt and out_proj; a shared site's ("... site") K1 over
     # d_model (x 3), quant_act_glu over d_ff, K3 (MHA), K2 wo, gate / up,
     # down
+    stamp("phase 6: zamba2-7b's rows")
     for name in ("quant_act", "quant_act_glu", "fused_qkv", "tiled_matmul"):
         shapes[f"zamba2 {name}"] = []
     z_mamba, z_site, (zd, zq, zkv) = zamba_shapes()
     zdi, zf = z_mamba[0][1], z_site[1][1]
     for phase, m in (("decode", 4), ("prefill", LONG_PROMPT)):
-        n = 10 if m == LONG_PROMPT else 200
+        n = LONG_LAUNCHES if m == LONG_PROMPT else LAUNCHES
         site = f"{phase} site"
         d_row = time_quant_act(m, zd, dev, n)
         shapes["zamba2 quant_act"] += [
@@ -3728,6 +3781,7 @@ def timings(cfg, dev):
                      time_gemm(m, k, nn, bf16, dev, launches=n)))
     # the Scheduler's prefill forwards: K1 at d_model (x 3), quant_act_glu
     # at d_ff
+    stamp("phase 6: the Scheduler's chunk rows")
     for m in SCHED_CHUNK_ROWS:
         shapes["qwen quant_act"].append(
             (f"chunk-{m}", f"({m},2048) bf16", 3, time_quant_act(m, 2048, dev)))
@@ -3742,26 +3796,28 @@ def timings(cfg, dev):
     # ("encoder"); phi-3-vision's at decode and prefill_step (LONG_PROMPT
     # rows): K1 over d_model (x 3), quant_act_glu over d_ff, K3 (MHA), K2
     # wo, gate / up, down
+    stamp("phase 6: seamless and phi-3 rows")
     for fam in ("seamless", "phi3"):
         for name in ("quant_act", "quant_act_glu", "fused_qkv",
                      "tiled_matmul"):
             shapes[f"{fam} {name}"] = []
     (s_wo, s_up, s_down), s_qkv = model_shapes(ENCDEC_ARCH)
     sd, sf = s_up
-    mem_k1 = time_quant_act(MEMORY_ROWS, sd, dev, 10)
+    mem_k1 = time_quant_act(MEMORY_ROWS, sd, dev, LONG_LAUNCHES)
     shapes["seamless quant_act"] += [
         ("decode", f"(4,{sd}) bf16", 5, time_quant_act(4, sd, dev)),
         ("decode", f"(4,{sf}) bf16", 1, time_quant_act(4, sf, dev)),
         ("decode", f"memory ({MEMORY_ROWS},{sd}) bf16", 1, mem_k1),
         ("encoder", f"({MEMORY_ROWS},{sd}) bf16", 3, mem_k1),
         ("encoder", f"({MEMORY_ROWS},{sf}) bf16", 1,
-         time_quant_act(MEMORY_ROWS, sf, dev, 10))]
+         time_quant_act(MEMORY_ROWS, sf, dev, LONG_LAUNCHES))]
     shapes["seamless fused_qkv"] += [
         (phase, f"({m},{s_qkv[0]})x({s_qkv[0]},{s_qkv[1]}|{s_qkv[2]}|"
                 f"{s_qkv[2]}) f32", 1,
-         time_fused(m, *s_qkv, dev, launches=10 if m > 1024 else 200))
+         time_fused(m, *s_qkv, dev,
+                    launches=LONG_LAUNCHES if m > 1024 else LAUNCHES))
         for phase, m in (("decode", 4), ("encoder", MEMORY_ROWS))]
-    mem_kv = time_gemm(MEMORY_ROWS, *s_wo, bf16, dev, launches=10)
+    mem_kv = time_gemm(MEMORY_ROWS, *s_wo, bf16, dev, launches=LONG_LAUNCHES)
     shapes["seamless tiled_matmul"] += [
         ("decode", f"wo, cross q / wo (4,{s_wo[0]})x({s_wo[0]},{s_wo[1]}) "
                    "bf16", 3, time_gemm(4, *s_wo, bf16, dev)),
@@ -3774,13 +3830,13 @@ def timings(cfg, dev):
         ("encoder", f"wo ({MEMORY_ROWS},{s_wo[0]})x({s_wo[0]},{s_wo[1]}) "
                     "bf16", 1, mem_kv),
         ("encoder", f"up ({MEMORY_ROWS},{sd})x({sd},{sf}) bf16", 1,
-         time_gemm(MEMORY_ROWS, *s_up, bf16, dev, launches=10)),
+         time_gemm(MEMORY_ROWS, *s_up, bf16, dev, launches=LONG_LAUNCHES)),
         ("encoder", f"down ({MEMORY_ROWS},{sf})x({sf},{sd}) bf16", 1,
-         time_gemm(MEMORY_ROWS, *s_down, bf16, dev, launches=10))]
+         time_gemm(MEMORY_ROWS, *s_down, bf16, dev, launches=LONG_LAUNCHES))]
     (v_wo, v_up, v_down), v_qkv = model_shapes(VLM_ARCH)
     vd, vf = v_up
     for phase, m in (("decode", 4), ("prefill", LONG_PROMPT)):
-        n = 10 if m == LONG_PROMPT else 200
+        n = LONG_LAUNCHES if m == LONG_PROMPT else LAUNCHES
         shapes["phi3 quant_act"].append(
             (phase, f"({m},{vd}) bf16", 3, time_quant_act(m, vd, dev, n)))
         shapes["phi3 quant_act_glu"].append(
@@ -3793,10 +3849,12 @@ def timings(cfg, dev):
             shapes["phi3 tiled_matmul"].append(
                 (phase, f"{name} ({m},{k})x({k},{nn}) bf16", times,
                  time_gemm(m, k, nn, bf16, dev, launches=n)))
+    stamp("phase 6: gemma2-27b's K1 and K4 rows")
     # gemma2-27b's K1 at d_ff (its GELU stays unfused): decode, prefill
     shapes["gemma2 quant_act"] = [
         (phase, f"({m},36864) bf16", 1,
-         time_quant_act(m, 36864, dev, 10 if m == LONG_PROMPT else 200))
+         time_quant_act(m, 36864, dev,
+                        LONG_LAUNCHES if m == LONG_PROMPT else LAUNCHES))
         for phase, m in (("decode", 4), ("prefill", LONG_PROMPT))]
     # K4: one launch per layer; the serve's prefill (one 64-row q block)
     # and first decode step, in bf16 and int8 pools; then long contexts
@@ -3824,7 +3882,7 @@ def timings(cfg, dev):
     for label, hh, kk, dd in (("long", 12, 12, 64), ("long-gqa", 16, 2, 128)):
         rows.append((label, f"8x4096 H{hh} KH{kk} D{dd} bf16 page 64", 1,
                      time_paged(8, 4096, hh, kk, dd, [4096] * 8, dev,
-                                page=64, kv="bf16", launches=50)))
+                                page=64, kv="bf16", launches=LAUNCHES // 2)))
     shapes["paged_decode"] = rows
     # the serve's K4 launches of seamless-m4t-medium's decoder (16/16 heads
     # of 64) and phi-3-vision's (32/32 of 96): the prefill's 4 x 64 rows,
@@ -3850,6 +3908,7 @@ def timings(cfg, dev):
                     kv=pool, q_dtype=torch.bfloat16,
                     new_lens=[VERIFY_Q] * 4))
         for pool in ("bf16", "int8")]
+    stamp("phase 6: K5 rows")
     # K5: one launch per layer of prefill_step at the served shapes
     shapes["flash_attention"] = [
         ("prefill", f"qwen2.5-3b 1x{LONG_PROMPT} H16 KH2 D128 bf16", 1,
@@ -3973,6 +4032,418 @@ def path_rows(rows, phases):
                        for phase, desc, times, r in rows]}
 
 
+# ---------------------------------------------------------------------------
+# K5's backward (phase 3) and the training path (phases 4-6)
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen2_5_3b"
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 3
+TRAIN_CHECK_SEQ = 256                      # phase 5: the threshold, lowered
+RESTART_STEPS = 5
+# K5's gradients against the plain backward: f32 within atol / rtol; bf16
+# each row (one head of one query or key) within BWD_BF16_REL of its
+# largest value, floored at bf16's resolution of the tensor
+# (``grad_row_rel_err``).  Against autograd through the plain forward the
+# f32 rtol is of each row's largest value: autograd's dV is one f32 sum
+# over the g heads' S queries (32768 terms at qwen2.5-3b's training
+# shape), whose own rounding reaches ~1e-4 on an H100 where the early keys
+# gather large terms that cancel, while the kernel and the step-by-step
+# plain backward agree to ~2e-6 there
+BWD_ATOL, BWD_RTOL, BWD_BF16_REL = 1e-5, 1e-4, 2e-2
+# the training path's first step with the plain attention against K5's:
+# the loss and the global gradient norm, in bf16 end to end over 36 layers
+PLAIN_STEP_LOSS, PLAIN_STEP_GNORM = 1e-2, 5e-2
+# name, b, s, t, h, kh, d, options: qwen2.5-3b's training shape; gemma2-
+# 27b's local layer with its S and window both cut 4x (8192 / 4096 to
+# 2048 / 1024, so the window bites); seamless-m4t-medium's non-causal
+# encoder at head dim 64; phi-3-vision's 96 and zamba2-7b's 112 (MHA);
+# partial tiles; rows that see no key (a non-causal window past T)
+BWD_SHAPES = [
+    ("qwen2.5-3b training", 1, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128, {}),
+    ("gemma2-27b local, S and window / 4", 1, 2048, 2048, 32, 16, 128,
+     dict(scale=144 ** -0.5, window=1024, softcap=50.0)),
+    ("seamless-m4t-medium encoder", 2, 1024, 1024, 16, 16, 64,
+     dict(causal=False)),
+    ("phi-3-vision D 96", 1, 1024, 1024, 32, 32, 96, {}),
+    ("zamba2-7b D 112", 1, 1024, 1024, 32, 32, 112, {}),
+    ("partial tiles", 1, 77, 77, 4, 4, 64, {}),
+    ("partial tiles, window + softcap", 1, 300, 300, 8, 4, 128,
+     dict(window=70, softcap=50.0)),
+    ("rows that see no key", 1, 200, 64, 4, 2, 32,
+     dict(causal=False, window=32)),
+]
+FLASH_BWD_KERNEL = (
+    "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "none: the JAX package differentiates the attention of "
+    "src/repro/kernels/flash_attention/kernel.py:133 by autodiff of its "
+    "blockwise jnp path (src/repro/models/attention.py:166)")
+
+
+def grad_row_rel_err(got, want):
+    """The bf16 rule for K5's gradients: each row's max |got - want| over
+    its largest |want| or, where that lies below bf16's resolution of the
+    tensor (2^-8 of its largest |want|), over that resolution: a row whose
+    exact gradient cancels to ~0 (the first query of a causal row sees one
+    key, and dS = P (dP - D) = 0) is rounding noise on both sides."""
+    floor = want.double().abs().max() * 2.0 ** -8
+    diff = (got.double() - want.double()).abs().amax(-1)
+    size = want.double().abs().amax(-1).clamp_min(floor)
+    return (diff / size).max().item()
+
+
+def kernel_grads(q, k, v, dout, opts):
+    """K5 under autograd on the card: (out, dq, dk, dv)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = flash_attention(q, k, v, **opts)
+    return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
+
+
+def check_flash_bwd(dev):
+    """K5's backward kernels against the step-by-step plain backward and
+    against autograd through the plain forward (in f32) on the same CUDA
+    tensors, at BWD_SHAPES in f32 and bf16; then two runs bitwise equal and
+    K5's O bitwise the same with and without the log-sum-exps, at the
+    training shape.  Returns (max |err| against the plain backward in f32,
+    max rel-err in bf16)."""
+    from repro_torch.kernels.flash_attention.ops import _flash_forward
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    worst_abs = worst_rel = 0.0
+    for i, (name, b, s, t, h, kh, d, opts) in enumerate(BWD_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_inputs(b, s, t, h, kh, d, dev, dtype, seed=40 + i)
+            dout = flash_inputs(b, s, s, h, h, d, dev, dtype, seed=60 + i)[0]
+            out, *got = kernel_grads(q, k, v, dout, opts)
+            plain = attention_bwd_ref(q, k, v, dout, **opts)
+            qa, ka, va = (x.detach().float().requires_grad_()
+                          for x in (q, k, v))
+            auto = torch.autograd.grad(attention_ref(qa, ka, va, **opts),
+                                       (qa, ka, va), dout.float())
+            torch.cuda.synchronize()
+            errs, ok = [], True
+            for g, want_plain, want_auto in zip(got, plain, auto):
+                for want, scale in ((want_plain.float(), None),
+                                    (want_auto, "row")):
+                    diff = (g.double() - want.double()).abs()
+                    if dtype == torch.float32:
+                        size = want.double().abs()
+                        if scale:       # autograd's own f32 sums: per row
+                            size = size.amax(-1, keepdim=True)
+                        ok &= bool((diff <= BWD_ATOL + BWD_RTOL
+                                    * size).all())
+                        errs.append(diff.max().item())
+                    else:
+                        errs.append(grad_row_rel_err(g, want))
+                        ok &= errs[-1] <= BWD_BF16_REL
+            if "no key" in name:
+                dead = out.abs().amax(dim=(0, 2, 3)) == 0      # (S,) rows
+                ok &= bool(dead.any()) and bool(
+                    (got[0][:, dead] == 0).all())
+            if dtype == torch.float32:        # errs: plain, autograd, ...
+                worst_abs = max(worst_abs, max(errs[::2]))
+                limit = f"atol {BWD_ATOL}, rtol {BWD_RTOL}"
+            else:
+                worst_rel = max(worst_rel, max(errs))
+                limit = f"per-row rel-err limit {BWD_BF16_REL}"
+            what = (f"flash_attention backward {name} ({b}x{s}x{t}x{h}x{d}, "
+                    f"KH={kh}, {str(dtype)[6:]}"
+                    f"{', ' + str(opts) if opts else ''})")
+            print(f"  {'ok' if ok else 'FAIL'} {what}: dq / dk / dv against "
+                  f"the plain backward and autograd "
+                  + " ".join(f"{e:.3e}" for e in errs) + f" ({limit})")
+            if not ok:
+                fail(f"{what}: K5's backward differs from its plain version")
+            del q, k, v, dout, out, got, plain, qa, ka, va, auto
+    name, b, s, t, h, kh, d, opts = BWD_SHAPES[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = flash_inputs(b, s, t, h, kh, d, dev, dtype, seed=90)
+        dout = flash_inputs(b, s, s, h, h, d, dev, dtype, seed=91)[0]
+        runs = [kernel_grads(q, k, v, dout, opts) for _ in range(2)]
+        fwd = [_flash_forward(q, k, v, d ** -0.5, True, None, None,
+                              with_lse=lse)[0] for lse in (False, True)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        o_same = torch.equal(*fwd)
+        print(f"  {'ok' if same and o_same else 'FAIL'} {name} "
+              f"{str(dtype)[6:]}: two backward runs bitwise equal {same}; "
+              f"K5's O with and without the log-sum-exps bitwise equal "
+              f"{o_same}")
+        if not (same and o_same):
+            fail(f"{name}: K5's backward is not deterministic, or the lse "
+                 "output moved O")
+        del q, k, v, dout, runs, fwd
+    return worst_abs, worst_rel
+
+
+def plain_attention():
+    """The models' K5 calls swapped for the plain version, which autograd
+    differentiates on the card."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def plain(q, k, v, **opts):
+        return attention_ref(q, k, v, **opts).to(q.dtype)
+    return mock.patch("repro_torch.models.attention.flash_attention", plain)
+
+
+def train_launches(cfg, steps):
+    """The launches of ``steps`` train steps of ``cfg`` past its blockwise
+    threshold: K5 twice a layer (the forward, then the remat recompute in
+    the backward), its backward once, K1-K4 never (quant_proj none)."""
+    want = {k: 0 for k in layer_launches(cfg)}
+    want["flash_attention"] = 2 * cfg.n_layers * steps
+    want["flash_attention_backward"] = cfg.n_layers * steps
+    return want
+
+
+def new_train_state(cfg, dev, generator_device, lr=3e-4, total=100):
+    """A TrainState of ``cfg`` (ZeRO-1 in bf16) from a seeded generator on
+    ``generator_device``, and its AdamW (warmup_cosine)."""
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.training.train_step import TrainState
+    model = init_model(torch.Generator(device=generator_device)
+                       .manual_seed(0), cfg, device=dev)
+    opt = AdamW(learning_rate=warmup_cosine(lr, min(20, total), total))
+    return TrainState.create(model, opt, zero1=cfg.dtype == "bfloat16"), opt
+
+
+def training_path(dev):
+    """qwen2.5-3b (bf16, quant_proj none, remat per block) at full width
+    and all 36 layers, its ZeRO-1 state drawn on the card: the first step's
+    loss and gradient norm with the plain attention (autograd through it),
+    then TRAIN_STEPS counted train steps of TRAIN_SEQ tokens through K5 and
+    its backward (launch counts exact), each timed, the peak allocation,
+    and one more step under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.training.train_step import (make_loss_fn,
+                                                 make_train_step, trainable,
+                                                 value_and_grad)
+    cfg = get_config(TRAIN_ARCH)
+    state, opt = new_train_state(cfg, dev, dev)
+    n_params = sum(t.numel() for t in state.master.values())
+    resident = torch.cuda.memory_allocated(dev) / 1e9
+    print(f"training path: {cfg.name} {cfg.dtype} quant_proj "
+          f"{cfg.quant_proj} remat {cfg.remat}, {cfg.n_layers} layers, "
+          f"d={cfg.d_model}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f} B parameters, ZeRO-1 state {resident:.2f} "
+          f"GB resident; batch 1 x {TRAIN_SEQ} tokens (SyntheticLM)")
+    data = SyntheticLM(cfg.vocab_size, 1, TRAIN_SEQ, seed=0, device=dev)
+    with plain_attention():
+        t0 = time.perf_counter()
+        grads, metrics = value_and_grad(make_loss_fn(cfg), state.params,
+                                        trainable(state.params),
+                                        data.batch_at(0), cast=True)
+        plain = (float(metrics["loss"]), float(global_norm(grads)))
+        t_plain = time.perf_counter() - t0
+    del grads
+    torch.cuda.empty_cache()
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times, history = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, data.batch_at(i))
+        history.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = train_launches(cfg, TRAIN_STEPS)
+    print(f"  launches in {TRAIN_STEPS} steps: {counts} (expected {want})")
+    if counts != want:
+        fail(f"training path: launch counts {counts} != {want}")
+    for i, (m, t) in enumerate(zip(history, times)):
+        print(f"  step {i + 1}: loss {m['loss']:.6f} grad_norm "
+              f"{m['grad_norm']:.6f} lr {m['lr']:.3e}, {t * 1e3:.1f} ms "
+              "(host clock, synchronized)")
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"training path: step {i + 1} loss or gradient norm not "
+                 "finite")
+    rel_loss = abs(history[0]["loss"] - plain[0]) / abs(plain[0])
+    rel_norm = abs(history[0]["grad_norm"] - plain[1]) / plain[1]
+    ok = rel_loss <= PLAIN_STEP_LOSS and rel_norm <= PLAIN_STEP_GNORM
+    print(f"  {'ok' if ok else 'FAIL'} step 1 against the plain attention "
+          f"(loss {plain[0]:.6f}, grad_norm {plain[1]:.6f}, "
+          f"{t_plain * 1e3:.1f} ms for its forward and backward): rel-err "
+          f"loss {rel_loss:.3e} (limit {PLAIN_STEP_LOSS}), grad_norm "
+          f"{rel_norm:.3e} (limit {PLAIN_STEP_GNORM})")
+    if not ok:
+        fail("training path: K5's step differs from the plain attention's")
+    print(f"  peak allocation {peak:.2f} GB of "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f}; "
+          f"steady step {min(times[1:]) * 1e3:.1f} ms")
+    rows = device_breakdown(
+        lambda: step_fn(state, data.batch_at(TRAIN_STEPS))[1]["loss"].item(),
+        top=12, label="a 4th train step")
+    del state, data
+    torch.cuda.empty_cache()
+    return {"counts": counts, "times": times, "peak_gb": peak,
+            "history": history, "plain": plain, "rows": rows,
+            "resident_gb": resident}
+
+
+def restart_path(dev):
+    """``run_with_restarts`` on the card at qwen2.5-3b's smoke config (bf16
+    ZeRO-1, 64 tokens: K5 and its backward): checkpoints every 2 steps to a
+    temporary directory, a failure injected at step 3; the steps after the
+    restart against an uninterrupted run's.  Returns (whether the losses
+    are bitwise equal, the largest relative difference)."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.failures import FailureOracle, run_with_restarts
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.trainer import Trainer
+    cfg = get_smoke_config(TRAIN_ARCH)
+    seq = cfg.blockwise_attn_threshold
+
+    def trainer(ckpt_dir, oracle=None):
+        state, opt = new_train_state(cfg, dev, dev, lr=1e-3,
+                                     total=RESTART_STEPS)
+        return Trainer(state=state, step_fn=make_train_step(cfg, opt),
+                       data=SyntheticLM(cfg.vocab_size, 2, seq, seed=0,
+                                        device=dev),
+                       ckpt_dir=ckpt_dir, ckpt_every=2, oracle=oracle,
+                       log_every=1)
+
+    oracle = FailureOracle(fail_at_steps=(3,))
+    made = []
+
+    def restarted():
+        # the cut run's checkpoint writer may still be writing step 2 when
+        # the failure lands (a thread of the same process): let it finish,
+        # so the restart restores step 2 every time
+        if made:
+            made[-1]._ckpt.wait()
+        made.append(trainer(f"{tmp}/cut", oracle))
+        return made[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, whole = trainer(f"{tmp}/whole").run(0, RESTART_STEPS)
+        _, restarts, history = run_with_restarts(restarted, RESTART_STEPS,
+                                                 f"{tmp}/cut")
+    resumed = dict(history[1:])
+    if restarts != 1 or sorted(resumed) != [3, 4, 5]:
+        fail(f"restart path: {restarts} restarts, steps {sorted(resumed)} "
+             "after them")
+    pairs = [(resumed[s]["loss"], m["loss"]) for s, m in whole if s >= 3]
+    bitwise = all(a == b for a, b in pairs)
+    worst = max(abs(a - b) / abs(b) for a, b in pairs)
+    print(f"  {'ok' if worst <= 1e-6 else 'FAIL'} run_with_restarts "
+          f"({cfg.name} smoke, bf16 ZeRO-1, {seq} tokens, a failure at "
+          f"step 3, restored from step 2's checkpoint): losses of steps 3-5 "
+          f"{[f'{a:.7f}' for a, _ in pairs]} against the uninterrupted "
+          f"run's {[f'{b:.7f}' for _, b in pairs]}: bitwise {bitwise}, "
+          f"max rel-diff {worst:.3e} (limit 1e-6 where not bitwise)")
+    if worst > 1e-6:
+        fail("restart path: the restarted run left the uninterrupted one")
+    return bitwise, worst
+
+
+def card_vs_cpu_train(dev):
+    """One f32 train step's gradients of qwen2.5-3b at full width and
+    CHECK_LAYERS layers over TRAIN_CHECK_SEQ tokens, its blockwise threshold
+    lowered to that length so the card runs K5 and its backward: card
+    against CPU (the plain versions), the same weights (drawn on the CPU)
+    and batch.  Loss within 1e-5 relative, each leaf's gradient within 1e-4
+    relative norm, launch counts exact on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.train_step import (make_loss_fn, trainable,
+                                                 value_and_grad)
+    cfg = get_config(TRAIN_ARCH).replace(
+        n_layers=CHECK_LAYERS, dtype="float32",
+        blockwise_attn_threshold=TRAIN_CHECK_SEQ)
+    out = {}
+    for d in ("cpu", dev):
+        state, _ = new_train_state(cfg, d, "cpu")
+        batch = SyntheticLM(cfg.vocab_size, 1, TRAIN_CHECK_SEQ, seed=0,
+                            device=d).batch_at(0)
+        reset_launch_counts()
+        grads, metrics = value_and_grad(make_loss_fn(cfg), state.params,
+                                        trainable(state.params), batch)
+        out[str(d)] = (float(metrics["loss"]),
+                       {n: g.cpu() for n, g in grads.items()},
+                       launch_counts())
+        del state, grads
+    (loss_c, grads_c, _), (loss_g, grads_g, counts) = (out["cpu"],
+                                                       out[str(dev)])
+    want = train_launches(cfg, 1)
+    if counts != want:
+        fail(f"card vs CPU train step: launch counts {counts} != {want}")
+    rels = {n: float(torch.linalg.norm(grads_g[n] - g)
+                     / torch.linalg.norm(g).clamp_min(1e-30))
+            for n, g in grads_c.items()}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    ok = loss_rel <= 1e-5 and rels[worst] <= 1e-4
+    print(f"  {'ok' if ok else 'FAIL'} card vs CPU train step ({cfg.name}, "
+          f"{CHECK_LAYERS} layers f32, {TRAIN_CHECK_SEQ} tokens, threshold "
+          f"{TRAIN_CHECK_SEQ}): loss {loss_g:.7f} / {loss_c:.7f} rel-err "
+          f"{loss_rel:.3e} (limit 1e-5); worst gradient {worst} rel-err "
+          f"{rels[worst]:.3e} over {len(rels)} leaves (limit 1e-4); "
+          f"launches {counts}")
+    if not ok:
+        fail("card vs CPU train step: the card's gradients differ")
+    return loss_rel, rels[worst]
+
+
+def time_flash_bwd(dev, b=1, s=TRAIN_SEQ, h=16, kh=2, d=128,
+                   dtype=torch.bfloat16, calls=3):
+    """K5's backward at the training shape (causal): the backward kernels
+    alone (``flash_attention_backward`` on a forward's saved output and
+    log-sum-exps), the step-by-step plain backward, and PyTorch's
+    ``scaled_dot_product_attention`` backward (autograd of one call) as the
+    yardstick, each eagerly between CUDA events; the bound from the
+    visible pairs' flops (10 D per pair and head: QK, dO V^T, P^T dO,
+    dA^T Q, dA K) at the dtype's peak and from the bytes of q, k, v, dO,
+    O (f32), lse and the three gradients moved once."""
+    from repro_torch.kernels.flash_attention.ops import (
+        _flash_forward, flash_attention_backward)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    scale = d ** -0.5
+    q, k, v = flash_inputs(b, s, s, h, kh, d, dev, dtype, seed=70)
+    dout = flash_inputs(b, s, s, h, h, d, dev, dtype, seed=71)[0]
+    _, lse, out32 = _flash_forward(q, k, v, scale, True, None, None,
+                                   with_lse=True)
+    elt = q.element_size()
+    nbytes = (elt * 2 * (q.numel() + k.numel() + v.numel()) + elt
+              * dout.numel() + 4 * (out32.numel() + lse.numel()))
+    pairs = visible_pairs(s, s)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    b_ms, by = bound(nbytes, 10 * d * h * b * pairs, peak)
+    row = {"ms": eager_ms(lambda: flash_attention_backward(
+               q, k, v, out32, lse, dout, scale=scale), [()], calls),
+           "plain_ms": eager_ms(lambda: attention_bwd_ref(q, k, v, dout),
+                                [()], 1),
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    os_ = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = dout.transpose(1, 2).contiguous()
+    try:
+        row["library_ms"] = eager_ms(lambda: torch.autograd.grad(
+            os_, (qs, ks, vs), dos, retain_graph=True), [()], calls)
+    except RuntimeError as e:    # a yardstick only: report, go on
+        print(f"  (library yardstick unavailable: {e})")
+    print(f"  flash_attention backward ({b}x{s}x{h}x{d}, KH={kh}, "
+          f"{str(dtype)[6:]}, causal): {row['ms']:.3f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, SDPA's backward "
+          f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 5)}"
+          f" ms, bound {row['bound_ms']:.5f} ms ({by})")
+    return row
+
+
 T_START = time.perf_counter()
 
 
@@ -4005,6 +4476,8 @@ def main():
     errs["paged_decode"] = max(errs["paged_decode"], split_abs)
     paged_rel_bf16 = max(paged_rel_bf16, split_rel)
     errs["flash_attention"], flash_rel_bf16 = check_flash(dev)
+    stamp("phase 3: K5's backward against its plain version")
+    errs["flash_attention_backward"], bwd_rel_bf16 = check_flash_bwd(dev)
 
     cfg = get_config("distilbert_paper")
     print(f"main path: {cfg.name} {cfg.quant_proj} {cfg.dtype}, "
@@ -4045,7 +4518,15 @@ def main():
         stamp("phase 5: the encoder-decoder family, card vs CPU")
         encdec_check = card_vs_cpu_encdec(dev)
     counts["paged_decode"] = paged_counts["paged_decode"]
+    torch.cuda.empty_cache()
+    stamp("phase 4: the training path")
+    train = training_path(dev)
+    stamp("phase 4: run_with_restarts")
+    restart = restart_path(dev)
+    stamp("phase 5: the training step, card vs CPU")
+    train_check = card_vs_cpu_train(dev)
     stamp("phase 6: timings")
+    bwd_row = time_flash_bwd(dev)
     shapes = timings(cfg, dev)
     alu = glu_alu_check(dev)
 
@@ -4115,6 +4596,19 @@ def main():
                     f"{LONG_PROMPT}, 32/32, 96) bf16, causal",
             **{k: fa["phi3"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+    })
+    kernels[-1]["launches_training"] = train["counts"]["flash_attention"]
+    kernels.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": FLASH_BWD_KERNEL[0], "replaces": FLASH_BWD_KERNEL[1],
+        "launches": train["counts"]["flash_attention_backward"],
+        "max_abs_err": errs["flash_attention_backward"],
+        **{k: bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+        "library": "autograd of one scaled_dot_product_attention call",
+        "work": f"one qwen2.5-3b layer of a train step: (1, {TRAIN_SEQ}, "
+                "16/2, 128) bf16, causal: the delta, dK dV and dQ kernels",
+        "max_row_rel_err_bf16": bwd_rel_bf16,
     })
     ver = {phase: r for phase, _, _, r in shapes["paged_decode_verify"]}
     kernels.append({
@@ -4238,6 +4732,14 @@ def main():
           f"{qwen[0]['flash_attention'] * fa['prefill']['ms']:.3f} ms of "
           f"it (launches x device ms); gemma2-27b 2 layers "
           f"{gemma[1] * 1e3:.3f} ms")
+    steady = min(train["times"][1:])
+    print(f"training ({TRAIN_ARCH}, 36 layers, bf16 ZeRO-1, 1 x "
+          f"{TRAIN_SEQ} tokens): steady step {steady * 1e3:.1f} ms = "
+          f"{TRAIN_SEQ / steady:.1f} tok/s, peak {train['peak_gb']:.2f} GB; "
+          f"K5 backward {train['counts']['flash_attention_backward']} calls "
+          f"x {bwd_row['ms']:.3f} ms; restart bitwise {restart[0]} "
+          f"(max rel-diff {restart[1]:.3e}); card vs CPU train step loss "
+          f"rel-err {train_check[0]:.3e}, worst gradient {train_check[1]:.3e}")
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

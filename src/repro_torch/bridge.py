@@ -15,6 +15,10 @@ gated norm) and the hybrid family's unstacked ``shared_attn`` block.  An
 encoder-decoder's decoder blocks carry their ``norm_cross`` and ``cross``
 attention, and its ``encoder`` stack and final norm come across as the
 decoder's layers do.
+
+``params_to_numpy`` is the inverse: a ``Model``'s buffers as the JAX
+package's nested tree of numpy arrays, the per-layer tensors stacked again
+(``repro_torch.tree`` maps the names).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import tree as _tree
 from repro_torch.core.quantization import QTensor, k_major
 from repro_torch.core.quantized_linear import Linear
 from repro_torch.models.attention import Attention
@@ -141,3 +146,51 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
                   None if shared is None
                   else _block(_with_layer_axis(shared), 0), encoder)
     return model.to(dev)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array of its own (bf16, which numpy
+    lacks, as the f32 array of the same values)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy().copy()
+
+
+def stack_named(named: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Port-named tensors as {JAX key: numpy array}, each stacked leaf's
+    layers stacked on a new first axis (``to_numpy`` values)."""
+    out = {}
+    for key, names in _tree.leaf_groups(named):
+        arrays = [to_numpy(named[n]) for n in names]
+        out[key] = (np.stack(arrays) if _tree.is_stacked(names[0])
+                    else arrays[0])
+    return out
+
+
+def params_to_numpy(model: Model, cfg: ModelConfig) -> dict:
+    """The JAX package's nested params tree of ``model``'s weights as
+    numpy arrays (bf16 as f32, exactly), each QTensor as ``{"values",
+    "scale", "bits"}``: what ``params_from_numpy`` takes."""
+    check_supported(cfg)
+    tree: dict = {}
+
+    def put(path, value):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+
+    for key, arr in stack_named(dict(model.named_buffers())).items():
+        put(key.split(_tree.SEP), arr)
+    for name, mod in model.named_modules():
+        quantized = []
+        if isinstance(mod, Linear) and mod.w_q_values is not None:
+            quantized = ["w_q_values"]
+        elif isinstance(mod, Experts):
+            quantized = [f"{w}_values" for w in Experts.NAMES
+                         if getattr(mod, f"{w}_values") is not None]
+        for buf in quantized:
+            path = _tree.jax_path(f"{name}.{buf}" if name else buf)[0]
+            put(path[:-1] + ("bits",), mod.bits)
+    return tree

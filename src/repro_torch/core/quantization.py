@@ -8,7 +8,9 @@ absmax in f32, scale 1.0 where absmax <= 1e-12, IEEE division, round half
 to even (``torch.round``), clip to ±qmax.
 
 ``quantize_kv`` gives the int8 rows and scales of the paged KV cache.
-``Calibrator`` and ``fake_quantize`` are not ported yet.
+``fake_quantize`` is the quantize-dequantize round trip with a
+straight-through gradient (the QAT helper), and ``Calibrator`` the running
+absmax (or its EMA) behind a fixed per-tensor scale.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["QTensor", "quantize", "dequantize", "qmax_for_bits",
-           "quantize_kv", "k_major"]
+           "quantize_kv", "k_major", "fake_quantize", "Calibrator"]
 
 
 def qmax_for_bits(bits: int) -> int:
@@ -108,3 +110,67 @@ def quantize_kv(x: torch.Tensor, *, bits: int = 8):
     dequantizes."""
     q = quantize(x, channel_axes=tuple(range(x.ndim - 1)), bits=bits)
     return q.values, q.scale[..., 0]
+
+
+class _FakeQuantize(torch.autograd.Function):
+    """quantize → dequantize forward, the gradient passed straight through
+    (the straight-through estimator)."""
+
+    @staticmethod
+    def forward(ctx, x, channel_axes, bits):
+        return dequantize(quantize(x, channel_axes=channel_axes, bits=bits),
+                          x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def fake_quantize(x: torch.Tensor, *, channel_axes: Sequence[int] = (),
+                  bits: int = 8) -> torch.Tensor:
+    """Quantize→dequantize with a straight-through gradient (QAT helper)."""
+    return _FakeQuantize.apply(x, tuple(channel_axes), bits)
+
+
+@dataclasses.dataclass
+class Calibrator:
+    """Running-absmax static calibration (the paper's 'careful
+    calibration').
+
+    Feed representative activation batches with ``observe``; ``scale`` then
+    yields a fixed per-tensor scale usable for static (offline)
+    quantization: the true running max, or with ``momentum`` an EMA of each
+    batch's absmax (the first batch's absmax to start).
+    """
+
+    bits: int = 8
+    momentum: float | None = None  # None = true max; else EMA of absmax
+    _absmax: float = 0.0
+    _steps: int = 0
+
+    def observe(self, x: torch.Tensor) -> None:
+        amax = float(x.float().abs().max())
+        if self.momentum is None:
+            self._absmax = max(self._absmax, amax)
+        else:
+            m = self.momentum
+            self._absmax = amax if self._steps == 0 else (
+                m * self._absmax + (1 - m) * amax)
+        self._steps += 1
+
+    @property
+    def scale(self) -> float:
+        if self._steps == 0:
+            raise ValueError("Calibrator.observe was never called")
+        amax = max(self._absmax, 1e-12)
+        return amax / qmax_for_bits(self.bits)
+
+    def quantize(self, x: torch.Tensor) -> QTensor:
+        """Per-tensor int8 values of ``x`` at the calibrated scale (an f32
+        keepdims scale of ones' shape), by IEEE division, half-to-even
+        rounding and clipping to ±qmax, as ``quantize`` rounds."""
+        s = torch.full((1,) * x.dim(), self.scale, dtype=torch.float32,
+                       device=x.device)
+        qmax = qmax_for_bits(self.bits)
+        q = torch.clamp(torch.round(x.float() / s), -qmax, qmax)
+        return QTensor(values=q.to(torch.int8), scale=s, bits=self.bits)

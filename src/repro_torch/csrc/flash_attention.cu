@@ -15,6 +15,10 @@
 //           __fdiv_rn.  The P.V product takes the unnormalised p in f32
 //           (f32) or as two bf16 terms, p's bf16 rounding and its rest
 //           (bf16: ~16 bits of p, where the TPU kernel rounds p to bf16).
+//           For the backward (flash_attention_bwd.cu) it may also write each
+//           row's log-sum-exp m + log(l) (+inf for a row that sees no key)
+//           and, in bf16, out before its rounding; out is the same bits
+//           either way.
 // Bound:    operations.  At the served shapes (S = T = 8192, D = 128) each
 //           K/V row is used by g * (its visible q rows) query rows: 2,000
 //           to 3,600 flops per byte of q, k, v and out, far above the
@@ -65,16 +69,18 @@
 #include <algorithm>
 
 #include "async_copy.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
+using flash::kBK;                             // KV rows per step of the walk
+using flash::kBQ;                             // q rows per block
+using flash::kNegInf;
+
 constexpr int kThreads = 128;                 // 4 warps, 16 q rows each
-constexpr int kBQ = 64;                       // q rows per block
-constexpr int kBK = 64;                       // KV rows per step of the walk
 constexpr int kMaxD = 128;
 constexpr int kStages = 3;                    // bf16: K/V tile stages
 constexpr int kPS = kBK + 8;                  // row stride of the f32 P tile
-constexpr float kNegInf = -2.3819763e38f;     // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
@@ -84,6 +90,8 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;                                 // (B, H, S) f32, or null: none
+  float* out32;                               // bf16: out before rounding, or null
   int s_len, t_len, n_heads, n_kv, d;
   int dp;                                     // f32: d padded to 4
   int group;                                  // H / KH
@@ -94,22 +102,21 @@ struct Params {
 
 // the q tile's KV tiles [j_lo, j_hi], as _kv_block_bounds computes them
 __device__ __forceinline__ void kv_bounds(const Params& p, int i, int& j_lo, int& j_hi) {
-  const int num_kv = (p.t_len + kBK - 1) / kBK;
-  j_lo = 0;
-  j_hi = num_kv - 1;
-  if (p.window > 0) j_lo = min(max(i * kBQ - (p.window - 1), 0) / kBK, num_kv - 1);
-  if (p.causal) j_hi = min(((i + 1) * kBQ - 1) / kBK, num_kv - 1);
+  flash::kv_tile_bounds(i, p.t_len, p.causal, p.window, j_lo, j_hi);
 }
 
 __device__ __forceinline__ bool visible(const Params& p, int k_pos, int q_pos) {
-  return k_pos < p.t_len && (!p.causal || k_pos <= q_pos) &&
-         (p.window <= 0 || k_pos > q_pos - p.window);
+  return flash::key_visible(k_pos, q_pos, p.t_len, p.causal, p.window);
 }
 
 __device__ __forceinline__ float capped(const Params& p, float acc) {
-  float s = __fmul_rn(acc, p.scale);
-  if (p.softcap > 0.0f) s = __fmul_rn(p.softcap, tanhf(__fdiv_rn(s, p.softcap)));
-  return s;
+  return flash::cap_score(acc, p.scale, p.softcap);
+}
+
+// the row's log-sum-exp m + log(l) for the backward; +inf for a row that
+// sees no key (l = 0), so that exp(s - lse) is 0 for it
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.0f ? m + logf(l) : __int_as_float(0x7f800000);
 }
 
 // ---------------------------------------------------------------------------
@@ -568,16 +575,24 @@ __global__ void __launch_bounds__(kThreads * kHeads, 2 / kHeads) flash_attention
   for (int r = 0; r < 2; ++r) {
     const int s_row = q0 + 8 * r;
     if (s_row >= p.s_len) continue;
-    bf16* orow = out + (static_cast<int64_t>(b) * p.s_len + s_row) * q_row +
-                 static_cast<int64_t>(h) * p.d;
+    const int64_t at = (static_cast<int64_t>(b) * p.s_len + s_row) * q_row +
+                       static_cast<int64_t>(h) * p.d;
+    bf16* orow = out + at;
+    float* o32row = p.out32 + at;              // used only where out32 is set
     const float denom = fmaxf(l[r], 1e-37f);
 #pragma unroll
     for (int dt = 0; dt < kMaxD / 8; ++dt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * dt + c2 + e;
-        if (c < p.d) orow[c] = __float2bfloat16_rn(__fdiv_rn(o[dt][2 * r + e], denom));
+        if (c < p.d) {
+          const float val = __fdiv_rn(o[dt][2 * r + e], denom);
+          orow[c] = __float2bfloat16_rn(val);
+          if (p.out32 != nullptr) o32row[c] = val;
+        }
       }
+    if (p.lse != nullptr && lane % 4 == 0)   // the quad's lanes hold the same m, l
+      p.lse[(static_cast<int64_t>(b) * p.n_heads + h) * p.s_len + s_row] = row_lse(m[r], l[r]);
   }
 }
 
@@ -778,6 +793,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32(Params p) {
         const int c = 4 * cg + 32 * jj + e;
         if (c < p.d) o[c] = __fdiv_rn(acc[rr][4 * jj + e], denom);
       }
+    if (p.lse != nullptr && cg == 0)          // the row group's lanes hold the same m, l
+      p.lse[(static_cast<int64_t>(b) * p.n_heads + h) * p.s_len + s] = row_lse(m[rr], l[rr]);
   }
 }
 
@@ -802,9 +819,14 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 }  // namespace
 
 // bf16: q, k, v and out are bf16 (else f32).  window <= 0 and softcap <= 0:
-// none.  causal != 0: key t is visible to query s only if t <= s.
+// none.  causal != 0: key t is visible to query s only if t <= s.  lse: null,
+// or (B, H, S) f32 to receive each row's log-sum-exp (+inf where the row sees
+// no key), which the backward reads; out is the same with or without it.
+// out32: null, or with bf16 (B, S, H, D) f32 to receive out before its
+// rounding to bf16 (the backward's rowsum(dO * O) takes it).
 extern "C" int launch_flash_attention(const void* q, const void* k, const void* v,
-                                      void* out, int batch, int s_len, int t_len,
+                                      void* out, float* lse, float* out32, int batch,
+                                      int s_len, int t_len,
                                       int n_heads, int n_kv, int d, int causal,
                                       int window, float scale, float softcap,
                                       int bf16_io, int device, cudaStream_t stream) {
@@ -819,6 +841,8 @@ extern "C" int launch_flash_attention(const void* q, const void* k, const void* 
   p.k = k;
   p.v = v;
   p.out = out;
+  p.lse = lse;
+  p.out32 = bf16_io ? out32 : nullptr;
   p.s_len = s_len;
   p.t_len = t_len;
   p.n_heads = n_heads;

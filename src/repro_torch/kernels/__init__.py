@@ -5,9 +5,32 @@ CPU tensors run ``<kernel>/ref.py``; CUDA tensors launch the CUDA kernel
 from ``csrc/`` and add one to the wrapper's ``launches`` count (K4's verify
 mode to ``verify_launches``).  The wrappers that pick a variant before
 launch (K1 by row mapping, K2 and K3 by GEMM variant) also count each
-launch in their ``plans`` counter under the variant's name.
+launch in their ``plans`` counter under the variant's name.  K5
+(``flash_attention``) is differentiable on CUDA through its backward
+kernels, whose calls count in ``backward_launches``; the other kernels
+have no backward, and their wrappers raise (``no_backward``) where autograd
+would need one rather than hand back a detached output.
 """
 from __future__ import annotations
+
+import torch
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Autograd would differentiate through an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def no_backward(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need a gradient through ``kernel``'s
+    output: its launch writes through a raw pointer, so the output would
+    reach the loss detached and the gradient would be lost without a
+    word."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input "
+            "requires grad; run it under torch.no_grad(), or train with "
+            "quant_proj='none' (the only mode the port trains on the card)")
 
 
 def _counters():
@@ -24,7 +47,9 @@ def _counters():
             "paged_decode": (paged_decode_attention, "launches"),
             "paged_decode_verify": (paged_decode_attention,
                                     "verify_launches"),
-            "flash_attention": (flash_attention, "launches")}
+            "flash_attention": (flash_attention, "launches"),
+            "flash_attention_backward": (flash_attention,
+                                         "backward_launches")}
 
 
 def _planned():

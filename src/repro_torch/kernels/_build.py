@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quant_act", "int8_gemm", "paged_decode", "flash_attention")
+SOURCES = ("quant_act", "int8_gemm", "paged_decode", "flash_attention",
+           "flash_attention_bwd")
 
 # no --use_fast_math: the kernels rely on IEEE division and rint rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,7 +46,11 @@ SIGNATURES = {
         "launch_paged_decode": [_P] * 10 + [_I] * 11 + [_F, _F] + [_I] * 3 + [_P],
     },
     "flash_attention": {
-        "launch_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 2 + [_P],
+        "launch_flash_attention": [_P] * 6 + [_I] * 8 + [_F, _F] + [_I] * 2 + [_P],
+    },
+    "flash_attention_bwd": {
+        "launch_flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F, _F] + [_I] * 2
+        + [_P],
     },
 }
 

@@ -1,16 +1,18 @@
 """Wrappers for the flash-attention kernels: the block-sparse prefill
-kernel K5 (``flash_attention``) and paged flash decode K4
-(``paged_decode_attention``).  Each launches its CUDA kernel for CUDA
-tensors and runs its plain version for CPU tensors."""
+kernel K5 (``flash_attention``, differentiable through its backward
+kernels) and paged flash decode K4 (``paged_decode_attention``).  Each
+launches its CUDA kernel for CUDA tensors and runs its plain version for
+CPU tensors; K4 has no backward and raises under autograd on CUDA."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, needs_grad, no_backward
 from repro_torch.kernels.flash_attention import decode as _decode
 from repro_torch.kernels.flash_attention import ref as _ref
 
-__all__ = ["flash_attention", "paged_decode_attention"]
+__all__ = ["flash_attention", "flash_attention_backward",
+           "paged_decode_attention"]
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
@@ -46,8 +48,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     A CUDA tensor launches K5 (``csrc/flash_attention.cu``; f32 or bf16
     q, k and v, contiguous, head_dim <= 128), whose tiles are its own:
     ``kernel.KERNEL_Q_TILE`` q rows by ``kernel.KERNEL_KV_TILE`` KV rows
-    (the JAX package's ``q_chunk``/``kv_chunk`` have no counterpart).  A
-    CPU tensor runs the plain version, ``ref.attention_ref``.
+    (the JAX package's ``q_chunk``/``kv_chunk`` have no counterpart).
+    Where autograd needs gradients of q, k or v, the launch also writes the
+    rows' log-sum-exps and the call is differentiable: its backward
+    launches K5's backward kernels (``csrc/flash_attention_bwd.cu``), one
+    call counted in ``backward_launches``.  A CPU tensor runs the plain
+    version, ``ref.attention_ref``, which autograd differentiates.
     """
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
@@ -76,20 +82,98 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(v, q.dtype, (b, t, kh, d), dev, "v", "flash_attention")
     if t < 1:
         raise ValueError("flash_attention kernel needs at least one key")
-    out = torch.empty_like(q)
-    fn = _build.library("flash_attention").launch_flash_attention
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, s, t, h, kh, d, int(causal),
-                    window if window is not None else 0, scale,
-                    softcap if softcap is not None else 0.0,
-                    int(q.dtype == torch.bfloat16), dev.index,
-                    torch.cuda.current_stream(dev).cuda_stream),
-                 "flash_attention")
-    flash_attention.launches += 1
-    return out
+    opts = (scale, causal, window, softcap)
+    if needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, *opts)
+    return _flash_forward(q, k, v, *opts, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+flash_attention.backward_launches = 0
+
+
+def _flash_forward(q, k, v, scale, causal, window, softcap, *, with_lse):
+    """One K5 launch: (out, lse, out32).  With ``with_lse`` it also writes
+    the rows' log-sum-exps (B, H, S) f32 and, for bf16, ``out32``: out in
+    f32 before its rounding (for f32, out itself); else both are None."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    dev = q.device
+    bf16 = q.dtype == torch.bfloat16
+    out = torch.empty_like(q)
+    lse = out32 = None
+    if with_lse:
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+        out32 = (torch.empty(q.shape, dtype=torch.float32, device=dev)
+                 if bf16 else out)
+    fn = _build.library("flash_attention").launch_flash_attention
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr() if with_lse else None,
+                    out32.data_ptr() if with_lse and bf16 else None,
+                    b, s, t, h, kh, d, int(causal),
+                    window if window is not None else 0, scale,
+                    softcap if softcap is not None else 0.0,
+                    int(bf16), dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "flash_attention")
+    flash_attention.launches += 1
+    return out, lse, out32
+
+
+def flash_attention_backward(q, k, v, out32, lse, dout, *, scale,
+                             causal=True, window=None, softcap=None):
+    """dQ, dK, dV of ``flash_attention`` (CUDA tensors): K5's backward
+    kernels (``csrc/flash_attention_bwd.cu``) on the forward's inputs, its
+    output in f32 ``out32`` and log-sum-exps ``lse`` (B, H, S), as
+    ``_flash_forward(with_lse=True)`` gives them, and the output's gradient
+    ``dout``; each gradient in its input's dtype.  Counted in
+    ``flash_attention.backward_launches``."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    dev = q.device
+    dout = dout.to(q.dtype).contiguous()
+    what = "flash_attention_backward"
+    _check(out32, torch.float32, (b, s, h, d), dev, "out32", what)
+    _check(dout, q.dtype, (b, s, h, d), dev, "dout", what)
+    _check(lse, torch.float32, (b, h, s), dev, "lse", what)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    fn = _build.library("flash_attention_bwd").launch_flash_attention_bwd
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), b, s, t, h, kh, d, int(causal),
+                    window if window is not None else 0, scale,
+                    softcap if softcap is not None else 0.0,
+                    int(q.dtype == torch.bfloat16), dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream), what)
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K5 under autograd: the forward saves q, k, v, the output in f32 and
+    the log-sum-exps; the backward runs ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        out, lse, out32 = _flash_forward(q, k, v, scale, causal, window,
+                                         softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, out32, lse)
+        ctx.opts = dict(scale=scale, causal=causal, window=window,
+                        softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out32, lse = ctx.saved_tensors
+        if not any(ctx.needs_input_grad[:3]):
+            return (None,) * 7
+        dq, dk, dv = flash_attention_backward(q, k, v, out32, lse, dout,
+                                              **ctx.opts)
+        grads = [g if need else None
+                 for g, need in zip((dq, dk, dv), ctx.needs_input_grad)]
+        return (*grads, None, None, None, None)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -142,6 +226,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             v_scales=v_scales, new_lens=new_lens)
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {dev}")
+    no_backward("paged_decode_attention (K4)", q, k_pages, v_pages,
+                *(x for x in (k_scales, v_scales) if x is not None))
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"paged_decode_attention kernel takes f32 or bf16 "
                         f"q, got {q.dtype}")

@@ -13,7 +13,7 @@ import collections
 import torch
 
 from repro_torch.core.quantization import QTensor
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, no_backward
 from repro_torch.kernels.fused_qkv import ref as _ref
 from repro_torch.kernels.tiled_matmul.ops import (OUT_DTYPES, check_depth,
                                                   check_operand, check_weight,
@@ -47,6 +47,8 @@ def fused_qkv(a: QTensor, wq: QTensor, wk: QTensor, wv: QTensor, *,
                                   out_dtype=out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"fused_qkv: unsupported device {dev}")
+    no_backward("fused_qkv (K3)", a.values, a.scale,
+                *(x for w in (wq, wk, wv) for x in (w.values, w.scale)))
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"fused_qkv kernel writes f32 or bf16, not {out_dtype}")
     check_operand(a.values, torch.int8, (m, k), "A values")

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quantization import QTensor
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, no_backward
 from repro_torch.kernels.quant_act import ref as _ref
 
 __all__ = ["quant_act", "quant_act_glu", "quant_plan", "check_plan",
@@ -232,6 +232,7 @@ def quant_act(x: torch.Tensor) -> QTensor:
         values, scale = _ref.quant_act_ref(x)
         return QTensor(values=values, scale=scale, bits=8)
     _check_cuda(x, "quant_act")
+    no_backward("quant_act (K1)", x)
     values, scale, plan = _launch(x, None, None, "quant_act")
     quant_act.launches += 1
     quant_act.plans[str(plan)] += 1
@@ -261,6 +262,7 @@ def quant_act_glu(gate: torch.Tensor, up: torch.Tensor, *,
         return QTensor(values=values, scale=scale, bits=8)
     for t in (gate, up) + (() if h_out is None else (h_out,)):
         _check_cuda(t, "quant_act_glu")
+    no_backward("quant_act_glu (K1)", gate, up)
     values, scale, plan = _launch(gate, up, h_out, "quant_act_glu")
     quant_act_glu.launches += 1
     quant_act_glu.plans[str(plan)] += 1

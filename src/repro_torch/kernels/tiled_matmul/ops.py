@@ -32,7 +32,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.core.quantization import QTensor
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, no_backward
 from repro_torch.kernels.tiled_matmul import ref as _ref
 
 __all__ = ["tiled_matmul", "gemm_plan", "check_plan", "GemmPlan",
@@ -203,6 +203,8 @@ def tiled_matmul(a: QTensor, b: QTensor, bias: torch.Tensor | None = None, *,
                                      bias, out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"tiled_matmul: unsupported device {dev}")
+    no_backward("tiled_matmul (K2)", a.values, a.scale, b.values, b.scale,
+                *(() if bias is None else (bias,)))
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"tiled_matmul kernel writes f32 or bf16, not {out_dtype}")
     check_operand(a.values, torch.int8, (m, k), "A values")

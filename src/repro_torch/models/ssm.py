@@ -177,8 +177,12 @@ def ssd_chunked(x: torch.Tensor, a_dt: torch.Tensor, b_mat: torch.Tensor,
 
     # intra-chunk ("diagonal block") term: the reference's
     # einsum("bcln,bcsn,bhcls,bcshp->bclhp") as (C B^T) ∘ L, then times x
-    ldec = _segsum(ac).exp_()                                  # (B,nc,H,l,s)
-    ldec.mul_(torch.einsum("bcln,bcsn->bcls", cc, bc)[:, :, None])
+    # in place where no gradient is taken (the block is the scan's largest)
+    inplace = not torch.is_grad_enabled()
+    ldec = _segsum(ac)
+    ldec = ldec.exp_() if inplace else ldec.exp()              # (B,nc,H,l,s)
+    cb = torch.einsum("bcln,bcsn->bcls", cc, bc)[:, :, None]
+    ldec = ldec.mul_(cb) if inplace else ldec * cb
     y = torch.einsum("bchls,bcshp->bclhp", ldec, xc)
     del ldec
 
@@ -201,8 +205,8 @@ def ssd_chunked(x: torch.Tensor, a_dt: torch.Tensor, b_mat: torch.Tensor,
     # inter-chunk ("off-diagonal") term: the reference's
     # einsum("bcln,bhcpn,bhcl->bclhp") as (C h_prev) times the decay
     y_off = torch.einsum("bcln,bchpn->bclhp", cc, prev)
-    y_off.mul_(torch.exp(a_cum).transpose(2, 3)[..., None])
-    y.add_(y_off)
+    decay = torch.exp(a_cum).transpose(2, 3)[..., None]
+    y = y.add_(y_off.mul_(decay)) if inplace else y + y_off * decay
     return y.reshape(bsz, l_len, h, p).to(x.dtype), h_prev
 
 

@@ -20,6 +20,8 @@ sub-block in every decoder block, which attends to the encoder's output
 cache-less call, and a decode call takes the ``memory`` encoded once
 beforehand.  Where the JAX package would silently drop an input (frames
 or patches it cannot use, a cached call without memory) the port raises.
+Under ``cfg.remat == "block"`` with grad enabled (training) every decoder,
+Mamba and encoder block runs as an activation checkpoint (``_remat``).
 
 Cache convention (decode) — see serving/cache.py:
   dense:  {"k","v"}: (L, B, S_max, KVH, hd); layer i attends through the
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models.attention import (Attention, apply_attention,
@@ -207,6 +210,17 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
     return model.to(dev)
 
 
+def _remat(cfg: ModelConfig, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; under ``cfg.remat == "block"`` with grad
+    enabled (training), as a non-reentrant activation checkpoint: the block
+    keeps only its inputs and runs again in the backward, as the JAX
+    package's ``jax.checkpoint`` of each block.  Serving runs with grad off
+    and is unchanged."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
 def _decoder_block(p: DecoderBlock, x, cfg: ModelConfig, *, positions,
                    is_local, cache_kv, cache_pos, page_table=None,
                    n_new=None, memory=None):
@@ -258,14 +272,14 @@ def _ssm_stack(model: Model, x, cfg: ModelConfig, *, positions, cache,
         if shared_here:
             cache_kv = (None if cache is None else
                         (cache["shared_k"][site], cache["shared_v"][site]))
-            x, _, _ = _decoder_block(model.shared_attn, x, cfg,
-                                     positions=positions, is_local=False,
-                                     cache_kv=cache_kv, cache_pos=cache_pos)
+            x, _, _ = _remat(cfg, _decoder_block, model.shared_attn, x, cfg,
+                             positions=positions, is_local=False,
+                             cache_kv=cache_kv, cache_pos=cache_pos)
             site += 1
         state = (None if cache is None else
                  {name: cache[key][i] for key, name in SSM_STATE.items()})
-        x, new_state = _ssm_block(layer, x, cfg, ssm_state=state,
-                                  n_valid=n_valid)
+        x, new_state = _remat(cfg, _ssm_block, layer, x, cfg,
+                              ssm_state=state, n_valid=n_valid)
         if cache is not None:
             for key, name in SSM_STATE.items():
                 cache[key][i].copy_(new_state[name])
@@ -321,13 +335,17 @@ def encode(model: Model, frames: torch.Tensor,
     if cfg.pos_embedding == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)[None]
     for layer in enc.layers:
-        h = apply_norm(layer.norm_attn, x, cfg)
-        a_out, _ = apply_attention(layer.attn, h, cfg, positions=positions,
-                                   causal=False)
-        x = x + a_out
-        h = apply_norm(layer.norm_ffn, x, cfg)
-        x = x + apply_ffn(layer.ffn, h, cfg)
+        x = _remat(cfg, _encoder_block, layer, x, cfg, positions)
     return apply_norm(enc.final_norm, x, cfg)
+
+
+def _encoder_block(layer: DecoderBlock, x, cfg: ModelConfig, positions):
+    h = apply_norm(layer.norm_attn, x, cfg)
+    a_out, _ = apply_attention(layer.attn, h, cfg, positions=positions,
+                               causal=False)
+    x = x + a_out
+    h = apply_norm(layer.norm_ffn, x, cfg)
+    return x + apply_ffn(layer.ffn, h, cfg)
 
 
 def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -408,11 +426,11 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
         for i, (layer, flag) in enumerate(zip(model.layers,
                                               _local_flags(cfg))):
             cache_kv = tuple(cache[key][i] for key in kv_keys) or None
-            x, _, aux = _decoder_block(layer, x, cfg, positions=positions,
-                                       is_local=flag, cache_kv=cache_kv,
-                                       cache_pos=cache_pos,
-                                       page_table=page_table, n_new=n_valid,
-                                       memory=memory)
+            x, _, aux = _remat(cfg, _decoder_block, layer, x, cfg,
+                               positions=positions, is_local=flag,
+                               cache_kv=cache_kv, cache_pos=cache_pos,
+                               page_table=page_table, n_new=n_valid,
+                               memory=memory)
             if "load_balance_loss" in aux:
                 lb = lb + aux["load_balance_loss"]
     if paged or ssm_cache:

@@ -78,3 +78,36 @@ def test_model_demo_matches_the_jax_example():
     assert abs(got["fp_conf"] - fp_conf) <= 1e-3
     assert abs(got["q_conf"] - q_conf) <= 1e-3
     assert got["agree"] >= 0.95
+
+
+def _train_example():
+    path = ROOT / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_train_example_twin_restarts_into_the_same_run(tmp_path):
+    """The twin of examples/train_lm.py on the CPU at a small width (its
+    loop, not its 100M model, is what runs here): 20 steps, logged every
+    10, then the same with a failure injected at step 10.  No checkpoint
+    has landed by then (every 50 steps), so the run restarts from scratch
+    and must log the uninterrupted run's metrics bit for bit."""
+    mod = _train_example()
+    cfg = mod.CFG_100M.replace(n_layers=2, d_model=64, vocab_size=256,
+                               n_heads=4, n_kv_heads=2, head_dim=16,
+                               d_ff=128)
+    runs = {}
+    for name, extra in (("plain", []), ("failure", ["--inject-failure"])):
+        runs[name] = mod.main(["--device", "cpu", "--steps", "20",
+                               "--batch", "4", "--seq", "32", "--ckpt-dir",
+                               str(tmp_path / name), *extra], cfg=cfg)
+    (state, restarts, history), (state_f, restarts_f, history_f) = (
+        runs["plain"], runs["failure"])
+    assert (restarts, restarts_f) == (0, 1)
+    assert history_f[0] == ("restart", 0)
+    assert history_f[1:] == history
+    assert int(state.step) == int(state_f.step) == 20
+    assert [s for s, _ in history] == [10, 20]
+    assert all(np.isfinite([m["loss"] for _, m in history]))

@@ -58,6 +58,19 @@ def _row_rel_err(got, want):
     return ratio.max().item()
 
 
+def _grad_row_rel_err(got, want):
+    """The bf16 rule for K5's gradients: ``_row_rel_err`` where each row is
+    held against its largest |value| or, where that lies below bf16's
+    resolution of the whole tensor (2^-8 of its largest |value|), against
+    that resolution: a row whose exact gradient cancels to ~0 (the first
+    query of a causal row sees one key, and dS = P (dP - D) = 0) is
+    rounding noise on both sides."""
+    floor = want.double().abs().max() * 2.0 ** -8
+    diff = (got.double() - want.double()).abs().amax(-1)
+    size = want.double().abs().amax(-1).clamp_min(floor)
+    return (diff / size).max().item()
+
+
 def _operands(m, k, ns, dev, seed=0):
     """Per-row quantized A and per-channel quantized, K-major weights."""
     a = quantize(_randn((m, k), seed, dev), channel_axes=(0,))
@@ -447,7 +460,8 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
                                "fused_qkv": 1,
                                "tiled_matmul": 1, "paged_decode": 1,
                                "paged_decode_verify": 1,
-                               "flash_attention": 1}
+                               "flash_attention": 1,
+                               "flash_attention_backward": 0}
     assert {name: sum(by.values()) for name, by in plan_counts().items()} \
         == {"quant_act": 1, "quant_act_glu": 1, "tiled_matmul": 1,
             "fused_qkv": 1}
@@ -784,6 +798,118 @@ def test_flash_attention_kernel_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
+# the backward's cases: those of the forward that stay small, and a row
+# that sees no key (non-causal window past T)
+BWD_CASES = ["gqa8_d128", "mha_d64", "mqa_softcap", "window_softcap",
+             "partial", "noncausal_window", "s_ne_t", "odd_d", "mha_d112",
+             "mha_d96"]
+
+
+def _flash_grads(q, k, v, dout, opts):
+    """K5's output and its dQ, dK, dV through autograd on the card."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = flash_attention(q, k, v, **opts)
+    return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_backward_matches_plain(cuda, case, dtype):
+    """dQ, dK, dV of K5's backward kernels against the step-by-step plain
+    backward and against autograd through the plain forward: f32 within
+    atol 1e-5 / rtol 1e-4, bf16 each row within 2e-2 of its largest
+    value (``_grad_row_rel_err``); the log-sum-exps within 1e-5 relative (+inf on rows that see no
+    key)."""
+    b, s, t, h, kh, d, opts = FLASH_CASES[case]
+    q, k, v = _flash_case(b, s, t, h, kh, d, cuda, dtype)
+    dout = _randn((b, s, h, d), 7, cuda).to(dtype)
+    reset_launch_counts()
+    out, dq, dk, dv = _flash_grads(q, k, v, dout, opts)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_backward"]) \
+        == (1, 1)
+    plain = paged_ref.attention_bwd_ref(q, k, v, dout, **opts)
+    qa, ka, va = (x.detach().float().requires_grad_() for x in (q, k, v))
+    auto = torch.autograd.grad(paged_ref.attention_ref(qa, ka, va, **opts),
+                               (qa, ka, va), dout.float())
+    for got, want, want_auto in zip((dq, dk, dv), plain, auto):
+        assert got.dtype == dtype and got.shape == want.shape
+        if dtype == torch.bfloat16:
+            assert _grad_row_rel_err(got, want.float()) <= 2e-2
+            assert _grad_row_rel_err(got, want_auto) <= 2e-2
+        else:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+            torch.testing.assert_close(got, want_auto, atol=1e-5, rtol=1e-4)
+    if dtype == torch.float32:
+        from repro_torch.kernels.flash_attention.ops import _flash_forward
+        _, lse, _ = _flash_forward(q, k, v, d ** -0.5, opts.get("causal", True),
+                                opts.get("window"), opts.get("softcap"),
+                                with_lse=True)
+        want = paged_ref.attention_lse_ref(q, k, **opts)
+        assert torch.equal(torch.isinf(lse), torch.isinf(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(lse[fin], want[fin], atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_flash_attention_backward_no_key_rows_are_zero(cuda):
+    """Rows that see no key give O = 0 and exactly zero gradients."""
+    q, k, v = _flash_case(1, 200, 64, 4, 2, 32, cuda)
+    opts = dict(causal=False, window=32)
+    dout = _randn((1, 200, 4, 32), 7, cuda)
+    out, dq, dk, dv = _flash_grads(q, k, v, dout, opts)
+    torch.cuda.synchronize()
+    dead = slice(96, None)               # s - 32 >= 63: no key t > s - 32
+    assert torch.equal(out[:, dead], torch.zeros_like(out[:, dead]))
+    assert torch.equal(dq[:, dead], torch.zeros_like(dq[:, dead]))
+    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_output_unchanged_by_lse(cuda, dtype):
+    """The forward writes the same O with and without the log-sum-exps,
+    and the backward gives the same bits twice."""
+    from repro_torch.kernels.flash_attention.ops import _flash_forward
+    q, k, v = _flash_case(1, 300, 300, 8, 4, 128, cuda, dtype)
+    opts = (128 ** -0.5, True, 70, 50.0)
+    plain, _, _ = _flash_forward(q, k, v, *opts, with_lse=False)
+    with_lse, _, out32 = _flash_forward(q, k, v, *opts, with_lse=True)
+    assert torch.equal(plain, with_lse)
+    assert torch.equal(out32.to(dtype), plain)
+    dout = _randn((1, 300, 8, 128), 7, cuda).to(dtype)
+    kw = dict(window=70, softcap=50.0)
+    a = _flash_grads(q, k, v, dout, kw)
+    b = _flash_grads(q, k, v, dout, kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_kernels_without_backward_raise_under_autograd(cuda):
+    """K1-K4 refuse inputs that require grad instead of returning a
+    detached output; under no_grad they launch."""
+    x = _randn((8, 64), 0, cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        quant_act(x)
+    with pytest.raises(RuntimeError, match="no backward"):
+        quant_act_glu(x, x)
+    xq = quant_act(x.detach())
+    xq_grad = type(xq)(xq.values, xq.scale.requires_grad_(), xq.bits)
+    w = quantize_weight(_randn((64, 32), 1, cuda))
+    with pytest.raises(RuntimeError, match="no backward"):
+        tiled_matmul(xq_grad, w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_qkv(xq_grad, w, w, w)
+    c = _paged_case(2, 32, 4, 2, 64, 8, [20, 9], cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        paged_decode_attention(c["q"].requires_grad_(), c["k"], c["v"],
+                               c["table"], c["lens"])
+    with torch.no_grad():
+        tiled_matmul(xq_grad, w)
+        paged_decode_attention(c["q"], c["k"], c["v"], c["table"],
+                               c["lens"])
+
+
 def test_jnp_blockwise_path_raises_on_the_card(cuda):
     """``attn_impl="jnp"`` is the CPU's plain path: on the card a long
     prompt goes through K5 or nowhere."""
@@ -1004,3 +1130,54 @@ def test_cross_attention_on_the_card(cuda, mode):
         ql.quant_act, ql.tiled_matmul = saved
     torch.cuda.synchronize()
     assert torch.equal(y, plain)
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One f32 train step of the smoke qwen2.5-3b config over 64 tokens
+    (its blockwise threshold: K5 and its backward on the card, the plain
+    version on the CPU): loss within 1e-5 relative, each gradient within
+    1e-4 relative norm; the updated parameters finite and their update
+    within AdamW's bound (lr and the weight decay's share); K5 launched
+    twice a layer (the forward and the remat recompute), its backward
+    once, K1-K4 never."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.training.train_step import (TrainState, make_loss_fn,
+                                                 make_train_step, trainable,
+                                                 value_and_grad)
+    cfg = get_smoke_config("qwen2_5_3b").replace(dtype="float32")
+    out = {}
+    for dev in ("cpu", cuda):
+        model = init_model(torch.Generator().manual_seed(0), cfg, device=dev)
+        batch = SyntheticLM(cfg.vocab_size, 2, 64, seed=0,
+                            device=dev).batch_at(0)
+        reset_launch_counts()
+        grads, metrics = value_and_grad(make_loss_fn(cfg), model,
+                                        trainable(model), batch)
+        counts = launch_counts()
+        opt = AdamW(learning_rate=warmup_cosine(1e-3, 2, 10))
+        state, _ = make_train_step(cfg, opt)(TrainState.create(model, opt),
+                                             batch)
+        out[str(dev)] = (float(metrics["loss"]),
+                         {n: g.cpu() for n, g in grads.items()},
+                         {n: p.cpu() for n, p in
+                          trainable(state.params).items()}, counts)
+    (loss_c, grads_c, _, _), (loss_g, grads_g, params_g, counts) = (
+        out["cpu"], out[str(cuda)])
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for name, g in grads_c.items():
+        rel = float(torch.linalg.norm(grads_g[name] - g)
+                    / torch.linalg.norm(g).clamp_min(1e-30))
+        assert rel <= 1e-4, (name, rel)
+    p0 = trainable(init_model(torch.Generator().manual_seed(0), cfg,
+                              device="cpu"))
+    for name, p in params_g.items():
+        # lr 5e-4 at step 1; |m / (sqrt(v) + eps)| <= 1, decay 0.1 |p|
+        step = (p - p0[name]).abs().max().item()
+        bound = 5e-4 * (1 + 0.1 * p0[name].abs().max().item()) * (1 + 1e-5)
+        assert bool(torch.isfinite(p).all()) and step <= bound, name
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_backward"] == cfg.n_layers
+    assert sum(n for k, n in counts.items() if not k.startswith("flash")) \
+        == 0

@@ -1,12 +1,13 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package."""
+"""The port, its examples (``examples/*_torch.py``) and chip_smoke.py
+import neither JAX nor the JAX package."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

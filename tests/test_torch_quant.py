@@ -140,3 +140,42 @@ def test_tensor_to_keeps_k_major_strides():
     for w in (v.to(torch.int8), v.to("cpu", copy=True), copy.deepcopy(v),
               v.clone()):
         assert w.stride() == (1, 6) and torch.equal(w, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axes", [(0,), ()])
+def test_fake_quantize_matches_jax_and_passes_gradients_through(dtype, axes):
+    import jax
+
+    from repro.core.quantization import fake_quantize as jax_fake_quantize
+    from repro_torch.core.quantization import fake_quantize
+    t, j = _pair((9, 16), dtype, seed=5)
+    got = fake_quantize(t, channel_axes=axes)
+    want = jax_fake_quantize(j, channel_axes=axes)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    x = t.float().requires_grad_()
+    g = torch.autograd.grad((fake_quantize(x, channel_axes=axes) * 3).sum(),
+                            x)[0]
+    jg = jax.grad(lambda v: jnp.sum(3 * jax_fake_quantize(
+        v, channel_axes=axes)))(jnp.asarray(x.detach().numpy()))
+    assert torch.equal(g, torch.full_like(x, 3.0))
+    np.testing.assert_array_equal(g.numpy(), np.asarray(jg))
+
+
+@pytest.mark.parametrize("momentum", [None, 0.9])
+def test_calibrator_matches_jax(momentum):
+    from repro.core.quantization import Calibrator as JaxCalibrator
+    from repro_torch.core.quantization import Calibrator
+    cal, jcal = Calibrator(momentum=momentum), JaxCalibrator(
+        momentum=momentum)
+    with pytest.raises(ValueError):
+        cal.scale
+    for seed in range(4):
+        t, j = _pair((6, 10), torch.float32, seed=seed, zero_row=False)
+        cal.observe(t * (seed + 1))
+        jcal.observe(j * (seed + 1))
+    assert cal.scale == jcal.scale
+    t, j = _pair((5, 7), torch.float32, seed=9)
+    _assert_same(cal.quantize(t * 4), jcal.quantize(j * 4))
