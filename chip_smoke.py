@@ -9,7 +9,9 @@
    any performance warning, such as serialized wgmmas), and
    each kernel's tensor-core (HGMMA, HMMA, IGMMA, IMMA), IDP4A and FFMA
    counts from ``cuobjdump -sass``: K5's bf16 kernels must hold HGMMA,
-   its f32 kernel none, its backward kernels FFMA and none; K2 / K3's
+   its f32 kernel none; its backward's bf16 dK dV and dQ kernels HGMMA,
+   its f32 ones FFMA, the others (delta, the dK dV sum) no tensor-core
+   instruction; K2 / K3's
    tensor-core variants (``gemm_tma``,
    every width) int8 tensor-core instructions and no IDP4A.  K1's 44
    instantiations (f32 / bf16, plain / SwiGLU, 8 values or one an access,
@@ -193,10 +195,12 @@
    the card): loss within 1e-5, each leaf's gradient within 1e-4 relative
    norm, launch counts exact.
 6. Timings at the slices' shapes: K5's backward at the training shape
-   (the backward kernels alone, the plain backward, and SDPA's backward as
-   the yardstick, eagerly between CUDA events; bound 10 D flops a visible
-   pair and head at the bf16 peak); K1 at every row mapping that takes
-   each shape (distilbert's; qwen2.5-3b's decode, verify and prefill rows
+   (the backward kernels alone in a CUDA graph and eagerly, the plain
+   backward and SDPA's backward as the yardstick eagerly, between CUDA
+   events; bound 10 D flops a visible pair and head at the bf16 peak; each
+   backward kernel's device time a call comes from phase 4's profiled
+   train step); K1 at every row
+   mapping that takes each shape (distilbert's; qwen2.5-3b's decode, verify and prefill rows
    and the Scheduler trace's prefill rows over 2048 and 11008;
    gemma2-27b's 36864), each checked bitwise first, ``quant_act_glu``
    likewise at qwen2.5-3b's rows over 11008 beside the unfused path it
@@ -416,13 +420,30 @@ def check_k1_sass():
             fail(f"K1 {label}: no 16-byte loads or 8-byte stores")
 
 
+# K5's backward kernels (``csrc/flash_attention_bwd.cu``) by name: the
+# bf16 products by wgmma, the f32 ones on the ALUs, and the passes that do
+# no product (rowsum(dO * O) in both dtypes; the sum of the g heads' dK dV
+# shares in bf16)
+BWD_WGMMA = ("attention_bwd_dkdv_bf16", "attention_bwd_dq_bf16")
+BWD_ALU = ("attention_bwd_dkdv_f32", "attention_bwd_dq_f32")
+BWD_KERNELS = BWD_WGMMA + BWD_ALU + ("attention_bwd_delta",
+                                     "attention_bwd_dkdv_sum")
+
+
+def bwd_role(fn):
+    """The name in BWD_KERNELS a (mangled) backward function carries."""
+    return next((k for k in sorted(BWD_KERNELS, key=len, reverse=True)
+                 if k in fn), fn)
+
+
 def check_sass():
     """K5's bf16 kernels must run their products on the tensor cores
     (HGMMA in their SASS) and its f32 kernel on the ALUs (no tensor-core
-    instruction: no TF32), as must its backward kernels (FFMA, no
-    tensor-core instruction).  K2 / K3's tensor-core variants (``gemm_tma``)
-    must hold int8 tensor-core instructions (IGMMA or IMMA) and no
-    IDP4A."""
+    instruction: no TF32).  Its backward likewise: HGMMA in the bf16 dK dV
+    and dQ kernels and in no other, FFMA in the f32 ones, no mma.sync
+    anywhere.  K2 / K3's tensor-core variants (``gemm_tma``) must hold int8
+    tensor-core instructions (IGMMA or IMMA) and no IDP4A."""
+    bwd_seen = set()
     for name in ("flash_attention", "flash_attention_bwd", "paged_decode",
                  "int8_gemm"):
         counts = sass_counts(name)
@@ -444,13 +465,22 @@ def check_sass():
                      "cores")
             if "flash_attention_f32" in fn and (c["HGMMA"] or c["HMMA"]):
                 fail(f"{fn}: tensor-core instructions in K5's f32 path")
-            if "attention_bwd" in fn and (c["HGMMA"] or c["HMMA"]
-                                          or not c["FFMA"]):
-                fail(f"{fn}: K5's backward is to run on the f32 ALUs "
-                     "(FFMA, no tensor-core instruction)")
+            if "attention_bwd" in fn:
+                bwd_seen.add(bwd_role(fn))
+                if c["HMMA"] or (bool(c["HGMMA"])
+                                 != (bwd_role(fn) in BWD_WGMMA)):
+                    fail(f"{fn}: K5's backward products are to run by wgmma "
+                         "in bf16 (HGMMA) and nowhere else (no other "
+                         "tensor-core instruction)")
+                if bwd_role(fn) in BWD_ALU and not c["FFMA"]:
+                    fail(f"{fn}: K5's f32 backward is to run on the f32 "
+                         "ALUs (FFMA)")
         if name == "flash_attention" and not any(
                 "flash_attention_bf16" in fn for fn in counts):
             fail("K5's bf16 kernel not found in the SASS listing")
+        if name == "flash_attention_bwd" and bwd_seen != set(BWD_KERNELS):
+            fail(f"K5's backward kernels in the SASS listing: "
+                 f"{sorted(bwd_seen)}, expected {sorted(BWD_KERNELS)}")
         if name == "int8_gemm" and sum("gemm_tma" in fn
                                        for fn in counts) < 2 * len(
                                            GEMM_TMA_COLS):
@@ -1709,8 +1739,8 @@ def device_breakdown(fn, top=10, label="one more run", ranges=None):
             ("K4 (paged_decode_kernel + paged_decode_combine)",
              ("paged_decode",)),
             ("K5 (flash_attention_*)", ("flash_attention",)),
-            ("K5's backward (attention_bwd_delta, _dkdv, _dq)",
-             ("attention_bwd",)),
+            ("K5's backward (attention_bwd_delta, _dkdv_*, _dkdv_sum, "
+             "_dq_*)", ("attention_bwd",)),
             ("K2 (gemm_tma / gemm_kernel + splitk_epilogue, 1 product)",
              ("Params<1>", "Args<1>")),
             ("K3 (the same, 3 products)", ("Params<3>", "Args<3>")),
@@ -4050,6 +4080,7 @@ RESTART_STEPS = 5
 # gather large terms that cancel, while the kernel and the step-by-step
 # plain backward agree to ~2e-6 there
 BWD_ATOL, BWD_RTOL, BWD_BF16_REL = 1e-5, 1e-4, 2e-2
+BWD_GRAPH_CALLS = 4                        # phase 6: backward calls a graph
 # the training path's first step with the plain attention against K5's:
 # the loss and the global gradient norm, in bf16 end to end over 36 layers
 PLAIN_STEP_LOSS, PLAIN_STEP_GNORM = 1e-2, 5e-2
@@ -4282,11 +4313,15 @@ def training_path(dev):
     rows = device_breakdown(
         lambda: step_fn(state, data.batch_at(TRAIN_STEPS))[1]["loss"].item(),
         top=12, label="a 4th train step")
+    split = bwd_split(rows)
+    print("  K5's backward by kernel, device ms a call in that step: "
+          + (", ".join(f"{k} {v:.5f}" for k, v in split.items())
+             or "not measured"))
     del state, data
     torch.cuda.empty_cache()
     return {"counts": counts, "times": times, "peak_gb": peak,
             "history": history, "plain": plain, "rows": rows,
-            "resident_gb": resident}
+            "resident_gb": resident, "bwd_split": split}
 
 
 def restart_path(dev):
@@ -4401,7 +4436,9 @@ def time_flash_bwd(dev, b=1, s=TRAIN_SEQ, h=16, kh=2, d=128,
                    dtype=torch.bfloat16, calls=3):
     """K5's backward at the training shape (causal): the backward kernels
     alone (``flash_attention_backward`` on a forward's saved output and
-    log-sum-exps), the step-by-step plain backward, and PyTorch's
+    log-sum-exps) in a CUDA graph of BWD_GRAPH_CALLS calls (their inputs,
+    ~70 MB, exceed L2), and eagerly between CUDA events beside the host's
+    time to enqueue a call; the step-by-step plain backward, and PyTorch's
     ``scaled_dot_product_attention`` backward (autograd of one call) as the
     yardstick, each eagerly between CUDA events; the bound from the
     visible pairs' flops (10 D per pair and head: QK, dO V^T, P^T dO,
@@ -4421,11 +4458,21 @@ def time_flash_bwd(dev, b=1, s=TRAIN_SEQ, h=16, kh=2, d=128,
     pairs = visible_pairs(s, s)
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     b_ms, by = bound(nbytes, 10 * d * h * b * pairs, peak)
-    row = {"ms": eager_ms(lambda: flash_attention_backward(
-               q, k, v, out32, lse, dout, scale=scale), [()], calls),
+
+    def kernels():
+        return flash_attention_backward(q, k, v, out32, lse, dout,
+                                        scale=scale)
+    row = {"ms": device_ms(kernels, [()], BWD_GRAPH_CALLS),
+           "eager_ms": eager_ms(kernels, [()], calls),
            "plain_ms": eager_ms(lambda: attention_bwd_ref(q, k, v, dout),
                                 [()], 1),
            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        kernels()
+    row["host_ms"] = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
     qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     os_ = torch.nn.functional.scaled_dot_product_attention(
@@ -4437,11 +4484,25 @@ def time_flash_bwd(dev, b=1, s=TRAIN_SEQ, h=16, kh=2, d=128,
     except RuntimeError as e:    # a yardstick only: report, go on
         print(f"  (library yardstick unavailable: {e})")
     print(f"  flash_attention backward ({b}x{s}x{h}x{d}, KH={kh}, "
-          f"{str(dtype)[6:]}, causal): {row['ms']:.3f} ms, plain "
+          f"{str(dtype)[6:]}, causal): {row['ms']:.5f} ms (a CUDA graph "
+          f"of {BWD_GRAPH_CALLS} calls; eagerly {row['eager_ms']:.5f} ms, "
+          f"the host {row['host_ms']:.5f} ms a call to enqueue), plain "
           f"{row['plain_ms']:.3f} ms, SDPA's backward "
           f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 5)}"
           f" ms, bound {row['bound_ms']:.5f} ms ({by})")
     return row
+
+
+def bwd_split(rows):
+    """Device ms a call of each of K5's backward kernels (by its name from
+    ``attention_bwd_`` on) in profile rows (key, launches, ms), so the part
+    that sets the pace shows."""
+    parts = {}
+    for key, count, ms in rows:
+        name = re.search(r"attention_bwd_\w+", key)
+        if name:
+            parts[name.group()] = parts.get(name.group(), 0.0) + ms / count
+    return dict(sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
 T_START = time.perf_counter()
@@ -4607,7 +4668,10 @@ def main():
                                    "library_ms")},
         "library": "autograd of one scaled_dot_product_attention call",
         "work": f"one qwen2.5-3b layer of a train step: (1, {TRAIN_SEQ}, "
-                "16/2, 128) bf16, causal: the delta, dK dV and dQ kernels",
+                "16/2, 128) bf16, causal: the delta, dK dV, dK dV sum and "
+                "dQ kernels (parts_ms: each one's device ms a call in the "
+                "profiled train step)",
+        "parts_ms": train["bwd_split"],
         "max_row_rel_err_bf16": bwd_rel_bf16,
     })
     ver = {phase: r for phase, _, _, r in shapes["paged_decode_verify"]}

@@ -21,6 +21,19 @@ __device__ __forceinline__ void kv_tile_bounds(int i, int t_len, int causal, int
   if (causal) j_hi = min(((i + 1) * kBQ - 1) / kBK, num_kv - 1);
 }
 
+// the q tiles [i_lo, i_hi] whose walk (kv_tile_bounds) visits KV tile j,
+// its inverse: i visits j iff j <= j_hi(i), i.e. (i + 1) kBQ > j kBK when
+// causal, and j_lo(i) <= j, i.e. i kBQ < (j + 1) kBK + window - 1 with a
+// window unless j is the last tile (j_lo is capped there); i_lo > i_hi
+// when no q tile does
+__device__ __forceinline__ void q_tile_bounds(int j, int s_len, int t_len, int causal,
+                                              int window, int& i_lo, int& i_hi) {
+  const int num_q = (s_len + kBQ - 1) / kBQ, num_kv = (t_len + kBK - 1) / kBK;
+  i_lo = causal ? j * kBK / kBQ : 0;
+  i_hi = num_q - 1;
+  if (window > 0 && j < num_kv - 1) i_hi = min(((j + 1) * kBK + window - 2) / kBQ, num_q - 1);
+}
+
 // key k_pos is visible to query q_pos: t <= s when causal, t > s - window
 __device__ __forceinline__ bool key_visible(int k_pos, int q_pos, int t_len, int causal,
                                             int window) {

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels import _build, needs_grad, no_backward
 from repro_torch.kernels.flash_attention import decode as _decode
+from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 
 __all__ = ["flash_attention", "flash_attention_backward",
@@ -126,8 +127,10 @@ def flash_attention_backward(q, k, v, out32, lse, dout, *, scale,
     kernels (``csrc/flash_attention_bwd.cu``) on the forward's inputs, its
     output in f32 ``out32`` and log-sum-exps ``lse`` (B, H, S), as
     ``_flash_forward(with_lse=True)`` gives them, and the output's gradient
-    ``dout``; each gradient in its input's dtype.  Counted in
-    ``flash_attention.backward_launches``."""
+    ``dout``; each gradient in its input's dtype.  The kernels' f32 scratch
+    (rowsum(dO * O) and, in bf16 with GQA, each query head's dK and dV
+    share) is allocated here, sized by ``kernel.bwd_scratch_floats``.
+    Counted in ``flash_attention.backward_launches``."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     dev = q.device
@@ -136,12 +139,14 @@ def flash_attention_backward(q, k, v, out32, lse, dout, *, scale,
     _check(out32, torch.float32, (b, s, h, d), dev, "out32", what)
     _check(dout, q.dtype, (b, s, h, d), dev, "dout", what)
     _check(lse, torch.float32, (b, h, s), dev, "lse", what)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    scratch = torch.empty(_kernel.bwd_scratch_floats(
+        b, s, t, h, kh, d, bf16=q.dtype == torch.bfloat16),
+        dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     fn = _build.library("flash_attention_bwd").launch_flash_attention_bwd
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), b, s, t, h, kh, d, int(causal),
                     window if window is not None else 0, scale,
                     softcap if softcap is not None else 0.0,

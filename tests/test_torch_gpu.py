@@ -798,11 +798,12 @@ def test_flash_attention_kernel_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
-# the backward's cases: those of the forward that stay small, and a row
-# that sees no key (non-causal window past T)
+# the backward's cases: those of the forward, a row that sees no key
+# (non-causal window past T), qwen2.5-3b's GQA-8 training layout over a
+# long walk, and seamless's non-causal encoder at D = 64
 BWD_CASES = ["gqa8_d128", "mha_d64", "mqa_softcap", "window_softcap",
              "partial", "noncausal_window", "s_ne_t", "odd_d", "mha_d112",
-             "mha_d96"]
+             "mha_d96", "long_walk", "mha_d64_noncausal"]
 
 
 def _flash_grads(q, k, v, dout, opts):
@@ -883,6 +884,19 @@ def test_flash_attention_output_unchanged_by_lse(cuda, dtype):
     b = _flash_grads(q, k, v, dout, kw)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", ["window_softcap", "long_walk"])
+def test_flash_attention_backward_bf16_is_deterministic(cuda, case):
+    """Two bf16 backward runs give the same bits: no atomics, and the g
+    heads' dK dV shares are added in head order."""
+    b, s, t, h, kh, d, opts = FLASH_CASES[case]
+    q, k, v = _flash_case(b, s, t, h, kh, d, cuda, torch.bfloat16)
+    dout = _randn((b, s, h, d), 7, cuda).to(torch.bfloat16)
+    first = _flash_grads(q, k, v, dout, opts)
+    second = _flash_grads(q, k, v, dout, opts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_kernels_without_backward_raise_under_autograd(cuda):
