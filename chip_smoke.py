@@ -30,7 +30,8 @@
    qwen2.5-3b's served shapes (M = 4, 20 and 8192 over wo, gate / up,
    down and the fused 2048 | 256 | 256), at ragged M (5, 20, 129) on the
    tensor-core variants, bias on and off, bf16 and f32 out, each case
-   naming the variant ``gemm_plan`` took; qwen3-moe-30b-a3b's fused QKV
+   naming the plan the dispatcher (``core/dispatch.py``, under the shipped
+   table) took; qwen3-moe-30b-a3b's fused QKV
    2048 -> 4096 | 512 | 512 and wo 4096 -> 2048 at the same rows, on a
    tensor-core variant or failing (and K1 over its 4096); K4 (paged attention)
    within atol 5e-6 / rtol 1e-5 in f32 and int8 pools, rel-err 1e-2 in
@@ -68,6 +69,21 @@
    serve's K4 calls is held against the plain version on that call's own
    operands, at phase 3's limits, and layer 0's prompt rows must equal
    the dense serve's bit for bit.
+   Plan selection (``core/dispatch.py``): under ``REPRO_TUNE=full``, a
+   table of the script's own and the shipped one off, K2 and K3 are tuned
+   at ``TUNE_SHAPES`` (the paper GEMM (64, 768) x (768, 3072) in bf16 and
+   f32, the fused 64 x 768 -> 768 x 3, qwen2.5-3b's decode wo, zamba2-7b's
+   N = 64 at 4 and at 8192 rows), each candidate held bitwise against the
+   plain version and its device µs printed beside the analytic pick's;
+   then under ``cached`` against that table the wrappers select and
+   launch the stored plans (``launched_plans``), bitwise the analytic
+   plan's output and the plain version's.  The dense distilbert serve
+   under the shipped table and under ``REPRO_TUNE=off``: logits, tokens
+   and the cache bitwise equal, the launches by plan each mode's
+   selection.  The example twins (``examples/quickstart_torch.py``,
+   ``serve_quantized_torch.py``, ``serve_zoo_torch.py``) on the card: on
+   the plain versions, under ``full`` into a fresh table and under
+   ``cached`` against it, bitwise equal.
    The long-prompt path: ``prefill_step`` of qwen2.5-3b (w8a8, bf16) at
    full width and all 36 layers, weights drawn on the card from a seeded
    generator, on one prompt of 8192 random tokens, with exact launch
@@ -230,20 +246,25 @@
    the page walk; the profiler breakdowns of phase 4 sum K4's two kernels
    (the split walk and the combine) and K5's.  Times are
    device times: CUDA graphs of many launches, timed with CUDA events,
-   over enough input copies that each launch finds its operands outside
-   L2 (K5's plain version, which allocates GBs, eagerly between events).
+   over enough input copies (drawn on the card from seeded generators)
+   that each launch finds its operands outside L2 (K5's plain version, which allocates GBs, eagerly between events).
 
 Exits non-zero on any failure.  The last line is a JSON object naming the
 device; the line before it lists each kernel's numbers.
 """
+import collections
 import contextlib
 import copy
 import importlib
+import importlib.util
+import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -254,12 +275,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): memory, int8 and bf16 tensor cores,
-# f32 ALUs
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-BF16_OPS_PER_S = 989e12
-F32_OPS_PER_S = 67e12
-L2_BYTES = 50 * 2 ** 20
+# f32 ALUs; L2
+from repro_torch.core.tiling import (BF16_OPS_PER_S, F32_OPS_PER_S,  # noqa: E402
+                                     HBM_BYTES_PER_S, INT8_OPS_PER_S,
+                                     L2_BYTES)
 # phase 6's launches in one timed CUDA graph (each graph replayed 3 times):
 # LAUNCHES at decode and chunk shapes, LONG_LAUNCHES at 8192-row ones (200,
 # 10 and 5 replays until the training path's phases made room for
@@ -318,6 +337,14 @@ def fail(msg: str):
 def randn(shape, seed, dev, scale=1.0, dtype=torch.float32):
     g = torch.Generator().manual_seed(seed)
     return (torch.randn(shape, generator=g) * scale).to(dtype).to(dev)
+
+
+def device_randn(shape, seed, dev, scale=1.0, dtype=torch.float32):
+    """``randn``'s normals drawn on ``dev`` by its own seeded generator:
+    phase 6's operand copies (GBs over a phase), which the host's
+    generator took most of the phase to draw."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -512,13 +539,13 @@ def model_shapes(arch):
     return ((cfg.q_dim, d), (d, f), (f, d)), (d, cfg.q_dim, cfg.kv_dim)
 
 
-def quantized_operands(m, k, ns, dev, seed):
+def quantized_operands(m, k, ns, dev, seed, draw=randn):
     """Per-row quantized A and per-channel quantized weights, K-major as
-    the model stores them."""
+    the model stores them, from ``draw``'s normals."""
     from repro_torch.core.quantization import quantize
     from repro_torch.core.quantized_linear import quantize_weight
-    a = quantize(randn((m, k), seed, dev), channel_axes=(0,))
-    ws = [quantize_weight(randn((k, n), seed + 1 + i, dev, 0.05))
+    a = quantize(draw((m, k), seed, dev), channel_axes=(0,))
+    ws = [quantize_weight(draw((k, n), seed + 1 + i, dev, 0.05))
           for i, n in enumerate(ns)]
     return a, ws
 
@@ -680,7 +707,7 @@ def check_kernels(dev):
         ref = tiled_matmul_ref(a.values, a.scale, b.values, b.scale, bi,
                                out_dtype)
         what = (f"tiled_matmul ({m},{k})x({k},{n}) {out_dtype} bias={bias} "
-                f"[{plan_text(m, [n], k, a, [b])}]")
+                f"[{plan_text(m, [n], k, out_dtype, a, [b])}]")
         if (k, n) == MOE_WO or (k, n) in served:
             tensor_cores(what)
         errs["tiled_matmul"] = max(errs["tiled_matmul"],
@@ -705,7 +732,7 @@ def check_kernels(dev):
                              ws[1].values, ws[1].scale, ws[2].values,
                              ws[2].scale, out_dtype=out_dtype)
         what = (f"fused_qkv ({m},{k})x({k},{nq}|{nkv}|{nkv}) {out_dtype} "
-                f"[{plan_text(m, [nq, nkv, nkv], k, a, ws)}]")
+                f"[{plan_text(m, [nq, nkv, nkv], k, out_dtype, a, ws)}]")
         if (k, nq, nkv) in (MOE_QKV, z_qkv, s_qkv, v_qkv):
             tensor_cores(what)
         for o, r in zip(outs, refs):
@@ -721,9 +748,12 @@ def tensor_cores(what):
         fail(f"{what}: planned onto the general (__dp4a) variant")
 
 
-def plan_text(m, ns, k, a, ws):
-    from repro_torch.kernels.tiled_matmul.ops import gemm_plan, is_aligned
-    plan = gemm_plan(m, ns, k, is_aligned(a.values, *(w.values for w in ws)))
+def plan_text(m, ns, k, out_dtype, a, ws):
+    """The plan the wrappers launch at these operands: the dispatcher's
+    (``core/dispatch.py``: the shipped table's where it has the shape)."""
+    from repro_torch.kernels.tiled_matmul.ops import plan_for
+    plan = plan_for(m, tuple(ns), k, out_dtype, a.values,
+                    *(w.values for w in ws))
     if plan.variant == "general":
         return "general"
     return f"{plan.variant} n{plan.cols} split {plan.split}"
@@ -3318,6 +3348,255 @@ def card_vs_cpu_encdec(dev):
 
 
 # ---------------------------------------------------------------------------
+# 4. plan selection (core/dispatch.py) and the example twins
+# ---------------------------------------------------------------------------
+# the tuner's shapes (M, K, widths, out dtype): the paper GEMM in bf16 and
+# f32, the paper's fused QKV, qwen2.5-3b's decode wo, and the two plan misses
+# (zamba2-7b's in_B / in_C, N = 64, at decode and at 8192 rows)
+TUNE_SHAPES = [(64, 768, (3072,), torch.bfloat16),
+               (64, 768, (3072,), torch.float32),
+               (64, 768, (768, 768, 768), torch.bfloat16),
+               (4, 2048, (2048,), torch.bfloat16),
+               (4, 3584, (64,), torch.bfloat16),
+               (8192, 3584, (64,), torch.bfloat16)]
+TUNE_ITERS = 3
+TWINS = ("quickstart", "serve_quantized", "serve_zoo")
+PLAN_SELECTION = {}
+
+
+@contextlib.contextmanager
+def tune_env(**values):
+    """Within the block, the dispatcher's REPRO_TUNE* variables are
+    ``values`` (None: unset), its table state and the wrappers' plan memo
+    dropped on the way in and out."""
+    from repro_torch.core import dispatch
+    names = {"mode": dispatch.TUNE_ENV, "cache": dispatch.CACHE_ENV,
+             "seed": dispatch.SEED_ENV, "iters": dispatch.ITERS_ENV}
+    saved = {v: os.environ.get(v) for v in names.values()}
+    for key, value in values.items():
+        os.environ.pop(names[key], None)
+        if value is not None:
+            os.environ[names[key]] = str(value)
+    dispatch.reset_cache_state()
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            os.environ.pop(name, None)
+            if value is not None:
+                os.environ[name] = value
+        dispatch.reset_cache_state()
+
+
+def gemm_call(ns, a, ws, out_dtype, plan=None):
+    """K2 (one width) or K3 (three) on these operands; a tuple of outputs."""
+    from repro_torch.kernels.fused_qkv.ops import fused_qkv
+    from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+    if len(ns) == 1:
+        return (tiled_matmul(a, ws[0], out_dtype=out_dtype, plan=plan),)
+    return fused_qkv(a, *ws, out_dtype=out_dtype, plan=plan)
+
+
+def gemm_plain(ns, a, ws, out_dtype):
+    from repro_torch.kernels.fused_qkv.ref import fused_qkv_ref
+    from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
+    if len(ns) == 1:
+        return (tiled_matmul_ref(a.values, a.scale, ws[0].values,
+                                 ws[0].scale, None, out_dtype),)
+    return fused_qkv_ref(a.values, a.scale,
+                         *(x for w in ws for x in (w.values, w.scale)),
+                         out_dtype=out_dtype)
+
+
+def plan_selection(dev, scratch):
+    """(a) Under REPRO_TUNE=full, the shipped table off and a table in
+    ``scratch``: tune K2 / K3 at TUNE_SHAPES, printing each candidate's
+    device µs beside the analytic pick's.  Then under ``cached`` against
+    the same file, through the wrappers: the stored plans are selected and
+    launched (``launched_plans``), and the outputs are bitwise those of the
+    analytic plan and of the plain version."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.fused_qkv.ops import fused_qkv
+    from repro_torch.kernels.tiled_matmul.ops import gemm_plan, tiled_matmul
+    table = os.path.join(scratch, "plan_selection.json")
+    rows, winners = [], {}
+    with tune_env(mode="full", cache=table, seed=0, iters=TUNE_ITERS):
+        for m, k, ns, dt in TUNE_SHAPES:
+            results = []
+            if len(ns) == 1:
+                win = dispatch.tune(m, k, ns[0], out_dtype=dt,
+                                    results=results)
+                again = dispatch.select_plan(m, k, ns[0], out_dtype=dt)
+            else:
+                win = dispatch.tune_fused(m, k, ns[0], ns[1], out_dtype=dt,
+                                          results=results)
+                again = dispatch.select_fused_plan(m, k, ns[0], ns[1],
+                                                   out_dtype=dt)
+            if again != win:
+                fail(f"plan selection: full mode re-tuned ({m}, {k}) x "
+                     f"{list(ns)}: {again} after storing {win}")
+            analytic = gemm_plan(m, ns, k, True)
+            if results[0][0] != analytic:
+                fail(f"plan selection: the first candidate {results[0][0]} "
+                     f"is not the analytic pick {analytic}")
+            what = f"({m},{k})x{'|'.join(map(str, ns))} {dt}"
+            print(f"  tune {what}: " + ", ".join(
+                f"{p.variant} n{p.cols} split {p.split}"
+                f"{'*' if p == analytic else ''}{'>' if p == win else ''} "
+                f"{us:.3f}" for p, us in results) + " µs")
+            winners[(m, k, ns, dt)] = win
+            rows.append({"shape": what, "analytic": list(analytic),
+                         "analytic_us": results[0][1], "tuned": list(win),
+                         "tuned_us": dict(results)[win],
+                         "candidates": [[list(p), us] for p, us in results]})
+    with tune_env(mode="cached", cache=table, seed=0):
+        for (m, k, ns, dt), win in winners.items():
+            a, ws = quantized_operands(m, k, list(ns), dev, seed=m + ns[0])
+            reset_launch_counts()
+            outs = gemm_call(ns, a, ws, dt)
+            wrapper = tiled_matmul if len(ns) == 1 else fused_qkv
+            name = "tiled_matmul" if len(ns) == 1 else "fused_qkv"
+            launched = dict(wrapper.launched_plans)
+            if launched != {win: 1} or launch_counts()[name] != 1:
+                fail(f"plan selection, cached: ({m}, {k}) x {list(ns)} "
+                     f"launched {launched}, the table holds {win}")
+            analytic_outs = gemm_call(ns, a, ws, dt,
+                                      plan=gemm_plan(m, ns, k, True))
+            for got, ana, plain in zip(outs, analytic_outs,
+                                       gemm_plain(ns, a, ws, dt)):
+                if not (torch.equal(got, ana) and torch.equal(got, plain)):
+                    fail(f"plan selection, cached: {win} at ({m}, {k}) x "
+                         f"{list(ns)} is not bitwise the analytic plan's "
+                         "and the plain version's output")
+            reset_launch_counts()
+            del a, ws, outs, analytic_outs
+    print(f"plan selection: {len(winners)} shapes tuned (full, "
+          f"{TUNE_ITERS} replays a candidate), then selected, launched and "
+          "bitwise the analytic plan and the plain version (cached)")
+    PLAN_SELECTION["tuned"] = rows
+    torch.cuda.empty_cache()
+
+
+def distilbert_plans(cfg):
+    """Each K2 / K3 plan the dense distilbert serve launches, with its
+    count: the prefill's rows (4 x 64) once and the decode's (4) at each
+    step, every layer's fused QKV, wo, up and down, as the dispatcher
+    selects them now."""
+    from repro_torch.core import dispatch
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.activation_dtype
+    want = collections.Counter()
+    for m, forwards in ((len(BATCH_LENS) * max(BATCH_LENS), 1),
+                        (len(BATCH_LENS), DECODE_STEPS)):
+        n = cfg.n_layers * forwards
+        want[("fused_qkv", dispatch.select_fused_plan(
+            m, d, cfg.q_dim, cfg.kv_dim, out_dtype=dt))] += n
+        for k, width in ((cfg.q_dim, d), (d, f), (f, d)):
+            want[("tiled_matmul", dispatch.select_plan(
+                m, k, width, out_dtype=dt))] += n
+    return want
+
+
+def served_plan_modes(model, cfg, dev):
+    """(b) The full-width distilbert dense serve under the shipped table
+    (``cached``) and under ``off``: logits, tokens and the KV cache bitwise
+    equal, and the launches by plan (counts set to 0 just before each
+    serve) what each mode selects at the served shapes."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.fused_qkv.ops import fused_qkv
+    from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+    runs = {}
+    for mode in ("cached", "off"):
+        with tune_env(mode=mode, seed=None):
+            want = distilbert_plans(cfg)
+            reset_launch_counts()
+            logits, toks, cache, _, _ = serve(model, cfg, dev)
+            got = collections.Counter(
+                {("tiled_matmul", p): n
+                 for p, n in tiled_matmul.launched_plans.items()})
+            got.update({("fused_qkv", p): n
+                        for p, n in fused_qkv.launched_plans.items()})
+            reset_launch_counts()
+        if got != want:
+            fail(f"distilbert serve under REPRO_TUNE={mode}: launches by "
+                 f"plan {dict(got)} != the selected {dict(want)}")
+        runs[mode] = (logits, toks, cache, got)
+        print(f"  distilbert dense serve, REPRO_TUNE={mode}: launches by "
+              "plan " + ", ".join(
+                  f"{name} {p.variant} n{p.cols} split {p.split}: {n}"
+                  for (name, p), n in sorted(got.items())))
+    (l1, t1, c1, g1), (l2, t2, c2, g2) = runs["cached"], runs["off"]
+    for name, x, y in (("prefill logits", l1, l2), ("tokens", t1, t2),
+                       ("cache k", c1["k"], c2["k"]),
+                       ("cache v", c1["v"], c2["v"])):
+        if not torch.equal(x, y):
+            fail(f"distilbert serve: {name} differ between the shipped "
+                 "table's plans and REPRO_TUNE=off's")
+    differ = sum(n for key, n in g1.items() if key not in g2)
+    print(f"distilbert dense serve under the shipped table and under "
+          f"REPRO_TUNE=off: logits, tokens and cache bitwise equal "
+          f"({differ} of {sum(g1.values())} K2 / K3 launches on another "
+          "plan than off's)")
+    PLAN_SELECTION["distilbert_launches_by_plan"] = {
+        mode: {f"{name} {p.variant} n{p.cols} split {p.split}": n
+               for (name, p), n in sorted(r[3].items())}
+        for mode, r in runs.items()}
+
+
+def load_twin(name):
+    path = ROOT / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def twin_outputs(name):
+    """One run of the twin on the card, its printing kept: its tensors
+    (quickstart) or each request's tokens (the serving twins)."""
+    mod = load_twin(name)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if name == "quickstart":
+            res = mod.main(["--device", "cuda"])
+            got = {k: res[k] for k in ("fp_logits", "q_logits", "tokens")}
+        elif name == "serve_quantized":
+            got = {f"request {r}": torch.as_tensor(t)
+                   for r, t in mod.main(["--device", "cuda"]).finished.items()}
+        else:
+            got = {f"{arch} request {r}": torch.as_tensor(t)
+                   for arch, sched in mod.main(["--device", "cuda"]).items()
+                   for r, t in sched.finished.items()}
+    return got, out.getvalue()
+
+
+def twins_on_card(scratch):
+    """(c) The three example twins on the card: each run on the plain
+    versions of K1-K3, under REPRO_TUNE=full into a fresh table (the
+    shipped one under it) and under ``cached`` against that table: all
+    three bitwise equal."""
+    for name in TWINS:
+        table = os.path.join(scratch, f"{name}.json")
+        with plain_versions():
+            plain, _ = twin_outputs(name)
+        with tune_env(mode="full", cache=table, seed=None, iters=1):
+            full, _ = twin_outputs(name)
+        with tune_env(mode="cached", cache=table, seed=None):
+            cached, text = twin_outputs(name)
+        for what, other in (("the plain versions", plain),
+                            ("REPRO_TUNE=full", full)):
+            if other.keys() != cached.keys() or not all(
+                    torch.equal(cached[k], other[k]) for k in cached):
+                fail(f"examples/{name}_torch.py on the card: the cached "
+                     f"run differs from {what}")
+        tuned = len(json.load(open(table))) if os.path.exists(table) else 0
+        last = [ln for ln in text.splitlines() if ln.strip()][-1]
+        print(f"  examples/{name}_torch.py: {len(cached)} outputs bitwise "
+              f"equal on the plain versions, under full ({tuned} shapes "
+              f"tuned) and cached; last line: {last}")
+
+
+# ---------------------------------------------------------------------------
 # 6. timings
 # ---------------------------------------------------------------------------
 def device_ms(fn, sets, launches=None, replays=3):
@@ -3384,7 +3663,7 @@ def time_quant_act(m, k, dev, launches=None):
     from repro_torch.kernels.quant_act.ops import quant_act
     from repro_torch.kernels.quant_act.ref import quant_act_ref
     elt = 2
-    sets = [(randn((m, k), i, dev, 1.0, torch.bfloat16),)
+    sets = [(device_randn((m, k), i, dev, 1.0, torch.bfloat16),)
             for i in range(n_copies(m * k * elt))]
     b_ms, by = bound(m * k * elt + m * k + 4 * m, 3 * m * k, F32_OPS_PER_S)
     chosen, plans = k1_plans(quant_act, quant_act_ref, sets, m, k, launches)
@@ -3409,8 +3688,8 @@ def time_quant_glu(m, k, dev, launches=None):
     from repro_torch.kernels.quant_act.ops import quant_act_glu
     from repro_torch.kernels.quant_act.ref import quant_act_glu_ref
     elt = 2
-    sets = [(randn((m, k), 2 * i, dev, 1.0, torch.bfloat16),
-             randn((m, k), 2 * i + 1, dev, 1.0, torch.bfloat16))
+    sets = [(device_randn((m, k), 2 * i, dev, 1.0, torch.bfloat16),
+             device_randn((m, k), 2 * i + 1, dev, 1.0, torch.bfloat16))
             for i in range(n_copies(2 * m * k * elt))]
     b_ms, by = bound(2 * m * k * elt + m * k + 4 * m, 7 * m * k,
                      F32_OPS_PER_S)
@@ -3506,7 +3785,7 @@ def time_gemm(m, k, n, out_dtype, dev, launches=None):
     from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
     out_b = torch.tensor([], dtype=out_dtype).element_size()
     nbytes = m * k + 4 * m + k * n + 4 * n + m * n * out_b
-    ops = [quantized_operands(m, k, [n], dev, seed=i)
+    ops = [quantized_operands(m, k, [n], dev, seed=i, draw=device_randn)
            for i in range(n_copies(nbytes))]
     sets = [(a, b) for a, (b,) in ops]
     plain_sets = [(a.values, a.scale, b.values, b.scale) for a, b in sets]
@@ -3535,7 +3814,8 @@ def time_fused(m, k, nq, nkv, dev, launches=None):
     from repro_torch.kernels.fused_qkv.ref import fused_qkv_ref
     n_all = nq + 2 * nkv
     nbytes = m * k + 4 * m + k * n_all + 4 * n_all + 4 * m * n_all
-    ops = [quantized_operands(m, k, [nq, nkv, nkv], dev, seed=i)
+    ops = [quantized_operands(m, k, [nq, nkv, nkv], dev, seed=i,
+                              draw=device_randn)
            for i in range(n_copies(nbytes))]
     sets = [(a, *ws) for a, ws in ops]
     plain_sets = [(a.values, a.scale) + sum(((w.values, w.scale) for w in ws),
@@ -4524,6 +4804,13 @@ def main():
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = device_info()
+    # the dispatcher reads the shipped table and, under it, a table of the
+    # script's own that holds nothing: no user table outside the checkout
+    from repro_torch.core import dispatch
+    scratch_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_tune_")
+    scratch = scratch_dir.name
+    os.environ[dispatch.CACHE_ENV] = os.path.join(scratch, "none.json")
+    dispatch.reset_cache_state()
     stamp("build")
     build_kernels()
     stamp("phase 3: kernels against their plain versions")
@@ -4554,6 +4841,12 @@ def main():
         paged_counts, paged_prefill, paged_tps = paged_paths(
             model, cfg, dev, toks, cache)
         del cache
+        stamp("phase 4: plan selection (core/dispatch.py)")
+        plan_selection(dev, scratch)
+        served_plan_modes(model, cfg, dev)
+        stamp("phase 4: the example twins")
+        twins_on_card(scratch)
+        stamp("phase 4: the SwiGLU detector")
         check_swiglu_detector(dev)
         stamp("phase 4: prefill_step")
         qwen, gemma = long_prompt_paths(dev)
@@ -4611,6 +4904,16 @@ def main():
             if f"{prefix} {name}" in shapes:
                 kernels[-1][key] = path_rows(shapes[f"{prefix} {name}"],
                                              phases)
+    for k in kernels:
+        if k["name"] in ("tiled_matmul", "fused_qkv"):
+            k["plan_selection"] = {
+                "tuned": [r for r in PLAN_SELECTION["tuned"]
+                          if ("|" in r["shape"]) == (k["name"] == "fused_qkv")],
+                "distilbert_launches_by_plan": {
+                    mode: {p: n for p, n in by.items()
+                           if p.startswith(k["name"])}
+                    for mode, by in PLAN_SELECTION[
+                        "distilbert_launches_by_plan"].items()}}
     k1 = kernels[0]
     k1["gemma2"] = {phase: {k: r[k] for k in (
         "ms", "plan", "plans", "plain_ms", "bound_ms", "bound_by",
@@ -4804,6 +5107,7 @@ def main():
           f"x {bwd_row['ms']:.3f} ms; restart bitwise {restart[0]} "
           f"(max rel-diff {restart[1]:.3e}); card vs CPU train step loss "
           f"rel-err {train_check[0]:.3e}, worst gradient {train_check[1]:.3e}")
+    scratch_dir.cleanup()
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,8 @@ CPU tensors run ``<kernel>/ref.py``; CUDA tensors launch the CUDA kernel
 from ``csrc/`` and add one to the wrapper's ``launches`` count (K4's verify
 mode to ``verify_launches``).  The wrappers that pick a variant before
 launch (K1 by row mapping, K2 and K3 by GEMM variant) also count each
-launch in their ``plans`` counter under the variant's name.  K5
+launch in their ``plans`` counter under the variant's name; K2 and K3
+count them by whole plan (``GemmPlan``) in ``launched_plans`` too.  K5
 (``flash_attention``) is differentiable on CUDA through its backward
 kernels, whose calls count in ``backward_launches``; the other kernels
 have no backward, and their wrappers raise (``no_backward``) where autograd
@@ -78,3 +79,5 @@ def reset_launch_counts() -> None:
         setattr(fn, attr, 0)
     for fn in _planned().values():
         fn.plans.clear()
+        if hasattr(fn, "launched_plans"):
+            fn.launched_plans.clear()

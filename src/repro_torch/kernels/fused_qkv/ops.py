@@ -4,7 +4,9 @@ on the card, the plain version on the CPU.
 One launch computes Q, K and V from the same int8 activation panel: the
 kernel walks the column space [Nq | Nkv | Nkv] as one grid, so K and V cost
 only the column tiles they have (GQA: Nkv <= Nq).  The weights are read
-K-major and the variant is K2's ``gemm_plan`` over the three widths.
+K-major; the plan is the dispatcher's for the fused shape
+(``core.dispatch.select_fused_plan``), K2's variants over the three
+widths.
 """
 from __future__ import annotations
 
@@ -15,21 +17,24 @@ import torch
 from repro_torch.core.quantization import QTensor
 from repro_torch.kernels import _build, no_backward
 from repro_torch.kernels.fused_qkv import ref as _ref
-from repro_torch.kernels.tiled_matmul.ops import (OUT_DTYPES, check_depth,
-                                                  check_operand, check_weight,
-                                                  col_scale, plan_args,
-                                                  plan_for, row_scale,
-                                                  split_scratch)
+from repro_torch.kernels.tiled_matmul.ops import (OUT_DTYPES, GemmPlan,
+                                                  check_depth, check_operand,
+                                                  check_plan, check_weight,
+                                                  col_scale, is_aligned,
+                                                  plan_args, plan_for,
+                                                  row_scale, split_scratch)
 
 __all__ = ["fused_qkv"]
 
 
 def fused_qkv(a: QTensor, wq: QTensor, wk: QTensor, wv: QTensor, *,
-              out_dtype=torch.bfloat16):
+              out_dtype=torch.bfloat16, plan: GemmPlan | None = None):
     """(q, k, v) = dequant(A_q @ [Wq|Wk|Wv]) in one launch.
 
     a: (M, K) QTensor, per-row scale.  w*: (K, N*) QTensors, per-col scales,
-    on the card K-major; Wk and Wv share one width Nkv <= Nq.
+    on the card K-major; Wk and Wv share one width Nkv <= Nq.  ``plan``:
+    launch this plan (checked) instead of the dispatcher's, as
+    ``tiled_matmul``'s.
     """
     m, k = a.values.shape
     nq, nkv = wq.values.shape[1], wk.values.shape[1]
@@ -58,8 +63,11 @@ def fused_qkv(a: QTensor, wq: QTensor, wk: QTensor, wv: QTensor, *,
     for t in (wq.values, wk.values, wv.values, a_scale, sq, sk, sv):
         if t.device != dev:
             raise ValueError(f"fused_qkv: operand on {t.device}, A on {dev}")
-    plan = plan_for(m, (nq, nkv, nkv), k, a.values, wq.values, wk.values,
-                    wv.values)
+    operands = (a.values, wq.values, wk.values, wv.values)
+    if plan is None:
+        plan = plan_for(m, (nq, nkv, nkv), k, out_dtype, *operands)
+    else:
+        check_plan(plan, m, (nq, nkv, nkv), k, is_aligned(*operands))
     q = torch.empty((m, nq), dtype=out_dtype, device=dev)
     k_out = torch.empty((m, nkv), dtype=out_dtype, device=dev)
     v = torch.empty((m, nkv), dtype=out_dtype, device=dev)
@@ -77,9 +85,11 @@ def fused_qkv(a: QTensor, wq: QTensor, wk: QTensor, wv: QTensor, *,
                  "fused_qkv")
     fused_qkv.launches += 1
     fused_qkv.plans[plan.variant] += 1
+    fused_qkv.launched_plans[plan] += 1
     return q, k_out, v
 
 
 fused_qkv.launches = 0
 # launches by variant since the last reset, as tiled_matmul.plans
 fused_qkv.plans = collections.Counter()
+fused_qkv.launched_plans = collections.Counter()

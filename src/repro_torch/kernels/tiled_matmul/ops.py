@@ -6,8 +6,10 @@ The kernel reads the weights K-major: ``b.values`` is the (K, N) view of an
 reads 8-bit operands only K-major, and TMA cannot transpose bytes).  A
 row-major B on the card raises; it is never transposed here.
 
-``gemm_plan`` picks the kernel's variant from the shapes and the operands'
-alignment alone, before launch (see ``csrc/int8_gemm.cu``):
+The plan (``GemmPlan``: variant, wgmma width, K split) is picked before
+launch by the dispatcher, ``core/dispatch.py``: a measured plan from its
+table where it has one for the shapes, else ``gemm_plan``'s analytic pick
+from the shapes and the operands' alignment (see ``csrc/int8_gemm.cu``):
 
 * ``wide``: large M (prefill), tensor cores on 128 x 256 output tiles;
 * ``swap``: small M (decode, verify, short prefills), tensor cores with
@@ -26,12 +28,15 @@ for, raises rather than returning a partial product.
 from __future__ import annotations
 
 import collections
-import functools
-from typing import NamedTuple, Sequence
+from typing import Sequence
 
 import torch
 
+from repro_torch.core import dispatch
 from repro_torch.core.quantization import QTensor
+from repro_torch.core.tiling import (BK, MAX_K, SWAP_COLS, TMA_ALIGN,
+                                     VARIANTS, WIDE_COLS, GemmPlan,
+                                     ceil_div, choose_plan)
 from repro_torch.kernels import _build, no_backward
 from repro_torch.kernels.tiled_matmul import ref as _ref
 
@@ -40,60 +45,15 @@ __all__ = ["tiled_matmul", "gemm_plan", "check_plan", "GemmPlan",
 
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
-SMS = 132                       # H100 SXM streaming multiprocessors
-BK = 128                        # K values per pipeline stage (one k-step)
-ROWS = 128                      # wgmma A-side rows per block
-WIDE_COLS = 256                 # the wide variant's output columns per block
-SWAP_COLS = (8, 16, 32, 64)     # the swap variant's padded activation rows
-SWAP_MAX_M = 512                # past this many rows, the wide variant
-MIN_SPLIT_STEPS = 4             # k-steps a split takes at least
-TMA_ALIGN = 16                  # bytes: TMA's base and row-stride alignment
-# the largest K whose int32 sum of int8 products cannot overflow:
-# 127^2 K < 2^31
-MAX_K = (2 ** 31 - 1) // 127 ** 2
-VARIANTS = {"general": 0, "wide": 1, "swap": 2}
-
-
-class GemmPlan(NamedTuple):
-    variant: str                # "wide", "swap" or "general"
-    cols: int                   # wgmma's N: 256, M padded, or 0 (general)
-    split: int                  # blocks along K (> 1: int32 partials)
-    chunk: int                  # k-steps of BK per split
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
 
 def gemm_plan(m: int, ns: Sequence[int], k: int, aligned: bool) -> GemmPlan:
-    """The kernel variant for A (m, k) times products of widths ``ns``
+    """The analytic variant for A (m, k) times products of widths ``ns``
     (one for K2; Nq, Nkv, Nkv for K3), from the shapes and whether every
-    operand's base is 16-byte aligned.
-
-    The wide variant takes M > 512, and M > 64 where its tiles fill half
-    the SMs.  The swap variant splits K only where its tiles leave three
-    quarters of the SMs idle, into splits of at least MIN_SPLIT_STEPS
-    k-steps: a split costs a second kernel and M x N int32 partials.  The
-    thresholds come from H100 timings of each choice
-    (`tools/gemm_plan_sweep.py`, PERF.md §6)."""
-    return _gemm_plan(m, tuple(ns), k, aligned)
-
-
-@functools.lru_cache(maxsize=None)
-def _gemm_plan(m: int, ns: tuple, k: int, aligned: bool) -> GemmPlan:
-    if not aligned or k % TMA_ALIGN or m == 0 or min(ns) == 0:
-        return GemmPlan("general", 0, 1, 0)
-    nk = _cdiv(k, BK)
-    wide_tiles = _cdiv(m, ROWS) * sum(_cdiv(n, WIDE_COLS) for n in ns)
-    if m > SWAP_MAX_M or (m > SWAP_COLS[-1] and wide_tiles >= SMS // 2):
-        return GemmPlan("wide", WIDE_COLS, 1, nk)
-    cols = next((c for c in SWAP_COLS if c >= m), SWAP_COLS[-1])
-    tiles = _cdiv(m, cols) * sum(_cdiv(n, ROWS) for n in ns)
-    split = 1
-    if tiles <= SMS // 4:
-        split = max(1, min(SMS // tiles, nk // MIN_SPLIT_STEPS))
-    chunk = _cdiv(nk, split)
-    return GemmPlan("swap", cols, _cdiv(nk, chunk), chunk)
+    operand's base is 16-byte aligned: ``core.tiling.choose_plan``.  The
+    dispatcher (``core/dispatch.py``) starts from it, and returns it under
+    ``REPRO_TUNE=off`` and where its table has no entry; tests and tools
+    force a plan by patching this name (under ``REPRO_TUNE=off``)."""
+    return choose_plan(m, tuple(ns), k, aligned)
 
 
 def check_plan(plan: GemmPlan, m: int, ns: Sequence[int], k: int,
@@ -106,7 +66,7 @@ def check_plan(plan: GemmPlan, m: int, ns: Sequence[int], k: int,
     if plan.variant == "general":
         ok = plan.split == 1
     else:
-        nk = _cdiv(k, BK)
+        nk = ceil_div(k, BK)
         ok = (aligned and k % TMA_ALIGN == 0 and plan.chunk >= 1
               and (plan.split - 1) * plan.chunk < nk <= plan.split * plan.chunk
               and (plan.cols == WIDE_COLS and plan.split == 1
@@ -117,12 +77,29 @@ def check_plan(plan: GemmPlan, m: int, ns: Sequence[int], k: int,
                          f"{list(ns)}{'' if aligned else ' (unaligned)'}")
 
 
-def plan_for(m: int, ns: Sequence[int], k: int, *operands) -> GemmPlan:
-    """``gemm_plan``'s variant for these shapes and operands, checked."""
+def plan_for(m: int, ns: tuple, k: int, out_dtype, *operands) -> GemmPlan:
+    """The dispatcher's plan for these shapes and operands, checked.  The
+    lookup is memoized on the shapes, the alignment, the output dtype and
+    ``gemm_plan`` in ``dispatch.plan_memo``, which the dispatcher empties
+    whenever its table changes (``reset_cache_state``); ``check_plan`` runs
+    on every call."""
     aligned = is_aligned(*operands)
-    plan = gemm_plan(m, ns, k, aligned)
+    key = (m, ns, k, aligned, out_dtype, gemm_plan)
+    plan = _memo.get(key)
+    if plan is None:
+        if len(ns) == 1:
+            plan = dispatch.select_plan(m, k, ns[0], out_dtype=out_dtype,
+                                        aligned=aligned)
+        else:
+            plan = dispatch.select_fused_plan(m, k, ns[0], ns[1],
+                                              out_dtype=out_dtype,
+                                              aligned=aligned)
+        _memo[key] = plan
     check_plan(plan, m, ns, k, aligned)
     return plan
+
+
+_memo = dispatch.plan_memo
 
 
 def is_aligned(*tensors: torch.Tensor) -> bool:
@@ -183,13 +160,16 @@ def plan_args(plan: GemmPlan) -> tuple:
 
 
 def tiled_matmul(a: QTensor, b: QTensor, bias: torch.Tensor | None = None, *,
-                 out_dtype=torch.bfloat16) -> torch.Tensor:
+                 out_dtype=torch.bfloat16,
+                 plan: GemmPlan | None = None) -> torch.Tensor:
     """C = dequant(A_q @ B_q) + bias for quantized operands.
 
     ``a``: QTensor (M, K) with per-row (M,1) / per-tensor scale.
     ``b``: QTensor (K, N) with per-col (1,N) / per-tensor scale; on the
     card its values K-major.
     ``bias``: (N,) f32 or None.
+    ``plan``: launch this plan (checked like the dispatcher's) instead of
+    the dispatcher's: the autotuner measures its candidates so.
     """
     m, k = a.values.shape
     k2, n = b.values.shape
@@ -214,7 +194,10 @@ def tiled_matmul(a: QTensor, b: QTensor, bias: torch.Tensor | None = None, *,
     for t in (b.values, a_scale, b_scale) + ((bias,) if bias is not None else ()):
         if t.device != dev:
             raise ValueError(f"tiled_matmul: operand on {t.device}, A on {dev}")
-    plan = plan_for(m, (n,), k, a.values, b.values)
+    if plan is None:
+        plan = plan_for(m, (n,), k, out_dtype, a.values, b.values)
+    else:
+        check_plan(plan, m, (n,), k, is_aligned(a.values, b.values))
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     ws = split_scratch(plan, m, n, dev)
     fn = _build.library("int8_gemm").launch_tiled_matmul
@@ -228,6 +211,7 @@ def tiled_matmul(a: QTensor, b: QTensor, bias: torch.Tensor | None = None, *,
                  "tiled_matmul")
     tiled_matmul.launches += 1
     tiled_matmul.plans[plan.variant] += 1
+    tiled_matmul.launched_plans[plan] += 1
     return out
 
 
@@ -235,3 +219,5 @@ tiled_matmul.launches = 0
 # launches by variant since the last reset_launch_counts(): the served
 # paths must plan onto the tensor-core variants
 tiled_matmul.plans = collections.Counter()
+# launches by whole plan (GemmPlan) since the last reset
+tiled_matmul.launched_plans = collections.Counter()

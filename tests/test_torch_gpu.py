@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import dispatch
 from repro_torch.core.quantization import quantize, quantize_kv
 from repro_torch.core.quantized_linear import quantize_weight
 from repro_torch.kernels import (launch_counts, plan_counts,
@@ -40,6 +41,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def tune_off(monkeypatch):
+    """Plans from gemm_plan alone (REPRO_TUNE=off): a test that asserts or
+    forces gemm_plan's plan must not get the shipped table's instead."""
+    monkeypatch.setenv(dispatch.TUNE_ENV, "off")
+    dispatch.reset_cache_state()
+    yield
+    dispatch.reset_cache_state()
 
 
 def _randn(shape, seed, dev, scale=1.0):
@@ -284,15 +295,19 @@ GEMM_VARIANTS = [
 @pytest.mark.parametrize("shape,plan", GEMM_VARIANTS,
                          ids=[f"{v[0]}-{m}x{k}x{n}"
                               for (m, k, n), v in GEMM_VARIANTS])
-def test_tiled_matmul_variants_bitwise(cuda, shape, plan, bias, out_dtype):
+def test_tiled_matmul_variants_bitwise(cuda, tune_off, shape, plan, bias,
+                                       out_dtype):
     m, k, n = shape
-    assert gemm_plan(m, [n], k, True)[:3] == plan
+    full_plan = gemm_plan(m, [n], k, True)
+    assert full_plan[:3] == plan
     a, (b,) = _operands(m, k, [n], cuda, seed=m + n)
     bi = _randn((n,), 9, cuda) if bias else None
     before = dict(tiled_matmul.plans)
+    launched = tiled_matmul.launched_plans[full_plan]
     out = tiled_matmul(a, b, bi, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert tiled_matmul.plans[plan[0]] == before.get(plan[0], 0) + 1
+    assert tiled_matmul.launched_plans[full_plan] == launched + 1
     ref = matmul_ref.tiled_matmul_ref(a.values, a.scale, b.values, b.scale,
                                       bi, out_dtype)
     assert torch.equal(out, ref)
@@ -317,12 +332,15 @@ QKV_VARIANTS = [
 @pytest.mark.parametrize("shape,plan", QKV_VARIANTS,
                          ids=[f"{v[0]}-{m}x{k}x{nq}-{nkv}"
                               for (m, k, nq, nkv), v in QKV_VARIANTS])
-def test_fused_qkv_variants_bitwise(cuda, shape, plan, out_dtype):
+def test_fused_qkv_variants_bitwise(cuda, tune_off, shape, plan, out_dtype):
     m, k, nq, nkv = shape
-    assert gemm_plan(m, [nq, nkv, nkv], k, True)[:3] == plan
+    full_plan = gemm_plan(m, [nq, nkv, nkv], k, True)
+    assert full_plan[:3] == plan
     a, ws = _operands(m, k, [nq, nkv, nkv], cuda, seed=m + nq)
+    launched = fused_qkv.launched_plans[full_plan]
     outs = fused_qkv(a, *ws, out_dtype=out_dtype)
     torch.cuda.synchronize()
+    assert fused_qkv.launched_plans[full_plan] == launched + 1
     refs = fused_ref.fused_qkv_ref(a.values, a.scale, ws[0].values,
                                    ws[0].scale, ws[1].values, ws[1].scale,
                                    ws[2].values, ws[2].scale,
@@ -341,16 +359,21 @@ FORCED_PLANS = [GemmPlan("general", 0, 1, 0), GemmPlan("wide", 256, 1, 16),
 @pytest.mark.parametrize("plan", FORCED_PLANS,
                          ids=[f"{p.variant}{p.cols}-split{p.split}"
                               for p in FORCED_PLANS])
-def test_every_variant_is_the_plain_version(cuda, plan, monkeypatch):
+def test_every_variant_is_the_plain_version(cuda, tune_off, plan,
+                                            monkeypatch):
     """Every variant and split, also where gemm_plan would not take it
     (more row tiles than one, a wide tile of 40 live rows), is bitwise the
-    plain version."""
+    plain version; each wrapper launched the forced plan."""
     a, ws = _operands(40, 2048, [520, 136, 136], cuda, seed=3)
     bias = _randn((520,), 4, cuda)
     monkeypatch.setattr(matmul_ops, "gemm_plan", lambda *args: plan)
+    reset_launch_counts()
     out = tiled_matmul(a, ws[0], bias, out_dtype=torch.float32)
     outs = fused_qkv(a, *ws, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    assert dict(tiled_matmul.launched_plans) == {plan: 1}
+    assert dict(fused_qkv.launched_plans) == {plan: 1}
+    reset_launch_counts()
     assert torch.equal(out, matmul_ref.tiled_matmul_ref(
         a.values, a.scale, ws[0].values, ws[0].scale, bias, torch.float32))
     refs = fused_ref.fused_qkv_ref(a.values, a.scale, ws[0].values,
@@ -384,7 +407,8 @@ def test_gemm_wrappers_raise_on_row_major_weights(cuda):
             fused_qkv(a, *args)
 
 
-def test_gemm_wrappers_raise_on_shapes_no_variant_takes(cuda, monkeypatch):
+def test_gemm_wrappers_raise_on_shapes_no_variant_takes(cuda, tune_off,
+                                                       monkeypatch):
     """Past K = 133,143 an int32 sum of int8 products may overflow; a plan
     that does not fit the shapes (the wide variant split, splits that miss
     k-steps, TMA over K % 16 != 0) raises before launch."""
@@ -405,6 +429,70 @@ def test_gemm_wrappers_raise_on_shapes_no_variant_takes(cuda, monkeypatch):
             tiled_matmul(a, ws[0])
         with pytest.raises(ValueError, match="does not fit"):
             fused_qkv(a, *ws)
+
+
+def test_tune_then_cached_round_trip(cuda, tmp_path, monkeypatch):
+    """REPRO_TUNE=full into a fresh table (the shipped one off) measures
+    K2 / K3 on the card and stores the winners; under cached the wrappers
+    select and launch the stored plans, bitwise the plain version and the
+    analytic plan's output; the tuner's own launches do not count."""
+    monkeypatch.setenv(dispatch.CACHE_ENV, str(tmp_path / "tune.json"))
+    monkeypatch.setenv(dispatch.SEED_ENV, "0")
+    monkeypatch.setenv(dispatch.ITERS_ENV, "2")
+    a, ws = _operands(4, 2048, [2048, 256, 256], cuda, seed=5)
+    stored = {}
+    for mode in ("full", "cached"):
+        monkeypatch.setenv(dispatch.TUNE_ENV, mode)
+        dispatch.reset_cache_state()
+        reset_launch_counts()
+        # K3 first: its lookup falls back to K2's single-GEMM key
+        outs = fused_qkv(a, *ws)
+        out = tiled_matmul(a, ws[0])
+        torch.cuda.synchronize()
+        assert launch_counts()["tiled_matmul"] == 1
+        assert launch_counts()["fused_qkv"] == 1
+        got = (dict(tiled_matmul.launched_plans),
+               dict(fused_qkv.launched_plans))
+        stored.setdefault("plans", got)
+        assert got == stored["plans"]
+        assert torch.equal(out, matmul_ref.tiled_matmul_ref(
+            a.values, a.scale, ws[0].values, ws[0].scale, None,
+            torch.bfloat16))
+        assert torch.equal(out, tiled_matmul(
+            a, ws[0], plan=gemm_plan(4, [2048], 2048, True)))
+        refs = fused_ref.fused_qkv_ref(a.values, a.scale, ws[0].values,
+                                       ws[0].scale, ws[1].values,
+                                       ws[1].scale, ws[2].values,
+                                       ws[2].scale, out_dtype=torch.bfloat16)
+        for o, r in zip(outs, refs):
+            assert torch.equal(o, r)
+    table = dispatch.load_cache()
+    for key, launched in (("4x2048x2048:bfloat16:cuda", got[0]),
+                          ("4x2048x2048+256:bfloat16:cuda", got[1])):
+        entry = table[key]
+        plan = GemmPlan(entry["variant"], entry["cols"], entry["split"],
+                        entry["chunk"])
+        assert launched == {plan: 1}
+        assert entry["us"] > 0 and entry["analytic_us"] > 0
+        assert entry["us"] <= entry["analytic_us"]
+    reset_launch_counts()
+    dispatch.reset_cache_state()
+
+
+def test_tuning_during_graph_capture_raises(cuda, tmp_path, monkeypatch):
+    """A table miss under REPRO_TUNE=full inside CUDA graph capture raises
+    (the tuner launches and synchronizes); no plan is stored."""
+    monkeypatch.setenv(dispatch.CACHE_ENV, str(tmp_path / "tune.json"))
+    monkeypatch.setenv(dispatch.SEED_ENV, "0")
+    monkeypatch.setenv(dispatch.TUNE_ENV, "full")
+    dispatch.reset_cache_state()
+    a, (b,) = _operands(12, 1024, [384], cuda, seed=6)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph):
+            tiled_matmul(a, b)
+    assert not (tmp_path / "tune.json").exists()
+    dispatch.reset_cache_state()
 
 
 # (variant, cols, split, chunk) the launcher refuses at M = 4, K = 2048

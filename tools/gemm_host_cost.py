@@ -2,6 +2,7 @@
 """Host time of one call of the port's int8 GEMM wrappers (K2, K3).
 
     python3 tools/gemm_host_cost.py [--src DIR] [--calls N] [--repeats R]
+                                    [--passes P]
 
 Times, on the host's clock, how long ``tiled_matmul`` and ``fused_qkv``
 (``src/repro_torch/kernels/``) take to return at qwen2.5-3b's decode and
@@ -12,6 +13,8 @@ call faster than the host issues one, so the queue never fills and the
 figure is the wrapper's own cost: its checks, its plan, the launcher's
 descriptors and the launches.  The least of ``--repeats`` loops is kept:
 the host is shared, and what other processes take only adds to a loop.
+The shapes are timed in turn ``--passes`` times, and each keeps its least,
+so a slow spell of the host does not fall on one shape's every loop.
 
 ``--src`` imports ``repro_torch`` from another checkout's ``src`` (the
 parent commit, unpacked under ``build/``), so two versions compare on one
@@ -61,6 +64,7 @@ def main():
                         help="the src directory to import repro_torch from")
     parser.add_argument("--calls", type=int, default=200)
     parser.add_argument("--repeats", type=int, default=25)
+    parser.add_argument("--passes", type=int, default=3)
     args = parser.parse_args()
     sys.path.insert(0, str(args.src.resolve()))
     if not torch.cuda.is_available():
@@ -78,7 +82,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     g = torch.Generator(device=dev).manual_seed(0)
-    rows = {}
+    calls = {}
     with torch.inference_mode():
         for name, m, k, ns in SHAPES:
             a = quantize(torch.randn((m, k), generator=g, device=dev),
@@ -91,8 +95,14 @@ def main():
             else:
                 def call(a=a, ws=ws):
                     fused_qkv(a, *ws)
-            rows[name] = host_us(call, args.calls, args.repeats)
-            print(f"  {name:16s} {rows[name]:8.2f} us a call", flush=True)
+            calls[name] = call
+        rows = {name: float("inf") for name in calls}
+        for _ in range(args.passes):
+            for name, call in calls.items():
+                rows[name] = min(rows[name],
+                                 host_us(call, args.calls, args.repeats))
+    for name, us in rows.items():
+        print(f"  {name:16s} {us:8.2f} us a call", flush=True)
     print(json.dumps({"src": str(args.src), "device": smi,
                       "host_us": rows}))
     return 0

@@ -7,16 +7,17 @@ For each shape (qwen2.5-3b's and distilbert_paper's served projections,
 and the rows between decode and prefill), forces each candidate plan of
 ``tiled_matmul`` / ``fused_qkv`` (``src/repro_torch/kernels/tiled_matmul/
 ops.py``: the wide variant, the swap variant with its K splits; forced by
-patching ``gemm_plan``, so the wrappers still check each plan) and
-prints its device time per launch beside the plan ``gemm_plan`` picks
-(marked ``*``), each launch checked bitwise against the plain version
-first.  Times are ``chip_smoke.device_ms``'s: a CUDA graph of many
+patching ``gemm_plan`` under ``REPRO_TUNE=off``, so the wrappers still
+check each plan and no table entry takes its place) and prints its device
+time per launch beside the plan ``gemm_plan`` picks (marked ``*``), each
+launch checked bitwise against the plain version first.  Times are ``chip_smoke.device_ms``'s: a CUDA graph of many
 launches over operand copies beyond L2, timed with CUDA events.  This is
 the evidence behind ``gemm_plan``'s thresholds.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -48,8 +49,7 @@ QUICK = [(4, [2048], 11008), (256, [768], 3072), (512, [2048], 2048),
 def candidates(m, ns, k):
     """The wide plan (from 65 rows), the swap plan (to 1024 rows) at each
     of 1, 2, 4, 8 and 16 splits that K allows, and gemm_plan's own."""
-    from repro_torch.kernels.tiled_matmul.ops import (BK, SWAP_COLS,
-                                                      GemmPlan)
+    from repro_torch.core.tiling import BK, SWAP_COLS, GemmPlan
     nk = -(-k // BK)
     plans = []
     if m > SWAP_COLS[-1]:
@@ -126,6 +126,9 @@ def main():
         print("gemm_plan_sweep: no CUDA device visible to torch",
               file=sys.stderr)
         return 1
+    from repro_torch.core import dispatch
+    os.environ[dispatch.TUNE_ENV] = "off"
+    dispatch.reset_cache_state()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
