@@ -1274,7 +1274,8 @@ def layer_launches(cfg, *, paged=False, flash=False, verify=False,
             "tiled_matmul": (1 + 2 * ffn + gated + 4 * cross) * w8a8,
             "paged_decode": int(paged and not verify),
             "paged_decode_verify": int(verify),
-            "flash_attention": int(flash), "flash_attention_backward": 0}
+            "flash_attention": int(flash), "flash_attention_backward": 0,
+            "row_absmax": 0, "tiled_matmul_int32": 0, "int8_epilogue": 0}
 
 
 def forward_launches(cfg, *, paged=False, flash=False) -> dict:
@@ -4785,6 +4786,803 @@ def bwd_split(rows):
     return dict(sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: mesh-sharded serving, its ranks sharing the card
+# ---------------------------------------------------------------------------
+# one process a rank (launch/mesh.py); gloo, since NCCL refuses two ranks
+# on one device: its collectives copy through pinned host buffers
+MESH_BACKEND, MESH_DEVICE = "gloo", "cuda:0"
+MESH_TIMEOUT = 600
+MESH_QWEN = "qwen2_5_3b"
+# qwen2.5-3b's depth on each mesh.  Mesh 2 (heads) is bitwise mesh 1 but
+# for the head's f32 GEMM (8 of 8 requests identical at 36, 12 and 8
+# layers).  Mesh 4's split-KV attention and K4 are each within about a
+# bf16 rounding of the f32 attention (the witness below), but they round
+# differently, and through the w8a8 layers the tokens part past the
+# near-tie rule: a request first differed at a top-2 gap of 0.046 at 36
+# layers and 0.028 at 8 (PERF.md §6).  gloo's ~2-7 ms a collective on one
+# card sets the depths' cost
+MESH_QWEN_LAYERS = {2: 8, 4: 2}
+# the pages mesh's depth witness: qwen2.5-3b at all its layers on 4 ranks,
+# 4 requests served for a few ticks, every layer's split-KV attention
+# output held against the plain f32 reference (paged_decode_attention_ref)
+# on the whole pools gathered from the ranks, the error over each output
+# row's largest |value|; K4 on the same inputs is measured beside it.  The
+# split path computes in f32 and rounds once to bf16 (half an ulp is 2^-8
+# of a value): the limit, one ulp, leaves room for f32 sums in another
+# order
+PAGES_WITNESS_LAYERS = 36
+PAGES_WITNESS_TICKS = 2
+PAGES_WITNESS_REL = 2 ** -7
+MISTRAL_ARCH = "mistral_large_123b"
+# 12 of its 88 layers: 16.6 GB of int8 weights, where all 88 (121.8 GB)
+# take two cards or more
+MISTRAL_LAYERS = 12
+MISTRAL_SEED = 7
+MISTRAL_PROMPTS = (64, 128, 192, 256)
+MISTRAL_STEPS = 16
+# mesh 4's logits against mesh 1's, over the row's largest |logit|: every
+# projection and every attention output is bitwise mesh 1's (checked), so
+# only the head's f32 product differs (each rank's 8192 vocabulary
+# columns against 32768 in one product: cuBLAS may sum the 12288 terms in
+# another order)
+MESH_LOGIT_REL = 1e-4
+# decode steps timed with a synchronize around every collective
+COLLECTIVE_STEPS = 8
+# the new K1 / K2 modes at the mesh paths' shapes: decode and the serve's
+# prefill rows over one rank's K slice of wo and down (K, N): mistral on
+# 4 ranks, qwen2.5-3b on 2 and on 4
+MESH_MODE_ROWS = (4, 256)
+MESH_MODE_SHAPES = {"mistral wo": (3072, 12288), "mistral down": (7168, 12288),
+                    "qwen2 wo": (1024, 2048), "qwen2 down": (5504, 2048),
+                    "qwen4 wo": (512, 2048), "qwen4 down": (2752, 2048)}
+MESH_KERNELS = {
+    "row_absmax": ("src/repro_torch/csrc/quant_act.cu",
+                   "src/repro/kernels/quant_act/kernel.py:20 (its absmax, "
+                   "a row split over ranks: K1's absmax mode)"),
+    "tiled_matmul_int32": ("src/repro_torch/csrc/int8_gemm.cu",
+                           "src/repro/kernels/tiled_matmul/kernel.py:83 "
+                           "(K2 without its epilogue: the int32-out mode)"),
+    "int8_epilogue": ("src/repro_torch/csrc/int8_gemm.cu",
+                      "src/repro/kernels/tiled_matmul/kernel.py:67 (K2's "
+                      "epilogue alone)"),
+}
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_configs(smoke, world=2):
+    """(qwen2.5-3b at mesh ``world``'s depth, mistral-large-123b at
+    MISTRAL_LAYERS), w8a8 bf16 at full width; their smoke configs for a
+    rehearsal on the CPU."""
+    from repro_torch.configs import get_config, get_smoke_config
+    get = get_smoke_config if smoke else get_config
+    qwen = get(MESH_QWEN).replace(quant_proj="w8a8", dtype="bfloat16")
+    mistral = get(MISTRAL_ARCH).replace(quant_proj="w8a8", dtype="bfloat16")
+    if not smoke:
+        qwen = qwen.replace(n_layers=MESH_QWEN_LAYERS[world])
+        mistral = mistral.replace(n_layers=MISTRAL_LAYERS)
+    return qwen, mistral
+
+
+def mesh_model(cfg, mesh, seed):
+    """``cfg``'s model on ``mesh``'s device, this rank's shard of it: each
+    whole layer drawn from one seeded generator on the device (the same
+    numbers on every rank and as the unsharded phases draw), quantized in
+    place, sliced, and the rest freed, so a rank never holds more than one
+    f32 layer; the ranks draw in turn.  Returns (model, seconds: the
+    ranks' turns included)."""
+    from repro_torch.bridge import shard_model
+    from repro_torch.core.quantize_params import quantize_model_params
+    from repro_torch.models.transformer import init_model
+    dev = mesh.device
+    t0 = time.perf_counter()
+    # one rank draws at a time (a psum is the barrier): drawing and
+    # quantizing a mistral layer takes ~16 GB a rank, four at once more
+    # than the card holds
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            model = init_model(gen, cfg, device=dev,
+                               each_block=lambda b: shard_model(
+                                   quantize_model_params(b, in_place=True),
+                                   mesh))
+            model = shard_model(model, mesh)
+            sync(dev)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        mesh.psum(torch.zeros(1, device=dev))
+    return model, time.perf_counter() - t0
+
+
+def mesh_layer_launches(cfg, by) -> dict:
+    """One layer's launches in one forward on a mesh (w8a8): wo and down
+    row-parallel, each one K1 absmax launch, one K1 given-absmax launch
+    (quant_act, or quant_act_glu in SwiGLU), one K2 int32-out and one K2
+    epilogue in place of its K2; the column projections as unsharded; K4
+    under ``heads``, none under ``pages`` (plain PyTorch, as the
+    reference's combine)."""
+    want = layer_launches(cfg, paged=by == "heads")
+    want["tiled_matmul"] -= 2
+    want.update(row_absmax=2, tiled_matmul_int32=2, int8_epilogue=2)
+    return want
+
+
+@contextlib.contextmanager
+def timed_collectives(mesh, stats):
+    """Within the block, every collective of ``mesh`` runs between two
+    synchronizes and adds its host seconds to ``stats["s"]``."""
+    names = ("psum", "pmax", "all_gather")
+    saved = {n: getattr(mesh, n) for n in names}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            sync(mesh.device)
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(mesh.device)
+            stats["s"] += time.perf_counter() - t
+            stats["n"] += 1
+            return out
+        return run
+
+    for n, fn in saved.items():
+        setattr(mesh, n, timed(fn))
+    try:
+        yield
+    finally:
+        for n in names:
+            delattr(mesh, n)
+
+
+def collective_share(step, mesh, steps=COLLECTIVE_STEPS):
+    """The share of ``steps`` calls of ``step`` (decode steps) spent in
+    collectives, each collective between two synchronizes: (share, ms a
+    step, collectives a step)."""
+    stats = {"s": 0.0, "n": 0}
+    sync(mesh.device)
+    t = time.perf_counter()
+    with timed_collectives(mesh, stats):
+        for _ in range(steps):
+            step()
+    sync(mesh.device)
+    total = time.perf_counter() - t
+    return stats["s"] / total, total * 1e3 / steps, stats["n"] / steps
+
+
+def slab_shapes(cache):
+    return {k: list(v.shape) for k, v in cache.items()
+            if k in ("k_pages", "v_pages", "k_scales", "v_scales",
+                     "alloc_free")}
+
+
+def mesh_sched_rank(mesh, smoke=False):
+    """A rank of qwen2.5-3b's Scheduler trace (phase 4's: 4 slots, 40
+    pages of 16, 8 requests, bf16 pools) on its shard: tokens, exact
+    launch counts, time, peak memory, slab shapes; then the collective
+    share of a few decode steps of 4 requests."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.scheduler import Scheduler
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg, _ = mesh_configs(smoke, mesh.size)
+    model, draw_s = mesh_model(cfg, mesh, 5)
+
+    def scheduler():
+        return Scheduler(model, cfg, slots=SCHED_SLOTS,
+                         max_len=SCHED_MAX_LEN,
+                         config=CacheConfig(layout="paged", alloc="dynamic",
+                                            page_size=PAGE,
+                                            pool_pages=SCHED_POOL,
+                                            mesh=mesh),
+                         share_prefix=True, bucket=SCHED_BUCKET,
+                         eos_id=SCHED_EOS, dtype=torch.bfloat16, device=dev)
+
+    trace = sched_trace(cfg.vocab_size)
+    sched = scheduler()
+    by = sched.config.resolved_kv_shard(cfg.n_kv_heads)
+    with torch.inference_mode():
+        reset_launch_counts()
+        seconds, tick_ms, page_waits = drive(sched, trace)
+        counts = launch_counts()
+        n_tok = sum(len(v) for v in sched.finished.values())
+        forwards = len(trace[0]) + decode_ticks(sched)
+        want = {k: n * cfg.n_layers * forwards
+                for k, n in mesh_layer_launches(cfg, by).items()}
+        shapes = slab_shapes(sched.cache)
+        per_shard_peak = [max(u[s] for u in sched.shard_occupancy_log)
+                          for s in range(len(sched.shard_occupancy_log[0]))]
+        # decode steps alone: 4 requests admitted at the first tick
+        probe = scheduler()
+        g = torch.Generator().manual_seed(23)
+        for _ in range(SCHED_SLOTS):
+            probe.submit(torch.randint(0, cfg.vocab_size, (32,),
+                                       generator=g), 4 * COLLECTIVE_STEPS)
+        probe.step()
+        share, step_ms, n_coll = collective_share(probe.step, mesh)
+    return {"rank": mesh.rank, "policy": by,
+            "finished": {r: t.tolist() for r, t in sched.finished.items()},
+            "counts": counts, "want": want, "seconds": seconds,
+            "tok_s": n_tok / seconds, "ticks": sched._ticks,
+            "ms_per_tick": sum(tick_ms) / len(tick_ms),
+            "page_waits": page_waits, "draw_s": draw_s,
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else 0.0),
+            "shapes": shapes, "per_shard_peak": per_shard_peak,
+            "collective_share": share, "decode_step_ms": step_ms,
+            "collectives_a_step": n_coll}
+
+
+def pages_witness_rank(mesh, smoke=False):
+    """A rank of the pages mesh's depth witness (PAGES_WITNESS_LAYERS):
+    4 requests admitted at the first tick, PAGES_WITNESS_TICKS ticks, and
+    every call of ``_paged_attend_split`` held against the plain f32
+    reference over the whole pools (gathered from the ranks), with K4 run
+    on the same inputs: each layer's largest error over its output row's
+    largest |value|, for the split path and for K4."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels.flash_attention.ops import (
+        paged_decode_attention)
+    from repro_torch.kernels.flash_attention.ref import (
+        paged_decode_attention_ref)
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.scheduler import Scheduler
+    dev = mesh.device
+    cfg, _ = mesh_configs(smoke, mesh.size)
+    if not smoke:
+        cfg = cfg.replace(n_layers=PAGES_WITNESS_LAYERS)
+    model, _ = mesh_model(cfg, mesh, 5)
+    split = attention._paged_attend_split
+    err = {"split": [0.0] * cfg.n_layers, "k4": [0.0] * cfg.n_layers}
+    calls = [0]
+
+    def rel(o, ref):
+        den = ref.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        return float(((o.float() - ref).abs() / den).max())
+
+    def checked(q, tok_pos, page_table, pools, c, *, scale, is_local,
+                mesh):
+        o = split(q, tok_pos, page_table, pools, c, scale=scale,
+                  is_local=is_local, mesh=mesh)
+        if len(pools) != 2:
+            raise ValueError("the witness reads bf16 pools")
+        # both pools in one collective, each whole and contiguous
+        kw, vw = mesh.all_gather(torch.stack(pools), dim=1)
+        s = q.shape[1]
+        lengths = (tok_pos[:, -1] + 1).to(torch.int32)
+        window = c.sliding_window if is_local else None
+        ref = paged_decode_attention_ref(
+            q.float(), kw.float(), vw.float(), page_table, lengths,
+            scale=scale, window=window, softcap=c.attn_logit_softcap)
+        k4 = paged_decode_attention(
+            q.contiguous(), kw, vw, page_table, lengths, scale=scale,
+            window=window, softcap=c.attn_logit_softcap,
+            q_chunk=(None if s <= attention.PAGED_FLASH_MAX_Q
+                     else attention.PAGED_PREFILL_CHUNK_Q),
+            split_heads=c.n_kv_heads)
+        layer = calls[0] % c.n_layers
+        calls[0] += 1
+        err["split"][layer] = max(err["split"][layer], rel(o, ref))
+        err["k4"][layer] = max(err["k4"][layer], rel(k4, ref))
+        return o
+
+    attention._paged_attend_split = checked
+    try:
+        sched = Scheduler(model, cfg, slots=SCHED_SLOTS,
+                          max_len=SCHED_MAX_LEN,
+                          config=CacheConfig(layout="paged",
+                                             alloc="dynamic",
+                                             page_size=PAGE,
+                                             pool_pages=SCHED_POOL,
+                                             mesh=mesh),
+                          bucket=SCHED_BUCKET, eos_id=SCHED_EOS,
+                          dtype=torch.bfloat16, device=dev)
+        g = torch.Generator().manual_seed(23)
+        for _ in range(SCHED_SLOTS):
+            sched.submit(torch.randint(0, cfg.vocab_size, (32,),
+                                       generator=g),
+                         4 * PAGES_WITNESS_TICKS)
+        t = time.perf_counter()
+        for _ in range(PAGES_WITNESS_TICKS):
+            sched.step()
+        sync(dev)
+    finally:
+        attention._paged_attend_split = split
+    return {"rank": mesh.rank, "policy": sched.cache["kv_shard"],
+            "layers": cfg.n_layers, "calls": calls[0],
+            "seconds": time.perf_counter() - t, **err}
+
+
+def mistral_prompts(cfg, dev):
+    """4 prompts of 64-256 tokens, right-padded: (prompts, lengths)."""
+    g = torch.Generator().manual_seed(31)
+    lens = torch.tensor(MISTRAL_PROMPTS if cfg.vocab_size > 1000
+                        else [8, 12, 5, 16])
+    prompts = torch.randint(0, cfg.vocab_size, (len(lens), int(lens.max())),
+                            generator=g)
+    return prompts.to(dev), lens.to(dev)
+
+
+def layer0_projections(model, cfg, mesh):
+    """Layer 0's seven projections on seeded inputs at decode and prefill
+    rows, whole: q, k, v, gate and up gathered over the mesh, wo and down
+    after their reduction (a rank's wo takes its columns of the whole
+    attention output)."""
+    from repro_torch.core.qkv_fusion import apply_fused_qkv
+    from repro_torch.core.quantized_linear import (apply_linear_swiglu,
+                                                   apply_linears)
+    from repro_torch.models.attention import _project_out
+    attn, ffn = model.layers[0].attn, model.layers[0].ffn
+    dev = mesh.device
+
+    def whole(t, lin):
+        return mesh.all_gather(t, dim=-1) if lin.shard == "column" else t
+
+    out = {}
+    for m in MESH_MODE_ROWS:
+        x = device_randn((m, cfg.d_model), 40 + m, dev, 1.0, torch.bfloat16)
+        o_in = device_randn((m, cfg.q_dim), 41 + m, dev, 1.0, torch.bfloat16)
+        q, k, v = apply_fused_qkv(attn.wq, attn.wk, attn.wv, x, mode="w8a8")
+        gate, up = apply_linears((ffn.gate, ffn.up), x, mode="w8a8")
+        got = {"q": whole(q, attn.wq), "k": whole(k, attn.wk),
+               "v": whole(v, attn.wv),
+               "wo": _project_out(attn, o_in, cfg, whole=True),
+               "gate": whole(gate, ffn.gate), "up": whole(up, ffn.up),
+               "down": apply_linear_swiglu(ffn.down, gate, up, mode="w8a8")}
+        out.update({f"{name} ({m} rows)": t.cpu() for name, t in got.items()})
+    return out
+
+
+def mistral_rank(mesh, smoke=False):
+    """A rank of mistral-large-123b's greedy serve: layer 0's projections,
+    then ``prefill`` of the 4 prompts into paged bf16 pools and
+    MISTRAL_STEPS ``serve_step``s, logits kept, exact launch counts, times,
+    peak memory and slab shapes; then the collective share of more decode
+    steps.  Rank 0 (or mesh 1) returns the logits and projections."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.cache import CacheConfig, init_cache
+    from repro_torch.serving.engine import prefill, serve_step
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _, cfg = mesh_configs(smoke)
+    model, draw_s = mesh_model(cfg, mesh, MISTRAL_SEED)
+    prompts, lens = mistral_prompts(cfg, dev)
+    max_len = prompts.shape[1] + MISTRAL_STEPS + COLLECTIVE_STEPS + PAGE
+    config = CacheConfig(layout="paged", page_size=PAGE, mesh=mesh)
+    by = config.resolved_kv_shard(cfg.n_kv_heads)
+    with torch.inference_mode():
+        proj = layer0_projections(model, cfg, mesh)
+        cache = init_cache(cfg, len(lens), max_len, torch.bfloat16, config,
+                           device=dev)
+        reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        next_logits, cache = prefill(model, cache, prompts, lens, cfg)
+        sync(dev)
+        t_prefill = time.perf_counter() - t0
+        tok = next_logits.argmax(-1)[:, None]
+        toks, logits = [tok], [next_logits.float()]
+        t0 = time.perf_counter()
+        for _ in range(MISTRAL_STEPS):
+            step_logits, cache = serve_step(model, cache, tok, None, cfg)
+            tok = step_logits[:, -1].argmax(-1)[:, None]
+            toks.append(tok)
+            logits.append(step_logits[:, -1].float())
+        sync(dev)
+        t_decode = time.perf_counter() - t0
+        counts = launch_counts()
+        want = {k: n * cfg.n_layers * (1 + MISTRAL_STEPS)
+                for k, n in mesh_layer_launches(cfg, by).items()}
+        state = {"tok": tok}
+
+        def step():
+            lg, _ = serve_step(model, cache, state["tok"], None, cfg)
+            state["tok"] = lg[:, -1].argmax(-1)[:, None]
+
+        share, step_ms, n_coll = collective_share(step, mesh)
+    out = {"rank": mesh.rank, "policy": by, "counts": counts, "want": want,
+           "tokens": torch.cat(toks, dim=1).cpu(),
+           "prefill_s": t_prefill,
+           "tok_s": len(lens) * MISTRAL_STEPS / t_decode,
+           "draw_s": draw_s,
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                       if dev.type == "cuda" else 0.0),
+           "shapes": slab_shapes(cache), "collective_share": share,
+           "decode_step_ms": step_ms, "collectives_a_step": n_coll,
+           "resident_gb": resident_gb(model)}
+    if mesh.rank == 0:
+        out.update(logits=torch.stack(logits).cpu(), projections=proj)
+    return out
+
+
+def check_mesh_modes(dev):
+    """K1's absmax and given-absmax modes and K2's int32-out and epilogue
+    modes at ``MESH_MODE_SHAPES``, each launch bitwise its plain version,
+    and the whole-row identities the row-parallel projections rest on: a
+    row's slices quantized with their maximum absmax are the whole row's
+    K1 (and its SwiGLU mode's), and the slices' int32 products summed,
+    then the epilogue, are the whole K2.  Returns the worst max |err|
+    (0: bitwise)."""
+    from repro_torch.core.quantization import QTensor
+    from repro_torch.kernels.quant_act.ops import (quant_act, quant_act_glu,
+                                                   row_absmax)
+    from repro_torch.kernels.quant_act.ref import (quant_act_glu_ref,
+                                                   quant_act_ref,
+                                                   row_absmax_glu_ref,
+                                                   row_absmax_ref)
+    from repro_torch.kernels.tiled_matmul.ops import (int8_epilogue,
+                                                      tiled_matmul,
+                                                      tiled_matmul_int32)
+    from repro_torch.kernels.tiled_matmul.ref import (int8_epilogue_ref,
+                                                      int_matmul_exact)
+    errs = {"row_absmax": 0.0, "tiled_matmul_int32": 0.0,
+            "int8_epilogue": 0.0}
+    seed = 60
+    for name, (k, n) in MESH_MODE_SHAPES.items():
+        ranks = 4 if name.startswith(("mistral", "qwen4")) else 2
+        for m in MESH_MODE_ROWS:
+            seed += 10
+            what = f"{name} ({m}, {k}) x {ranks} ranks"
+            glu = "down" in name
+            x = [device_randn((m, k), seed + r, dev, 3.0, torch.bfloat16)
+                 for r in range(ranks)]
+            up = [device_randn((m, k), seed + 5 + r, dev, 1.0,
+                               torch.bfloat16) for r in range(ranks)]
+            maxes = []
+            for r in range(ranks):
+                got = row_absmax(x[r], up[r] if glu else None)
+                want = (row_absmax_glu_ref(x[r], up[r]) if glu
+                        else row_absmax_ref(x[r]))
+                errs["row_absmax"] = max(errs["row_absmax"], max_err(
+                    got, want, f"row_absmax {what}"))
+                maxes.append(got)
+            absmax = torch.stack(maxes).amax(0)
+            whole_x = torch.cat(x, dim=1)
+            whole = (quant_act_glu(whole_x, torch.cat(up, dim=1)) if glu
+                     else quant_act(whole_x))
+            parts = []
+            for r in range(ranks):
+                got = (quant_act_glu(x[r], up[r], absmax=absmax) if glu
+                       else quant_act(x[r], absmax=absmax))
+                want = (quant_act_glu_ref(x[r], up[r], absmax=absmax) if glu
+                        else quant_act_ref(x[r], absmax=absmax))
+                max_err(got.values, want[0], f"given absmax {what}")
+                max_err(got.scale, want[1], f"given absmax scale {what}")
+                max_err(got.values, whole.values[:, r * k:(r + 1) * k],
+                        f"given absmax vs the whole row {what}")
+                max_err(got.scale, whole.scale, f"scale vs whole {what}")
+                parts.append(got)
+            _, ws = quantized_operands(1, k * ranks, [n], dev, seed + 9,
+                                       draw=device_randn)
+            w = ws[0]
+            bias = device_randn((n,), seed + 8, dev)
+            acc = None
+            for r in range(ranks):
+                wr = QTensor(w.values[r * k:(r + 1) * k].t().contiguous().t(),
+                             w.scale, 8)
+                got = tiled_matmul_int32(parts[r], wr)
+                errs["tiled_matmul_int32"] = max(
+                    errs["tiled_matmul_int32"],
+                    max_err(got, int_matmul_exact(parts[r].values, wr.values),
+                            f"tiled_matmul_int32 {what}"))
+                acc = got if acc is None else acc + got
+            got = int8_epilogue(acc, whole.scale, w, bias)
+            errs["int8_epilogue"] = max(errs["int8_epilogue"], max_err(
+                got, int8_epilogue_ref(acc, whole.scale, w.scale, bias,
+                                       torch.bfloat16),
+                f"int8_epilogue {what}"))
+            max_err(got, tiled_matmul(whole, w, bias),
+                    f"row-parallel sum vs the whole K2 {what}")
+    print(f"mesh modes: K1's absmax and given-absmax modes and K2's "
+          f"int32-out and epilogue modes bitwise their plain versions at "
+          f"{len(MESH_MODE_SHAPES) * len(MESH_MODE_ROWS)} shapes "
+          f"({', '.join(MESH_MODE_SHAPES)} at {MESH_MODE_ROWS} rows); "
+          "slices with their maximum absmax bitwise the whole row's K1, "
+          "int32 partials summed then the epilogue bitwise the whole K2")
+    return errs
+
+
+def time_mesh_modes(dev, m, k, n, glu):
+    """The new modes at one rank's slice (m, k) of a row-parallel projection
+    onto n outputs (``glu``: down's, of the SwiGLU product): K1's absmax
+    and given-absmax modes, K2's int32-out and epilogue modes; each its
+    ms, its plain version's, its bound and a library call's where one
+    computes the same."""
+    from repro_torch.kernels.quant_act.ops import (quant_act, quant_act_glu,
+                                                   row_absmax)
+    from repro_torch.kernels.quant_act.ref import (quant_act_glu_ref,
+                                                   quant_act_ref,
+                                                   row_absmax_glu_ref,
+                                                   row_absmax_ref)
+    from repro_torch.kernels.tiled_matmul.ops import (int8_epilogue,
+                                                      tiled_matmul_int32)
+    from repro_torch.kernels.tiled_matmul.ref import (int8_epilogue_ref,
+                                                      int_matmul_exact)
+    rows = {}
+    ins = 2 if glu else 1
+    xs = [tuple(device_randn((m, k), 3 * i + j, dev, 1.0, torch.bfloat16)
+                for j in range(ins)) for i in range(n_copies(2 * ins * m * k))]
+    b_ms, by = bound(2 * ins * m * k + 4 * m, (6 if glu else 1) * m * k,
+                     F32_OPS_PER_S)
+    lib = None if glu else device_ms(
+        lambda x: torch.linalg.vector_norm(x, float("inf"), dim=1,
+                                           keepdim=True), xs)
+    rows["row_absmax"] = {
+        "ms": device_ms(row_absmax, xs),
+        "plain_ms": device_ms(row_absmax_glu_ref if glu else row_absmax_ref,
+                              xs),
+        "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
+    given = [x + (torch.rand((m, 1), device=dev) * 4 + 1,) for x in xs]
+    q_fn = quant_act_glu if glu else quant_act
+    q_ref = quant_act_glu_ref if glu else quant_act_ref
+    b_ms, by = bound(2 * ins * m * k + 8 * m + m * k,
+                     (7 if glu else 3) * m * k, F32_OPS_PER_S)
+    rows["given_absmax"] = {
+        "ms": device_ms(lambda *a: q_fn(*a[:-1], absmax=a[-1]), given),
+        "plain_ms": device_ms(lambda *a: q_ref(*a[:-1], absmax=a[-1]), given),
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    nbytes = m * k + k * n + 4 * m * n
+    ops = [quantized_operands(m, k, [n], dev, seed=i, draw=device_randn)
+           for i in range(n_copies(nbytes))]
+    sets = [(a, b) for a, (b,) in ops]
+    b_ms, by = bound(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
+    mp = max(m, INT_MM_MIN_M)
+    rows["tiled_matmul_int32"] = {
+        "ms": device_ms(tiled_matmul_int32, sets),
+        # f64 products of GBs a call: eagerly, not in a graph of many
+        "plain_ms": eager_ms(lambda a, b: int_matmul_exact(a.values,
+                                                           b.values), sets),
+        "bound_ms": b_ms, "bound_by": by,
+        "library_ms": device_ms(
+            int_mm_alone, [(pad_rows(a.values, mp), a.scale, b.values,
+                            b.scale) for a, b in sets]),
+        "library": "torch._int_mm" + (f", A padded to M={mp}"
+                                      if mp != m else "")}
+    accs = [(torch.randint(-2 ** 20, 2 ** 20, (m, n), dtype=torch.int32,
+                           device=dev), a.scale, b) for a, b in sets]
+    bias = device_randn((n,), 3, dev)
+    b_ms, by = bound(4 * m * n + 4 * m + 8 * n + 2 * m * n, 3 * m * n,
+                     F32_OPS_PER_S)
+    rows["int8_epilogue"] = {
+        "ms": device_ms(lambda acc, sa, b: int8_epilogue(acc, sa, b, bias),
+                        accs),
+        "plain_ms": device_ms(lambda acc, sa, b: int8_epilogue_ref(
+            acc, sa, b.scale, bias, torch.bfloat16), accs),
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    return rows
+
+
+def mesh_layer_rows(rows, m):
+    """One mistral rank's layer at m rows (wo, then down): each mode's
+    numbers summed over its two launches (a library time only where both
+    have one)."""
+    out = {}
+    for mode in ("row_absmax", "given_absmax", "tiled_matmul_int32",
+                 "int8_epilogue"):
+        parts = [rows[f"mistral {p} {m}"][mode] for p in ("wo", "down")]
+        out[mode] = {key: sum(p[key] for p in parts)
+                     for key in ("ms", "plain_ms", "bound_ms")}
+        libs = [p["library_ms"] for p in parts]
+        out[mode]["library_ms"] = (None if None in libs else sum(libs))
+        out[mode]["bound_by"] = parts[1]["bound_by"]
+    return out
+
+
+def unsharded_sched_ref(cfg, dev):
+    """qwen2.5-3b's Scheduler trace at ``cfg``'s depth, unsharded, in this
+    process (the weights the ranks draw): (finished, the top-2 logit gaps
+    and tokens of every emitted token) for the near-tie rule, and its
+    seconds."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.scheduler import Scheduler
+    model, _ = mesh_model(cfg, Mesh(1, backend=MESH_BACKEND, device=dev), 5)
+    sched = Scheduler(model, cfg, slots=SCHED_SLOTS, max_len=SCHED_MAX_LEN,
+                      config=CacheConfig(layout="paged", alloc="dynamic",
+                                         page_size=PAGE,
+                                         pool_pages=SCHED_POOL),
+                      share_prefix=True, bucket=SCHED_BUCKET,
+                      eos_id=SCHED_EOS, dtype=torch.bfloat16, device=dev)
+    gaps, top2 = {}, {}
+    with recorded_gaps(sched, gaps, top2):
+        seconds, _, _ = drive(sched, sched_trace(cfg.vocab_size))
+    n_tok = sum(len(v) for v in sched.finished.values())
+    return (sched.finished, gaps, top2), n_tok / seconds
+
+
+def mesh_paths(dev, smi, smoke=False):
+    """The mesh phase: the new K1 / K2 modes checked and timed in this
+    process; then qwen2.5-3b's Scheduler trace on meshes 2 (heads) and 4
+    (pages), each at its MESH_QWEN_LAYERS depth, unsharded here first,
+    their tokens held against the unsharded run's by the near-tie rule;
+    the pages mesh's depth witness (``pages_witness_rank``); then
+    mistral-large-123b at full width, MISTRAL_LAYERS layers: mesh 1
+    here, mesh 4 in four ranks, every projection of layer 0 bitwise, the
+    tokens by the near-tie rule, the logits within MESH_LOGIT_REL.  Each
+    rank's counts are exact and every rank emits the same tokens."""
+    from repro_torch.launch.mesh import Mesh, spawn_ranks
+    res = {"errs": check_mesh_modes(dev), "rows": {}}
+    for name in ("mistral wo", "mistral down"):
+        k, n = MESH_MODE_SHAPES[name]
+        for m in MESH_MODE_ROWS:
+            res["rows"][f"{name} {m}"] = time_mesh_modes(
+                dev, m, k, n, glu=name.endswith("down"))
+    for m in MESH_MODE_ROWS:
+        for mode, r in mesh_layer_rows(res["rows"], m).items():
+            lib = ("-" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            print(f"  mesh mode {mode:18s} mistral rank layer, {m:3d} rows: "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}), library {lib} "
+                  f"[{smi}]")
+    _, mistral_cfg = mesh_configs(smoke)
+    res["qwen"] = {}
+    for world in (2, 4):
+        qwen_cfg, _ = mesh_configs(smoke, world)
+        stamp(f"mesh phase: {qwen_cfg.name} unsharded, {qwen_cfg.n_layers} "
+              "layers")
+        qwen_ref, ref_tok_s = unsharded_sched_ref(qwen_cfg, dev)
+        print(f"{qwen_cfg.name} Scheduler unsharded, {qwen_cfg.n_layers} "
+              f"layers: {ref_tok_s:.1f} tok/s (host clock) [{smi}]")
+        torch.cuda.empty_cache()
+        stamp(f"mesh phase: {qwen_cfg.name} on {world} ranks")
+        runs = spawn_ranks(mesh_sched_rank, world, backend=MESH_BACKEND,
+                           device=MESH_DEVICE, args=(smoke,),
+                           timeout=MESH_TIMEOUT)
+        r0 = runs[0]
+        what = (f"mesh {world} ({r0['policy']}) {qwen_cfg.name} Scheduler, "
+                f"{qwen_cfg.n_layers} layers")
+        for r in runs:
+            if r["counts"] != r["want"]:
+                fail(f"{what}: rank {r['rank']} launches {r['counts']} != "
+                     f"{r['want']}")
+            if r["finished"] != r0["finished"]:
+                fail(f"{what}: rank {r['rank']}'s tokens differ from rank "
+                     "0's")
+        print(f"{what}: launches a rank {r0['counts']} (exact on every "
+              "rank)")
+        other = {rid: torch.tensor(t) for rid, t in r0["finished"].items()}
+        share = near_tie_rule(f"{what} against the unsharded run",
+                              qwen_ref[0], other, qwen_ref[1], qwen_ref[2],
+                              NEAR_TIE)
+        for r in runs:
+            print(f"  rank {r['rank']}: peak {r['peak_gb']:.2f} GB "
+                  f"(torch.cuda.max_memory_allocated), slabs {r['shapes']}, "
+                  f"drawn in {r['draw_s']:.1f} s")
+        print(f"  {r0['ticks']} ticks, {r0['tok_s']:.1f} tok/s, "
+              f"{r0['ms_per_tick']:.3f} ms per tick (host clock, rank 0), "
+              f"page waits {r0['page_waits']} ticks, per-shard pages peak "
+              f"{r0['per_shard_peak']}; decode step {r0['decode_step_ms']:.3f}"
+              f" ms with a synchronize around each of its "
+              f"{r0['collectives_a_step']:.0f} collectives, "
+              f"{r0['collective_share']:.3f} of it in them (gloo through "
+              f"host buffers, {world} ranks on one card: an artefact of "
+              f"host staging) [{smi}]")
+        res["qwen"][world] = dict(r0, identical_share=share,
+                                  layers=qwen_cfg.n_layers,
+                                  unsharded_tok_s=ref_tok_s)
+    stamp("mesh phase: the pages mesh's depth witness on 4 ranks")
+    runs = spawn_ranks(pages_witness_rank, 4, backend=MESH_BACKEND,
+                       device=MESH_DEVICE, args=(smoke,),
+                       timeout=MESH_TIMEOUT)
+    w0 = runs[0]
+    what = (f"mesh 4 ({w0['policy']}) qwen2.5-3b, {w0['layers']} layers: "
+            "split-KV attention against the plain f32 reference on the "
+            "gathered pools")
+    for r in runs:
+        if r["policy"] != "pages" or r["calls"] != w0["calls"]:
+            fail(f"{what}: rank {r['rank']} policy {r['policy']}, "
+                 f"{r['calls']} calls (rank 0: {w0['calls']})")
+        worst = max(r["split"])
+        if worst > PAGES_WITNESS_REL:
+            fail(f"{what}: rank {r['rank']} layer "
+                 f"{r['split'].index(worst)} at {worst:.3e} of its row's "
+                 f"largest |value| (limit {PAGES_WITNESS_REL:.3e})")
+    res["witness"] = {k: w0[k] for k in ("layers", "calls", "seconds",
+                                          "split", "k4")}
+    print(f"{what}: {w0['calls']} calls over {PAGES_WITNESS_TICKS} ticks "
+          f"in {w0['seconds']:.1f} s; worst split-KV {max(w0['split']):.3e}"
+          f" of its row's largest |value| (layer "
+          f"{w0['split'].index(max(w0['split']))}; limit "
+          f"{PAGES_WITNESS_REL:.3e}), K4 on the same inputs "
+          f"{max(w0['k4']):.3e} (layer {w0['k4'].index(max(w0['k4']))})")
+    print("  by layer, split-KV: "
+          + " ".join(f"{e:.2e}" for e in w0["split"]))
+    print("  by layer, K4:       "
+          + " ".join(f"{e:.2e}" for e in w0["k4"]))
+    stamp(f"mesh phase: {mistral_cfg.name} on 1 rank (here)")
+    one = mistral_rank(Mesh(1, backend=MESH_BACKEND, device=dev), smoke)
+    print(f"mesh 1 {mistral_cfg.name}: {describe(mistral_cfg)}; resident "
+          f"{one['resident_gb']:.2f} GB, peak {one['peak_gb']:.2f} GB, drawn "
+          f"in {one['draw_s']:.1f} s")
+    torch.cuda.empty_cache()
+    stamp(f"mesh phase: {mistral_cfg.name} on 4 ranks")
+    runs = spawn_ranks(mistral_rank, 4, backend=MESH_BACKEND,
+                       device=MESH_DEVICE, args=(smoke,),
+                       timeout=MESH_TIMEOUT)
+    r0 = runs[0]
+    what = (f"mesh 4 ({r0['policy']}) {mistral_cfg.name}, "
+            f"{mistral_cfg.n_layers} layers")
+    for r in runs:
+        if r["counts"] != r["want"]:
+            fail(f"{what}: rank {r['rank']} launches {r['counts']} != "
+                 f"{r['want']}")
+        if not torch.equal(r["tokens"], r0["tokens"]):
+            fail(f"{what}: rank {r['rank']}'s tokens differ from rank 0's")
+    if one["counts"] != {k: n for k, n in expected_mistral_one(
+            mistral_cfg).items()}:
+        fail(f"mesh 1 {mistral_cfg.name}: launches {one['counts']}")
+    for name, want in one["projections"].items():
+        got = r0["projections"][name]
+        if not torch.equal(got, want):
+            fail(f"{what}: {name} differs from mesh 1's (max |err| "
+                 f"{(got.double() - want.double()).abs().max():.3e})")
+    print(f"{what}: launches a rank {r0['counts']} (exact on every rank); "
+          f"layer 0's {len(one['projections'])} projection outputs (q, k, v, "
+          f"gate, up gathered; wo, down reduced; at {MESH_MODE_ROWS} rows) "
+          "bitwise mesh 1's")
+    ref_toks, got_toks = one["tokens"], r0["tokens"]
+    gaps, top2, worst = {}, {}, 0.0
+    for step in range(got_toks.shape[1]):
+        lg = one["logits"][step]
+        vals, idx = lg.topk(2, dim=-1)
+        rel = (vals[:, 0] - vals[:, 1]) / lg.abs().amax(-1)
+        for b in range(lg.shape[0]):
+            gaps[(b, step)], top2[(b, step)] = float(rel[b]), idx[b].tolist()
+    first = [first_divergence(ref_toks[b].tolist(), got_toks[b].tolist())
+             for b in range(ref_toks.shape[0])]
+    # the logits at the first differing token still share their inputs
+    live = min(min(f if f is not None else got_toks.shape[1] for f in first)
+               + 1, got_toks.shape[1])
+    for step in range(live):
+        diff = (r0["logits"][step] - one["logits"][step]).abs().amax(-1)
+        rel = float((diff / one["logits"][step].abs().amax(-1)).max())
+        worst = max(worst, rel)
+    if worst > MESH_LOGIT_REL:
+        fail(f"{what}: logits differ from mesh 1's by {worst:.3e} of the "
+             f"largest |logit| (limit {MESH_LOGIT_REL})")
+    share = near_tie_rule(
+        f"{what} against mesh 1",
+        {b: ref_toks[b] for b in range(ref_toks.shape[0])},
+        {b: got_toks[b] for b in range(got_toks.shape[0])}, gaps, top2,
+        NEAR_TIE)
+    print(f"  logits (prefill and the {live - 1} decode steps whose inputs "
+          f"agree) within {worst:.3e} of the largest |logit| (limit "
+          f"{MESH_LOGIT_REL})")
+    for r in runs:
+        print(f"  rank {r['rank']}: resident {r['resident_gb']:.2f} GB, peak "
+              f"{r['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated: one "
+              f"f32 layer drawn at a time), slabs {r['shapes']}, drawn in "
+              f"{r['draw_s']:.1f} s")
+    print(f"  prefill of {list(MISTRAL_PROMPTS)} tokens: mesh 1 "
+          f"{one['prefill_s'] * 1e3:.3f} ms, mesh 4 "
+          f"{r0['prefill_s'] * 1e3:.3f} ms; decode: mesh 1 "
+          f"{one['tok_s']:.1f} tok/s, mesh 4 {r0['tok_s']:.1f} tok/s (host "
+          f"clock); mesh 4's decode step {r0['decode_step_ms']:.3f} ms with "
+          f"a synchronize around each of its {r0['collectives_a_step']:.0f} "
+          f"collectives, {r0['collective_share']:.3f} of it in them (gloo "
+          "through host buffers, 4 ranks on one card: an artefact of host "
+          f"staging) [{smi}]")
+    res["mistral"] = {"one": {k: v for k, v in one.items()
+                              if k not in ("logits", "projections")},
+                      "four": {k: v for k, v in r0.items()
+                               if k not in ("logits", "projections")},
+                      "logit_rel": worst, "identical_share": share}
+    return res
+
+
+def expected_mistral_one(cfg):
+    """Mesh 1's launches in the mistral serve: the unsharded layer's."""
+    return {k: n * cfg.n_layers * (1 + MISTRAL_STEPS)
+            for k, n in layer_launches(cfg, paged=True).items()}
+
+
 T_START = time.perf_counter()
 
 
@@ -4879,6 +5677,10 @@ def main():
     restart = restart_path(dev)
     stamp("phase 5: the training step, card vs CPU")
     train_check = card_vs_cpu_train(dev)
+    stamp("mesh phase: mesh-sharded serving")
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        mesh = mesh_paths(dev, smi)
     stamp("phase 6: timings")
     bwd_row = time_flash_bwd(dev)
     shapes = timings(cfg, dev)
@@ -5026,6 +5828,31 @@ def main():
         "phi3_vision_4_2b": path_rows(shapes["phi3 quant_act_glu"],
                                       PATH_ROWS["phi3"][1]),
     })
+    mistral4 = mesh["mistral"]["four"]
+    for name, (source, replaces) in MESH_KERNELS.items():
+        layer = {m: mesh_layer_rows(mesh["rows"], m)[name]
+                 for m in MESH_MODE_ROWS}
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": mistral4["counts"][name],
+            "max_abs_err": mesh["errs"][name],
+            **{k: layer[256][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "work": "one mistral-large-123b rank's layer on 4 ranks, M=256:"
+                    " wo (256, 3072) x (3072, 12288) and down (256, 7168) x "
+                    "(7168, 12288) (sum over its two launches; launches: "
+                    "rank 0 of the mesh-4 serve)",
+            "decode": {k: layer[4][k] for k in ("ms", "plain_ms",
+                                                "bound_ms", "library_ms")},
+            "launches_qwen2_5_3b_mesh": {
+                f"mesh {w} ({r['policy']})": r["counts"][name]
+                for w, r in mesh["qwen"].items()},
+        })
+    kernels[0]["given_absmax_mode"] = {
+        "work": "K1's given-absmax mode (quant_act, or quant_act_glu for "
+                "down), one mistral rank's layer, M=256",
+        **mesh_layer_rows(mesh["rows"], 256)["given_absmax"],
+        "launches_mistral_mesh4": mistral4["counts"]["quant_act"]}
     for k in kernels:
         k["launches_qwen3_moe"] = path_launches(k["name"], "qwen3-moe")
         k["launches_zamba2_7b"] = path_launches(k["name"], "zamba2-7b")
@@ -5107,6 +5934,28 @@ def main():
           f"x {bwd_row['ms']:.3f} ms; restart bitwise {restart[0]} "
           f"(max rel-diff {restart[1]:.3e}); card vs CPU train step loss "
           f"rel-err {train_check[0]:.3e}, worst gradient {train_check[1]:.3e}")
+    for w, r in mesh["qwen"].items():
+        print(f"mesh {w} ({r['policy']}) qwen2.5-3b Scheduler ({r['layers']}"
+              f" layers, w8a8 bf16, {w} ranks on one card over gloo): "
+              f"{r['tok_s']:.1f} tok/s (unsharded "
+              f"{r['unsharded_tok_s']:.1f}), {r['ms_per_tick']:.3f} ms/tick, "
+              f"identical share {r['identical_share']:.3f}, rank 0 peak "
+              f"{r['peak_gb']:.2f} GB, collective share "
+              f"{r['collective_share']:.3f} [{smi}]")
+    wit = mesh["witness"]
+    print(f"mesh 4 (pages) qwen2.5-3b depth witness ({wit['layers']} layers, "
+          f"{wit['calls']} split-KV calls): worst {max(wit['split']):.3e} of "
+          f"the row's largest |value| against the plain f32 reference "
+          f"(limit {PAGES_WITNESS_REL:.3e}); K4 on the same inputs "
+          f"{max(wit['k4']):.3e}")
+    m1, m4 = mesh["mistral"]["one"], mesh["mistral"]["four"]
+    print(f"mistral-large-123b ({MISTRAL_LAYERS} layers, w8a8 bf16): mesh 1 "
+          f"{m1['tok_s']:.1f} tok/s, mesh 4 ({m4['policy']}) "
+          f"{m4['tok_s']:.1f} tok/s; peak GB mesh 1 {m1['peak_gb']:.2f}, "
+          f"mesh 4 rank 0 {m4['peak_gb']:.2f}; collective share "
+          f"{m4['collective_share']:.3f}; logits within "
+          f"{mesh['mistral']['logit_rel']:.3e}; identical share "
+          f"{mesh['mistral']['identical_share']:.3f} [{smi}]")
     scratch_dir.cleanup()
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(smi)

@@ -16,8 +16,10 @@ alias its pages), steps the live batch one decode per tick, and retires
 finished sequences so their pages return to the pool.  On the CPU the
 kernels' plain PyTorch versions run.
 
-``--mesh N`` (N > 1) is not ported yet: mesh serving is ROADMAP queue 1,
-item 13, and raises here.
+``--mesh N`` (N > 1) raises here: the port serves over a mesh with one
+process a rank (``repro_torch.launch.mesh.spawn_ranks``, each rank a
+Scheduler on ``CacheConfig(mesh=...)``), which this one-process twin does
+not drive yet (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-share", action="store_true",
                     help="disable prefix-sharing admissions")
     ap.add_argument("--mesh", type=int, default=1, metavar="N",
-                    help="serve over an N-device mesh (not ported: "
+                    help="serve over an N-rank mesh (not in this twin: "
                          "ROADMAP queue 1, item 13)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
@@ -82,8 +84,9 @@ def main(argv=None, model: Model | None = None, cfg=None) -> Scheduler:
     args = parser().parse_args(argv)
     if args.mesh > 1:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: mesh serving is not ported yet (ROADMAP "
-            "queue 1, item 13); the port serves on one device")
+            f"--mesh {args.mesh}: this twin serves in one process; the "
+            "port's mesh serving runs one process a rank "
+            "(launch/mesh.py spawn_ranks; ROADMAP queue 1, item 13)")
     dev = resolve_device(args.device)
     cfg = cfg or get_smoke_config(args.arch).replace(quant_proj="w8a8")
     if model is None:

@@ -19,11 +19,17 @@ decoder's layers do.
 ``params_to_numpy`` is the inverse: a ``Model``'s buffers as the JAX
 package's nested tree of numpy arrays, the per-layer tensors stacked again
 (``repro_torch.tree`` maps the names).
+
+``shard_model`` slices a whole model (converted, or initialised by the
+port) into one rank's shard of a serving mesh by the placements of
+``launch/sharding.py``, so that both packages can be held on the same
+weights at every mesh size.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch import tree as _tree
@@ -31,6 +37,9 @@ from repro_torch.core.quantization import QTensor, k_major
 from repro_torch.core.quantized_linear import Linear
 from repro_torch.models.attention import Attention
 from repro_torch.models.config import ModelConfig
+from repro_torch.launch.sharding import (make_param_rules,
+                                         model_param_shapes, on_axis,
+                                         param_specs)
 from repro_torch.models.ffn import FFN
 from repro_torch.models.layers import Embedding, LMHead, Norm
 from repro_torch.models.moe import Experts, MoE
@@ -194,3 +203,62 @@ def params_to_numpy(model: Model, cfg: ModelConfig) -> dict:
             path = _tree.jax_path(f"{name}.{buf}" if name else buf)[0]
             put(path[:-1] + ("bits",), mod.bits)
     return tree
+
+
+def shard_model(model: nn.Module, mesh):
+    """Slice ``model`` in place into this rank's shard of ``mesh`` (a
+    ``launch.mesh.Mesh``) and return it.
+
+    Each weight is placed by ``launch.sharding.param_specs`` under the
+    serving rules (``make_param_rules()``): a dim placed on ``model``
+    keeps this rank's equal, contiguous slice, and the rest is freed.  A ``Linear`` whose output
+    columns are split becomes ``shard = "column"``, one whose input rows
+    (K) are split ``"row"``; an ``Embedding`` or ``LMHead`` split by
+    vocabulary ``"vocab"``; each gets the mesh.  Quantized values stay
+    K-major, and a weight is quantized whole before it is sliced (its
+    per-column scales are the whole column's).  ``model.mesh`` is set, so
+    the forward runs the rank's program.  ``model`` may be a whole
+    ``Model`` or one block (``init_model(each_block=...)`` shards each
+    block as it is drawn); modules sliced before are left as they are.  A
+    mesh of one rank slices nothing.  MoE, SSM, hybrid and
+    encoder-decoder models raise (ROADMAP queue 1, item 13)."""
+    for mod in model.modules():
+        if isinstance(mod, (MoE, SSMBlock, Encoder)):
+            raise NotImplementedError(
+                f"{type(mod).__name__} under a mesh: the port's meshes serve "
+                "the dense attention families; the rest is ROADMAP queue 1, "
+                "item 13")
+    model.mesh = mesh
+    for mod in model.modules():
+        if isinstance(mod, Attention):
+            mod.mesh = mesh
+    if mesh.size == 1:
+        return model
+    specs = param_specs(model_param_shapes(model), mesh, make_param_rules())
+    before = {id(m) for m in model.modules() if getattr(m, "_sliced", False)}
+    for name, spec in specs.items():
+        dims = [d for d, entry in enumerate(spec) if on_axis(entry)]
+        if not dims:
+            continue
+        if len(dims) > 1:
+            raise ValueError(f"{name}: placed on 'model' twice ({spec})")
+        owner_name, attr = name.rpartition(".")[::2]
+        owner = model.get_submodule(owner_name)
+        if id(owner) in before:
+            continue
+        t = getattr(owner, attr)
+        lo, hi = mesh.shard_bounds(t.shape[dims[0]])
+        part = t.narrow(dims[0], lo, hi - lo)
+        # a copy of its own, so the whole tensor's memory is freed
+        part = (k_major(part) if attr == "w_q_values"
+                else part.clone(memory_format=torch.contiguous_format))
+        setattr(owner, attr, part)
+        if isinstance(owner, Linear):
+            kind = "column" if dims[0] == t.dim() - 1 else "row"
+            if attr in ("w", "w_q_values"):
+                owner.shard = kind
+        elif isinstance(owner, (Embedding, LMHead)):
+            owner.shard = "vocab"
+        owner.mesh = mesh
+        owner._sliced = True
+    return model

@@ -12,6 +12,7 @@ import importlib
 
 ARCHITECTURES = [
     "gemma2_27b",
+    "mistral_large_123b",
     "qwen2_5_3b",
     "chatglm3_6b",
     "distilbert_paper",          # the paper's own integration target

@@ -37,12 +37,16 @@ def quantize_experts_stacks(experts: Experts) -> Experts:
 
 
 def quantize_model_params(model: nn.Module,
-                          quantize_experts: bool = False) -> nn.Module:
+                          quantize_experts: bool = False, *,
+                          in_place: bool = False) -> nn.Module:
     """Returns a new model with projection weights int8-quantized; the
-    model it is given is left as it was.  ``quantize_experts``: also the
-    MoE experts' stacked weights (the serving launcher's choice for the
-    MoE family)."""
-    model = copy.deepcopy(model)
+    model it is given is left as it was, unless ``in_place`` (then it is
+    quantized itself, one projection at a time, never held twice in f32:
+    what a block drawn at full width wants).  ``quantize_experts``: also
+    the MoE experts' stacked weights (the serving launcher's choice for
+    the MoE family)."""
+    if not in_place:
+        model = copy.deepcopy(model)
 
     def walk(node: nn.Module) -> None:
         for k, v in list(node.named_children()):

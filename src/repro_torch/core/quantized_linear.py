@@ -15,6 +15,24 @@ offline quantization ``w_q`` (int8 values + (1, N) f32 scales), and an
 optional f32 bias ``b``; ``quantize_linear`` converts one into the other.
 Quantized values rest K-major (``quantize_weight``): one (N, K)-contiguous
 copy, seen as (K, N), the layout kernel K2 reads.
+
+Over a serving mesh (``bridge.shard_model``) a ``Linear`` holds one rank's
+slice and its ``shard`` says which:
+
+  * ``"column"`` — the rank's output columns (Q/K/V on the rank's heads,
+    the FFN's gate and up, the head's vocab slice).  Each column is
+    computed whole on one rank, so the outputs are bitwise the unsharded
+    ones; nothing here reduces.
+  * ``"row"`` — the rank's rows of K (the output projection ``wo`` and the
+    FFN's ``down``), on the rank's slice of the input; the partial
+    products are summed over the mesh (``_apply_row_parallel``).  Under
+    w8a8 the result is bitwise the unsharded projection: the input is
+    quantized with the global per-row absmax (``pmax`` of each rank's,
+    K1's absmax and given-absmax modes), each rank's int32 partial (K2's
+    int32-out mode) is summed exactly (``psum``), and K2's epilogue runs
+    once on the sum.  Under ``none`` and ``w8`` the f32 partials are
+    summed in rank order and cast after the sum: not the unsharded bits
+    (another summation order), the same bits on every rank.
 """
 from __future__ import annotations
 
@@ -25,19 +43,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.quantization import QTensor, k_major, quantize
-from repro_torch.kernels.quant_act.ops import quant_act, quant_act_glu
-from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+from repro_torch.kernels.quant_act.ops import (quant_act, quant_act_glu,
+                                               row_absmax)
+from repro_torch.kernels.tiled_matmul.ops import (int8_epilogue,
+                                                  tiled_matmul,
+                                                  tiled_matmul_int32)
 
 QuantMode = str  # "none" | "w8" | "w8a8"
 VALID_MODES = ("none", "w8", "w8a8")
 
 
 class Linear(nn.Module):
-    """y = x @ W (+ b): master ``w`` (K, N) or quantized ``w_q``, bias ``b``."""
+    """y = x @ W (+ b): master ``w`` (K, N) or quantized ``w_q``, bias ``b``.
+    ``shard`` (None, ``"column"`` or ``"row"``) and ``mesh`` are set by
+    ``bridge.shard_model`` on a rank's slice."""
 
     def __init__(self, w: torch.Tensor | None = None,
                  w_q: QTensor | None = None, b: torch.Tensor | None = None):
         super().__init__()
+        self.shard: str | None = None
+        self.mesh = None
         if (w is None) == (w_q is None):
             raise ValueError("Linear takes exactly one of w and w_q")
         self.register_buffer("w", w)
@@ -101,6 +126,8 @@ def apply_linear(params: Linear, x: torch.Tensor, *,
     if mode not in VALID_MODES:
         raise ValueError(f"mode must be one of {VALID_MODES}, got {mode!r}")
     out_dtype = out_dtype or x.dtype
+    if params.shard == "row":
+        return _apply_row_parallel(params, x, mode=mode, out_dtype=out_dtype)
     bias = params.b
 
     if mode == "none":
@@ -122,7 +149,7 @@ def apply_linears(projections: Sequence[Linear], x: torch.Tensor, *,
     w8a8 one K1 of x serves them all (the gated FFN's gate and up): the
     int8 values and scales are those each call would make, so the outputs
     are bitwise ``apply_linear``'s."""
-    if mode != "w8a8":
+    if mode != "w8a8" or any(p.shard == "row" for p in projections):
         return [apply_linear(p, x, mode=mode, out_dtype=out_dtype)
                 for p in projections]
     xq = quant_act(_rows(x))
@@ -140,6 +167,9 @@ def apply_linear_swiglu(params: Linear, gate: torch.Tensor,
     if mode != "w8a8":
         return apply_linear(params, F.silu(gate) * up, mode=mode,
                             out_dtype=out_dtype)
+    if params.shard == "row":
+        return _apply_row_parallel(params, gate, up, mode=mode,
+                                   out_dtype=out_dtype or gate.dtype)
     hq = quant_act_glu(_rows(gate), _rows(up))
     return _apply_w8a8(params, hq, gate.shape[:-1], out_dtype or gate.dtype)
 
@@ -164,3 +194,32 @@ def _apply_w8a8(params: Linear, xq: QTensor, lead: torch.Size, out_dtype
                      bias.float() if bias is not None else None,
                      out_dtype=out_dtype)
     return y.reshape(*lead, y.shape[-1])
+
+
+def _apply_row_parallel(params: Linear, x: torch.Tensor,
+                        up: torch.Tensor | None = None, *, mode: QuantMode,
+                        out_dtype) -> torch.Tensor:
+    """A row-parallel projection on this rank's slice of its input (with
+    ``up``, under w8a8: of the SwiGLU product ``F.silu(x) * up``), summed over
+    ``params.mesh``; the bias is added once, after the sum (module
+    docstring)."""
+    mesh = params.mesh
+    lead = x.shape[:-1]
+    if mode == "w8a8":
+        rows = _rows(x)
+        wq = _weight_q(params)
+        if up is None:
+            absmax = mesh.pmax(row_absmax(rows))
+            xq = quant_act(rows, absmax=absmax)
+        else:
+            ups = _rows(up)
+            absmax = mesh.pmax(row_absmax(rows, ups))
+            xq = quant_act_glu(rows, ups, absmax=absmax)
+        acc = mesh.psum(tiled_matmul_int32(xq, wq))
+        bias = params.b.float() if params.b is not None else None
+        y = int8_epilogue(acc, xq.scale, wq, bias, out_dtype=out_dtype)
+        return y.reshape(*lead, y.shape[-1])
+    w = (params.w if mode == "none"
+         else _weight_q(params).dequantize(torch.float32))
+    y = mesh.psum(x.float() @ w.float())
+    return _add_bias(y, params.b).to(out_dtype)

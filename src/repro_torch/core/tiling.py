@@ -95,6 +95,13 @@ def choose_plan(m: int, ns: tuple, k: int, aligned: bool) -> GemmPlan:
     wide_tiles = ceil_div(m, ROWS) * sum(ceil_div(n, WIDE_COLS) for n in ns)
     if m > SWAP_MAX_M or (m > SWAP_COLS[-1] and wide_tiles >= SMS // 2):
         return GemmPlan("wide", WIDE_COLS, 1, nk)
+    return swap_plan(m, ns, k)
+
+
+def swap_plan(m: int, ns: tuple, k: int) -> GemmPlan:
+    """The swap variant's plan at these shapes (``choose_plan``'s split
+    rule), whatever M: K2's int32-out mode takes no other variant."""
+    nk = ceil_div(k, BK)
     cols = swap_cols(m)
     tiles = ceil_div(m, cols) * sum(ceil_div(n, ROWS) for n in ns)
     split = 1

@@ -36,6 +36,14 @@
 //   (`plan_fits`): a plan whose splits do not cover K's k-steps exactly
 //   once, or a width no variant is built for, returns an error rather than
 //   a partial product, whatever the wrapper's constants say.
+//   Two more K2 modes serve the row-parallel projections of a serving mesh
+//   (src/repro_torch/core/quantized_linear.py), whose ranks each hold a
+//   slice of K: the int32-out mode (`launch_tiled_matmul_int32`) runs the
+//   swap form with its scratch as the output, K2 without its epilogue (a
+//   split K sums its partials into it in `splitk_epilogue`), and the
+//   epilogue mode (`launch_int8_epilogue`) runs `splitk_epilogue` alone on
+//   an int32 product (the ranks' sum), with the same dequant as every
+//   variant: bitwise the unsplit K2.
 //   K3 walks its column space [Nq | Nkv | Nkv] as one grid of tiles mapped
 //   to (product, column) rather than staging one A stage for all three
 //   products: A's tile is a third of a wide stage's bytes, and one grid of
@@ -104,9 +112,12 @@ struct Product {
   int n;
 };
 
+// sum_out: the int32-out mode's (M, n_total) output (the swap form only),
+// else nullptr
 template <int COLS, int NMAT>
 int launch_tma(const void* a, const float* sa, const Product (&prod)[NMAT], int32_t* ws, int m,
-               int k, int split, int chunk, int out_bf16, int sms, cudaStream_t stream) {
+               int k, int split, int chunk, int out_bf16, int sms, cudaStream_t stream,
+               int32_t* sum_out = nullptr) {
   using S = int8_wgmma::Shape<COLS>;
   using int8_wgmma::ROWS;
   constexpr int kWeightTile = S::kSwap ? ROWS : COLS;
@@ -121,7 +132,7 @@ int launch_tma(const void* a, const float* sa, const Product (&prod)[NMAT], int3
     n_total += prod[j].n;
   }
   p.sa = sa;
-  p.ws = split > 1 ? ws : nullptr;
+  p.ws = split > 1 ? ws : sum_out;
   p.m = m;
   p.n_total = n_total;
   p.nk = (k + int8_wgmma::BK - 1) / int8_wgmma::BK;
@@ -150,6 +161,7 @@ int launch_tma(const void* a, const float* sa, const Product (&prod)[NMAT], int3
     e.n_total = n_total;
     e.split = split;
     e.out_bf16 = out_bf16;
+    e.sum_out = sum_out;
     int8_wgmma::splitk_epilogue<NMAT><<<dim3((n_total + 255) / 256, m), 256, 0, stream>>>(e);
   }
   return static_cast<int>(cudaGetLastError());
@@ -233,6 +245,57 @@ extern "C" int launch_tiled_matmul(const void* a, const void* sa, const void* b,
   const Product prod[1] = {{b, static_cast<const float*>(sb), static_cast<const float*>(bias),
                             out, n}};
   return launch<1>(a, sa, prod, ws, m, k, out_bf16, variant, cols, split, chunk, device, stream);
+}
+
+// K2's int32-out mode: acc (M, N) int32 = A @ B exactly, by the swap form
+// (cols 8-64; with split > 1, `ws` holds the (split, M, N) partials).  sa and
+// sb are read (staged) but do not enter the result.
+extern "C" int launch_tiled_matmul_int32(const void* a, const void* sa, const void* b,
+                                         const void* sb, void* acc, void* ws, int m, int k,
+                                         int n, int cols, int split, int chunk, int device,
+                                         cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (m == 0) return 0;
+  const Product prod[1] = {{b, static_cast<const float*>(sb), nullptr, nullptr, n}};
+  if (acc == nullptr || !plan_fits<1>(a, prod, ws, k, kSwap, cols, split, chunk))
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* s = static_cast<const float*>(sa);
+  int32_t* w = static_cast<int32_t*>(ws);
+  int32_t* out = static_cast<int32_t*>(acc);
+  switch (cols) {
+    case 8: return launch_tma<8, 1>(a, s, prod, w, m, k, split, chunk, 0, sms, stream, out);
+    case 16: return launch_tma<16, 1>(a, s, prod, w, m, k, split, chunk, 0, sms, stream, out);
+    case 32: return launch_tma<32, 1>(a, s, prod, w, m, k, split, chunk, 0, sms, stream, out);
+    case 64: return launch_tma<64, 1>(a, s, prod, w, m, k, split, chunk, 0, sms, stream, out);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K2's epilogue alone: out (M, N) = acc.f32 * (sa * sb) (+ bias), f32 or
+// bf16, for an int32 product acc (M, N), as every K2 variant computes it.
+extern "C" int launch_int8_epilogue(const void* acc, const void* sa, const void* sb,
+                                    const void* bias, void* out, int m, int n, int out_bf16,
+                                    int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (m == 0 || n == 0) return 0;
+  if (acc == nullptr || sa == nullptr || sb == nullptr || out == nullptr || m > 65535)
+    return cudaErrorInvalidValue;
+  int8_wgmma::EpiParams<1> e{};
+  e.ws = static_cast<const int32_t*>(acc);
+  e.sa = static_cast<const float*>(sa);
+  e.mat[0] = {static_cast<const float*>(sb), static_cast<const float*>(bias), out, n, 0, 0};
+  e.m = m;
+  e.n_total = n;
+  e.split = 1;
+  e.out_bf16 = out_bf16;
+  e.sum_out = nullptr;
+  int8_wgmma::splitk_epilogue<1><<<dim3((n + 255) / 256, m), 256, 0, stream>>>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int launch_fused_qkv(const void* a, const void* sa, const void* wq,

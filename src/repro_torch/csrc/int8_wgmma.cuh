@@ -103,6 +103,7 @@ struct EpiParams {
   int n_total;
   int split;
   int out_bf16;
+  int32_t* sum_out;       // (M, n_total): the int32 sums alone, or nullptr
 };
 
 template <int COLS>
@@ -624,7 +625,9 @@ __global__ void __launch_bounds__(kThreads, Shape<COLS>::kMinBlocks)
   }
 }
 
-// the sum of the split-K partials, then the epilogue: one thread per output
+// the sum of the split-K partials, then the epilogue: one thread per output.
+// With `sum_out` the sums are written there as they are (K2's int32-out
+// mode); with split 1 and `ws` an int32 product this is K2's epilogue alone
 template <int NMAT>
 __global__ void __launch_bounds__(256)
     splitk_epilogue(__grid_constant__ const EpiParams<NMAT> p) {
@@ -640,6 +643,10 @@ __global__ void __launch_bounds__(256)
   int acc = 0;
   for (int z = 0; z < p.split; ++z)
     acc += p.ws[(static_cast<int64_t>(z) * p.m + m) * p.n_total + col];
+  if (p.sum_out != nullptr) {
+    p.sum_out[static_cast<int64_t>(m) * p.n_total + col] = acc;
+    return;
+  }
   const bool has_bias = mat.bias != nullptr;
   put1(mat.out, p.out_bf16, static_cast<int64_t>(m) * mat.n + n,
        dequant(acc, p.sa[m], mat.sb[n], has_bias, has_bias ? mat.bias[n] : 0.0f));

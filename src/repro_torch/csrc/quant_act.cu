@@ -10,6 +10,14 @@
 //           silu's f32 quotient rounded to bf16, times up in f32, rounded
 //           to bf16), so one launch replaces F.silu, the product and K1; h
 //           is written out only when the caller passes a pointer for it.
+//           Two more modes serve the row-parallel projections of a serving
+//           mesh (src/repro_torch/core/quantized_linear.py), whose rows are
+//           split over ranks by columns: the absmax mode writes each row's
+//           f32 absmax (of x, or of h) in place of the scale and quantizes
+//           nothing; the given-absmax mode skips the reduction and
+//           quantizes with the (M, 1) absmax it is given (the maximum of
+//           the ranks' absmaxes), so each rank's values are bitwise those
+//           of the whole row's K1.
 // Bound:    memory for K1: each element is read once (2 or 4 bytes) and
 //           written once (1 byte); ~15 instructions an element (max,
 //           product by the row's reciprocal, rounding by a magic sum, clip,
@@ -52,6 +60,9 @@ constexpr int kMaxSplit = 8;           // a portable cluster
 constexpr int kVec = 8;                // elements a vector access moves
 
 enum Rows { kBlockRows = 0, kClusterRows = 1 };
+// kQuantize: the absmax, then the values; kAbsmax: the absmax alone, into
+// `scale`; kGiven: the values, with the absmax read from `absmax`
+enum Mode { kQuantize = 0, kAbsmax = 1, kGiven = 2 };
 
 // the most vectors (unvectorized: elements) a thread holds; `max_per` in
 // src/repro_torch/kernels/quant_act/ops.py mirrors it
@@ -208,13 +219,15 @@ __device__ __forceinline__ float warp_max(float m) {
 struct Args {
   const void* x;    // (M, K): the activation, or gate in the SwiGLU mode
   const void* u;    // (M, K): up in the SwiGLU mode, else null
-  int8_t* q;        // (M, K)
-  float* scale;     // (M, 1)
+  int8_t* q;        // (M, K), null in the absmax mode
+  float* scale;     // (M, 1): the scale, or the absmax in the absmax mode
   void* h;          // (M, K): silu(gate) * up, or null
+  const float* absmax;  // (M, 1) in the given-absmax mode, else null
   int m, k;
   int per;          // vectors (unvectorized: elements) a thread holds
   int split;        // blocks a row (cluster rows), else 1
   float qmax;
+  int mode;         // Mode
 };
 
 // A row's units (vectors of VEC elements) split into `split` slices of
@@ -267,34 +280,47 @@ __global__ void __launch_bounds__(kMaxThreads) quant_rows(const Args a) {
     }
   }
 
-  m = warp_max(m);
-  const int warps = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) part_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  m = part_max[0];
-  for (int w = 1; w < warps; ++w) m = fmaxf(m, part_max[w]);
-  if constexpr (ROWS == kClusterRows) {
-    cg::cluster_group cluster = cg::this_cluster();
-    if (threadIdx.x == 0) slice_max = m;
-    cluster.sync();                        // every slice's max is written
-    for (int r = 0; r < a.split; ++r) m = fmaxf(m, *cluster.map_shared_rank(&slice_max, r));
+  // the mode is the same for every block, so the barriers below are taken
+  // by all of a cluster's blocks or by none
+  const bool reduce = a.mode != kGiven;
+  if (reduce) {
+    m = warp_max(m);
+    const int warps = blockDim.x >> 5;
+    if ((threadIdx.x & 31) == 0) part_max[threadIdx.x >> 5] = m;
+    __syncthreads();
+    m = part_max[0];
+    for (int w = 1; w < warps; ++w) m = fmaxf(m, part_max[w]);
+    if constexpr (ROWS == kClusterRows) {
+      cg::cluster_group cluster = cg::this_cluster();
+      if (threadIdx.x == 0) slice_max = m;
+      cluster.sync();                        // every slice's max is written
+      for (int r = 0; r < a.split; ++r) m = fmaxf(m, *cluster.map_shared_rank(&slice_max, r));
+    }
+  } else {
+    m = a.absmax[row];
   }
-  const float s = m <= 1e-12f ? 1.0f : __fdiv_rn(m, a.qmax);
-  const float y = __frcp_rn(s);
-  if (rank == 0 && t == 0) a.scale[row] = s;
+  if (a.mode == kAbsmax) {
+    if (rank == 0 && t == 0) a.scale[row] = m;
+  } else {
+    const float s = m <= 1e-12f ? 1.0f : __fdiv_rn(m, a.qmax);
+    const float y = __frcp_rn(s);
+    if (rank == 0 && t == 0) a.scale[row] = s;
 
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int i = lo + t + j * group;
-    if (j < a.per && i < hi) {
-      int q[VEC];
+    for (int j = 0; j < NV; ++j) {
+      const int i = lo + t + j * group;
+      if (j < a.per && i < hi) {
+        int q[VEC];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) q[e] = quantize(f[j].get(e), s, y, a.qmax);
-      store_q<VEC>(a.q + base + static_cast<int64_t>(i) * VEC, q);
+        for (int e = 0; e < VEC; ++e) q[e] = quantize(f[j].get(e), s, y, a.qmax);
+        store_q<VEC>(a.q + base + static_cast<int64_t>(i) * VEC, q);
+      }
     }
   }
   // a block's shared memory must outlive its peers' reads of slice_max
-  if constexpr (ROWS == kClusterRows) cg::this_cluster().sync();
+  if constexpr (ROWS == kClusterRows) {
+    if (reduce) cg::this_cluster().sync();
+  }
 }
 
 int cap_of(int bf16, int vec) {
@@ -372,18 +398,22 @@ cudaError_t launch_typed(const Args& a, int vec, int rows, int threads, cudaStre
 }  // namespace
 
 // x: the activation (or gate); u: up, null outside the SwiGLU mode; h: where
-// the SwiGLU mode writes silu(gate) * up, or null.  rows: 0 block rows, 1
-// cluster rows of `split` blocks.  Returns a CUDA error code;
-// cudaErrorInvalidValue for a plan that does not fit.
+// the SwiGLU mode writes silu(gate) * up, or null.  mode: 0 quantize, 1 the
+// rows' absmax alone (into `scale`; q null), 2 quantize with the (M, 1)
+// `absmax` given.  rows: 0 block rows, 1 cluster rows of `split` blocks.
+// Returns a CUDA error code; cudaErrorInvalidValue for a plan that does not
+// fit.
 extern "C" int launch_quant_act(const void* x, const void* u, void* q, void* scale, void* h,
-                                int m, int k, int qmax, int bf16, int glu, int vec, int rows,
-                                int threads, int split, int per, int device,
-                                cudaStream_t stream) {
+                                const void* absmax, int m, int k, int qmax, int bf16, int glu,
+                                int vec, int rows, int threads, int split, int per, int mode,
+                                int device, cudaStream_t stream) {
   Args a{x, u, static_cast<int8_t*>(q), static_cast<float*>(scale), h,
-         m, k, per, split, static_cast<float>(qmax)};
+         static_cast<const float*>(absmax), m, k, per, split, static_cast<float>(qmax), mode};
   if (!plan_fits(a, bf16, vec, rows, threads) || qmax < 1 || qmax > 127 ||
       (glu != 0) != (u != nullptr) ||
-      (!glu && h != nullptr))
+      (!glu && h != nullptr) || mode < kQuantize || mode > kGiven ||
+      (mode == kAbsmax) != (q == nullptr) || (mode == kGiven) != (absmax != nullptr) ||
+      scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -3,7 +3,9 @@
 Every wrapper (``<kernel>/ops.py``) dispatches on the device of its input:
 CPU tensors run ``<kernel>/ref.py``; CUDA tensors launch the CUDA kernel
 from ``csrc/`` and add one to the wrapper's ``launches`` count (K4's verify
-mode to ``verify_launches``).  The wrappers that pick a variant before
+mode to ``verify_launches``; K1's absmax mode counts in ``row_absmax``, its
+given-absmax mode with its own wrapper's, and K2's int32-out and epilogue
+modes in ``tiled_matmul_int32`` and ``int8_epilogue``).  The wrappers that pick a variant before
 launch (K1 by row mapping, K2 and K3 by GEMM variant) also count each
 launch in their ``plans`` counter under the variant's name; K2 and K3
 count them by whole plan (``GemmPlan``) in ``launched_plans`` too.  K5
@@ -39,10 +41,16 @@ def _counters():
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, paged_decode_attention)
     from repro_torch.kernels.fused_qkv.ops import fused_qkv
-    from repro_torch.kernels.quant_act.ops import quant_act, quant_act_glu
-    from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+    from repro_torch.kernels.quant_act.ops import (quant_act, quant_act_glu,
+                                                   row_absmax)
+    from repro_torch.kernels.tiled_matmul.ops import (int8_epilogue,
+                                                      tiled_matmul,
+                                                      tiled_matmul_int32)
     return {"quant_act": (quant_act, "launches"),
             "quant_act_glu": (quant_act_glu, "launches"),
+            "row_absmax": (row_absmax, "launches"),
+            "tiled_matmul_int32": (tiled_matmul_int32, "launches"),
+            "int8_epilogue": (int8_epilogue, "launches"),
             "fused_qkv": (fused_qkv, "launches"),
             "tiled_matmul": (tiled_matmul, "launches"),
             "paged_decode": (paged_decode_attention, "launches"),

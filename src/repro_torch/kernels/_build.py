@@ -36,11 +36,13 @@ _F = ctypes.c_float
 # C signatures of the launchers: pointers and the stream as c_void_p
 SIGNATURES = {
     "quant_act": {
-        "launch_quant_act": [_P] * 5 + [_I] * 11 + [_P],
+        "launch_quant_act": [_P] * 6 + [_I] * 12 + [_P],
     },
     "int8_gemm": {
         "launch_tiled_matmul": [_P] * 7 + [_I] * 9 + [_P],
         "launch_fused_qkv": [_P] * 12 + [_I] * 10 + [_P],
+        "launch_tiled_matmul_int32": [_P] * 6 + [_I] * 7 + [_P],
+        "launch_int8_epilogue": [_P] * 5 + [_I] * 4 + [_P],
     },
     "paged_decode": {
         "launch_paged_decode": [_P] * 10 + [_I] * 11 + [_F, _F] + [_I] * 3 + [_P],

@@ -190,7 +190,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            q_chunk: int | None = None,
                            k_scales: torch.Tensor | None = None,
                            v_scales: torch.Tensor | None = None,
-                           new_lens: torch.Tensor | None = None
+                           new_lens: torch.Tensor | None = None,
+                           split_heads: int | None = None
                            ) -> torch.Tensor:
     """Causal attention over a paged KV cache.
 
@@ -214,6 +215,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     is split over CUDA blocks as ``decode.split_plan`` says from the
     shapes; with more than one split, f32 partials go to scratch
     allocated here and a second kernel of the same call combines them.
+    ``split_heads`` plans that split for another KV-head count than the
+    pools': a rank of a tensor-parallel mesh holding K/m heads passes the
+    whole model's K, so its heads split, and combine, as the unsharded
+    launch's do, bit for bit.
     """
     b, qs, h, d = q.shape
     p_total, page, kh, dk = k_pages.shape
@@ -261,7 +266,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     sched = _decode.flash_decode_schedule(page_table.shape[1], page,
                                           q_len=qs, window=window,
                                           q_chunk=q_chunk)
-    plan = _decode.split_plan(b, kh, h // kh, sched)
+    plan = _decode.split_plan(b, split_heads or kh, h // kh, sched)
     partial = (torch.empty(b * qs * h * plan.n_splits * (d + 2),
                            dtype=torch.float32, device=dev)
                if plan.n_splits > 1 else None)

@@ -191,7 +191,8 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                q_chunk: int | None = None,
                                k_scales: torch.Tensor | None = None,
                                v_scales: torch.Tensor | None = None,
-                               new_lens: torch.Tensor | None = None
+                               new_lens: torch.Tensor | None = None,
+                               split_heads: int | None = None
                                ) -> torch.Tensor:
     """Dense oracle over a paged cache, with the wrapper's interface.
 
@@ -201,7 +202,8 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     r``; causality, the window and the uncommitted tail are masked against
     it, and a fully masked row gives 0.  ``k_scales``/``v_scales``
     (P, page, KH) f32 select int8 pools, dequantized row by row.
-    ``q_chunk`` is the kernel's blocking and changes nothing here.
+    ``q_chunk`` and ``split_heads`` are the kernel's blocking and change
+    nothing here.
 
     ``new_lens`` (B,) int32 is the verify mode: row r of sequence b is
     live iff ``r < new_lens[b]``, at position ``lengths[b] - new_lens[b]

@@ -4,6 +4,11 @@ the plain versions on the CPU.
 ``quant_act(x)`` quantizes each row of x to int8; ``quant_act_glu(gate,
 up)`` quantizes ``F.silu(gate) * up`` in the same launch, so the SwiGLU
 product never reaches device memory on its way to the down projection.
+For a row split over the ranks of a serving mesh, ``row_absmax`` (K1's
+absmax mode, of x or of the SwiGLU product) gives each part's absmax, and
+``quant_act(x, absmax=)`` / ``quant_act_glu(gate, up, absmax=)`` (the
+given-absmax mode) quantize a part with the maximum over the parts:
+bitwise the whole row's quantization.
 
 ``quant_plan`` maps rows onto the card from the shapes and the operands'
 alignment alone, before launch (see ``csrc/quant_act.cu``):
@@ -33,8 +38,8 @@ from repro_torch.core.quantization import QTensor
 from repro_torch.kernels import _build, no_backward
 from repro_torch.kernels.quant_act import ref as _ref
 
-__all__ = ["quant_act", "quant_act_glu", "quant_plan", "check_plan",
-           "candidate_plans", "QuantPlan"]
+__all__ = ["quant_act", "quant_act_glu", "row_absmax", "quant_plan",
+           "check_plan", "candidate_plans", "QuantPlan"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 QMAX = 127
@@ -44,6 +49,8 @@ VEC_ALIGN = 16                  # bytes: a vector load's alignment
 MAX_THREADS = 512
 MAX_SPLIT = 8                   # blocks a cluster (the portable size)
 ROWS = {"block": 0, "cluster": 1}
+# the launcher's modes (csrc/quant_act.cu)
+QUANTIZE, ABSMAX, GIVEN = 0, 1, 2
 # quant_plan's thresholds, from H100 timings of every mapping at the served
 # shapes (`chip_smoke.py` phase 6, PERF.md §6): below LATENCY_ROWS rows a
 # launch's latency decides; from it, each thread holds PER vectors
@@ -204,53 +211,101 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} kernel needs a contiguous input")
 
 
+def _check_absmax(absmax: torch.Tensor, x: torch.Tensor, what: str) -> None:
+    if (absmax.dtype != torch.float32 or tuple(absmax.shape) != (x.shape[0], 1)
+            or absmax.device != x.device):
+        raise ValueError(f"{what}: absmax must be ({x.shape[0]}, 1) f32 on "
+                         f"{x.device}, got {tuple(absmax.shape)} "
+                         f"{absmax.dtype} on {absmax.device}")
+
+
 def _launch(x: torch.Tensor, up: torch.Tensor | None,
-            h_out: torch.Tensor | None, what: str):
-    """One K1 launch on CUDA tensors (the SwiGLU mode with ``up``);
-    returns (values, scale, plan)."""
+            h_out: torch.Tensor | None, what: str, mode: int = QUANTIZE,
+            absmax: torch.Tensor | None = None):
+    """One K1 launch on CUDA tensors (the SwiGLU mode with ``up``); returns
+    (values, scale, plan); in the absmax mode (values None, the rows'
+    absmax, plan)."""
     m, k = x.shape
     aligned = is_aligned(*(t for t in (x, up, h_out) if t is not None))
     plan = quant_plan(m, k, x.dtype, aligned)
     check_plan(plan, m, k, x.dtype, aligned)
-    values = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    values = (None if mode == ABSMAX else
+              torch.empty((m, k), dtype=torch.int8, device=x.device))
     scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    if absmax is not None:
+        absmax = absmax.contiguous()
     fn = _build.library("quant_act").launch_quant_act
     _build.check(fn(x.data_ptr(), None if up is None else up.data_ptr(),
-                    values.data_ptr(), scale.data_ptr(),
-                    None if h_out is None else h_out.data_ptr(), m, k, QMAX,
-                    int(x.dtype == torch.bfloat16), int(up is not None),
+                    None if values is None else values.data_ptr(),
+                    scale.data_ptr(),
+                    None if h_out is None else h_out.data_ptr(),
+                    None if absmax is None else absmax.data_ptr(), m, k,
+                    QMAX, int(x.dtype == torch.bfloat16), int(up is not None),
                     plan.vec, ROWS[plan.rows], plan.threads, plan.split,
-                    plan.per, x.device.index,
+                    plan.per, mode, x.device.index,
                     torch.cuda.current_stream(x.device).cuda_stream), what)
     return values, scale, plan
 
 
-def quant_act(x: torch.Tensor) -> QTensor:
-    """Per-row int8 quantization of a 2-D activation matrix (M, K)."""
-    _check_matrix(x, "quant_act")
+def _check_glu(gate: torch.Tensor, up: torch.Tensor, what: str) -> None:
+    _check_matrix(gate, what)
+    if up.shape != gate.shape or up.dtype != gate.dtype \
+            or up.device != gate.device:
+        raise ValueError(f"{what}: up {tuple(up.shape)} {up.dtype} "
+                         f"on {up.device} differs from gate "
+                         f"{tuple(gate.shape)} {gate.dtype} on {gate.device}")
+
+
+def row_absmax(x: torch.Tensor, up: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """Each row's absmax in f32, (M, 1), of x (M, K), or with ``up`` of the
+    SwiGLU product ``F.silu(x) * up``: K1's absmax mode, one launch."""
+    what = "row_absmax"
+    if up is None:
+        _check_matrix(x, what)
+    else:
+        _check_glu(x, up, what)
     if x.device.type == "cpu":
-        values, scale = _ref.quant_act_ref(x)
+        return (_ref.row_absmax_ref(x) if up is None
+                else _ref.row_absmax_glu_ref(x, up))
+    for t in (x,) + (() if up is None else (up,)):
+        _check_cuda(t, what)
+    no_backward("row_absmax (K1)", x, *(() if up is None else (up,)))
+    _, absmax, _ = _launch(x, up, None, what, ABSMAX)
+    row_absmax.launches += 1
+    return absmax
+
+
+def quant_act(x: torch.Tensor, *, absmax: torch.Tensor | None = None
+              ) -> QTensor:
+    """Per-row int8 quantization of a 2-D activation matrix (M, K);
+    ``absmax`` (M, 1) f32, where given, in place of the rows' own."""
+    _check_matrix(x, "quant_act")
+    if absmax is not None:
+        _check_absmax(absmax, x, "quant_act")
+    if x.device.type == "cpu":
+        values, scale = _ref.quant_act_ref(x, absmax=absmax)
         return QTensor(values=values, scale=scale, bits=8)
     _check_cuda(x, "quant_act")
     no_backward("quant_act (K1)", x)
-    values, scale, plan = _launch(x, None, None, "quant_act")
+    values, scale, plan = _launch(x, None, None, "quant_act",
+                                  QUANTIZE if absmax is None else GIVEN,
+                                  absmax)
     quant_act.launches += 1
     quant_act.plans[str(plan)] += 1
     return QTensor(values=values, scale=scale, bits=8)
 
 
 def quant_act_glu(gate: torch.Tensor, up: torch.Tensor, *,
-                  h_out: torch.Tensor | None = None) -> QTensor:
+                  h_out: torch.Tensor | None = None,
+                  absmax: torch.Tensor | None = None) -> QTensor:
     """Per-row int8 quantization of ``F.silu(gate) * up``, both (M, K) of
     one dtype: the SwiGLU FFN's input to its down projection.  ``h_out``,
     where given (a check of the kernel's prologue), receives the product
-    itself."""
-    _check_matrix(gate, "quant_act_glu")
-    if up.shape != gate.shape or up.dtype != gate.dtype \
-            or up.device != gate.device:
-        raise ValueError(f"quant_act_glu: up {tuple(up.shape)} {up.dtype} "
-                         f"on {up.device} differs from gate "
-                         f"{tuple(gate.shape)} {gate.dtype} on {gate.device}")
+    itself; ``absmax`` (M, 1) f32, where given, replaces the rows' own."""
+    _check_glu(gate, up, "quant_act_glu")
+    if absmax is not None:
+        _check_absmax(absmax, gate, "quant_act_glu")
     if h_out is not None and (h_out.shape != gate.shape
                               or h_out.dtype != gate.dtype
                               or h_out.device != gate.device):
@@ -258,12 +313,14 @@ def quant_act_glu(gate: torch.Tensor, up: torch.Tensor, *,
     if gate.device.type == "cpu":
         if h_out is not None:
             h_out.copy_(F.silu(gate) * up)
-        values, scale = _ref.quant_act_glu_ref(gate, up)
+        values, scale = _ref.quant_act_glu_ref(gate, up, absmax=absmax)
         return QTensor(values=values, scale=scale, bits=8)
     for t in (gate, up) + (() if h_out is None else (h_out,)):
         _check_cuda(t, "quant_act_glu")
     no_backward("quant_act_glu (K1)", gate, up)
-    values, scale, plan = _launch(gate, up, h_out, "quant_act_glu")
+    values, scale, plan = _launch(gate, up, h_out, "quant_act_glu",
+                                  QUANTIZE if absmax is None else GIVEN,
+                                  absmax)
     quant_act_glu.launches += 1
     quant_act_glu.plans[str(plan)] += 1
     return QTensor(values=values, scale=scale, bits=8)
@@ -271,6 +328,7 @@ def quant_act_glu(gate: torch.Tensor, up: torch.Tensor, *,
 
 quant_act.launches = 0
 quant_act_glu.launches = 0
+row_absmax.launches = 0
 # launches by plan since the last reset_launch_counts()
 quant_act.plans = collections.Counter()
 quant_act_glu.plans = collections.Counter()

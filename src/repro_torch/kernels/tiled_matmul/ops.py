@@ -24,6 +24,13 @@ from the shapes and the operands' alignment (see ``csrc/int8_gemm.cu``):
 launcher checks it again against its own tile geometry: a plan that does
 not cover K's k-steps exactly once, or a width the variant is not built
 for, raises rather than returning a partial product.
+
+Two more modes serve the row-parallel projections of a serving mesh
+(``core/quantized_linear.py``), where each rank holds a slice of K:
+``tiled_matmul_int32`` is K2 without its epilogue (the exact int32
+product, by the swap variant, whose scratch is its output), and
+``int8_epilogue`` is K2's epilogue alone on an int32 product (the ranks'
+sum), as every variant computes it: bitwise the unsplit K2.
 """
 from __future__ import annotations
 
@@ -36,12 +43,12 @@ from repro_torch.core import dispatch
 from repro_torch.core.quantization import QTensor
 from repro_torch.core.tiling import (BK, MAX_K, SWAP_COLS, TMA_ALIGN,
                                      VARIANTS, WIDE_COLS, GemmPlan,
-                                     ceil_div, choose_plan)
+                                     ceil_div, choose_plan, swap_plan)
 from repro_torch.kernels import _build, no_backward
 from repro_torch.kernels.tiled_matmul import ref as _ref
 
-__all__ = ["tiled_matmul", "gemm_plan", "check_plan", "GemmPlan",
-           "OUT_DTYPES"]
+__all__ = ["tiled_matmul", "tiled_matmul_int32", "int8_epilogue",
+           "gemm_plan", "check_plan", "GemmPlan", "OUT_DTYPES"]
 
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -215,6 +222,92 @@ def tiled_matmul(a: QTensor, b: QTensor, bias: torch.Tensor | None = None, *,
     return out
 
 
+def _check_b(a: QTensor, b: QTensor, what: str) -> tuple[int, int, int]:
+    m, k = a.values.shape
+    k2, n = b.values.shape
+    if k != k2:
+        raise ValueError(f"{what}: inner dims differ ({k} vs {k2})")
+    check_depth(k, what)
+    return m, k, n
+
+
+def tiled_matmul_int32(a: QTensor, b: QTensor, *,
+                       plan: GemmPlan | None = None) -> torch.Tensor:
+    """The exact int32 product (M, N) of A_q (M, K) and B_q (K, N), their
+    scales unused: K2's int32-out mode.  On the card it runs the swap
+    variant (``swap_plan``, or ``plan``), needs K a multiple of 16 and
+    16-byte aligned operands, and B K-major."""
+    what = "tiled_matmul_int32"
+    m, k, n = _check_b(a, b, what)
+    dev = a.values.device
+    if dev.type == "cpu":
+        return _ref.int_matmul_exact(a.values, b.values)
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    no_backward(f"{what} (K2)", a.values, b.values)
+    check_operand(a.values, torch.int8, (m, k), "A values")
+    check_weight(b.values, (k, n), "B values")
+    if b.values.device != dev:
+        raise ValueError(f"{what}: B on {b.values.device}, A on {dev}")
+    aligned = is_aligned(a.values, b.values)
+    plan = plan or swap_plan(m, (n,), k)
+    check_plan(plan, m, (n,), k, aligned)
+    if plan.variant != "swap":
+        raise ValueError(f"{what}: the int32-out mode runs the swap "
+                         f"variant, not {plan}")
+    a_scale, b_scale = row_scale(a), col_scale(b)
+    acc = torch.empty((m, n), dtype=torch.int32, device=dev)
+    ws = split_scratch(plan, m, n, dev)
+    fn = _build.library("int8_gemm").launch_tiled_matmul_int32
+    _build.check(fn(a.values.data_ptr(), a_scale.data_ptr(),
+                    b.values.data_ptr(), b_scale.data_ptr(), acc.data_ptr(),
+                    ws.data_ptr() if ws is not None else None, m, k, n,
+                    plan.cols, plan.split, plan.chunk, dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream), what)
+    tiled_matmul_int32.launches += 1
+    return acc
+
+
+def int8_epilogue(acc: torch.Tensor, a_scale: torch.Tensor, b: QTensor,
+                  bias: torch.Tensor | None = None, *,
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K2's epilogue alone: ``acc.f32 * (sa * sb)`` (+ bias), cast to
+    ``out_dtype``, for an int32 product acc (M, N), A's (M, 1) scale and
+    the weight ``b``'s (1, N) scale.  Bitwise the epilogue of every K2
+    variant."""
+    what = "int8_epilogue"
+    m, n = acc.shape
+    sa = torch.broadcast_to(a_scale.float(), (m, 1)).contiguous()
+    sb = col_scale(b)
+    if sb.shape[1] != n:
+        raise ValueError(f"{what}: acc ({m}, {n}) vs weight scale "
+                         f"{tuple(sb.shape)}")
+    dev = acc.device
+    if dev.type == "cpu":
+        return _ref.int8_epilogue_ref(acc, sa, sb, bias, out_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"{what} kernel writes f32 or bf16, not {out_dtype}")
+    check_operand(acc, torch.int32, (m, n), "acc")
+    if bias is not None:
+        check_operand(bias, torch.float32, (n,), "bias")
+    for t in (sa, sb) + ((bias,) if bias is not None else ()):
+        if t.device != dev:
+            raise ValueError(f"{what}: operand on {t.device}, acc on {dev}")
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    fn = _build.library("int8_gemm").launch_int8_epilogue
+    _build.check(fn(acc.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+                    bias.data_ptr() if bias is not None else None,
+                    out.data_ptr(), m, n, int(out_dtype == torch.bfloat16),
+                    dev.index, torch.cuda.current_stream(dev).cuda_stream),
+                 what)
+    int8_epilogue.launches += 1
+    return out
+
+
+tiled_matmul_int32.launches = 0
+int8_epilogue.launches = 0
 tiled_matmul.launches = 0
 # launches by variant since the last reset_launch_counts(): the served
 # paths must plan onto the tensor-core variants

@@ -29,7 +29,15 @@ def tiled_matmul_ref(a_values: torch.Tensor, a_scale: torch.Tensor,
     b_values: (K, N) int8     b_scale: broadcastable to (1, N) f32
     bias:     (N,) or (1, N) f32 or None
     """
-    acc = int_matmul_exact(a_values, b_values)
+    return int8_epilogue_ref(int_matmul_exact(a_values, b_values), a_scale,
+                             b_scale, bias, out_dtype)
+
+
+def int8_epilogue_ref(acc: torch.Tensor, a_scale: torch.Tensor,
+                      b_scale: torch.Tensor, bias: torch.Tensor | None = None,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """K2's epilogue alone on an int32 product acc (M, N):
+    ``acc.f32 * (sa * sb)``, then ``+ bias``, then the cast."""
     out = acc.float() * (a_scale.float() * b_scale.float())
     if bias is not None:
         out = out + bias.reshape(1, -1).float()

@@ -9,10 +9,11 @@ the ZeRO-1 state for bf16 configs (a bf16 compute copy beside f32 master
 weights and AdamW moments), ``warmup_cosine`` AdamW and the Trainer on the
 SyntheticLM pipeline, with a checkpoint every ``--ckpt-every`` steps and
 at the end.  One device: ``--devices``, ``--data-par`` and ``--model-par``
-above 1 are refused (meshes and sharded training are ROADMAP queue 1,
-item 13).  ``--device cuda`` (the default) needs a card and runs the CUDA
-kernels (K5 and its backward at sequences of ``blockwise_attn_threshold``
-tokens or more); ``--device cpu`` runs their plain versions.
+above 1 are refused: sharded training is ROADMAP queue 1, item 13's
+training half (the port's meshes, ``launch/mesh.py``, serve so far).
+``--device cuda`` (the default) needs a card and runs the CUDA kernels
+(K5 and its backward at sequences of ``blockwise_attn_threshold`` tokens
+or more); ``--device cpu`` runs their plain versions.
 """
 import argparse
 import os
@@ -47,8 +48,8 @@ def main(argv=None):
         if (getattr(args, flag) or 1) > 1:
             raise SystemExit(
                 f"--{flag.replace('_', '-')} {getattr(args, flag)}: the port "
-                "trains on one device; meshes and sharded training are "
-                "ROADMAP queue 1, item 13")
+                "trains on one device; sharded training is ROADMAP queue 1, "
+                "item 13's training half (launch/mesh.py serves so far)")
 
     import torch
 

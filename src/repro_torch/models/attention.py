@@ -22,6 +22,21 @@ without the causal mask.  Cross-attention (``memory=``: Q from x, K and V
 from the encoder's output, no rope, no cache) always attends densely and
 non-causally, whatever the memory's length, as in the JAX package; it
 recomputes K and V from ``memory`` at every call.
+
+Over a serving mesh (``bridge.shard_model``; ``docs/DESIGN.md`` §3) a
+rank's Q/K/V projections give its columns, and the cache it was handed
+says the policy (its ``kv_shard``, passed down as ``kv_shard=``).  ``heads`` (its pools hold K/m KV heads): tensor-parallel
+decode, each rank running K4 over its KV heads, with each q head's group,
+and the whole page table, its page walk split as the unsharded launch's
+(``split_heads``), so its heads are bitwise mesh 1's.  ``pages`` (its pools
+hold all heads of P/m pages): Q, K and V are gathered whole, the new rows
+scatter only into pages the rank owns, and each rank walks only those
+pages, combining with the others through a partial softmax against the
+global row max (``_paged_attend_split``, plain PyTorch on either device,
+as the JAX package's combine is plain jnp whatever its kernel mode).  The
+output projection is row-parallel.  The paged and dense caches serve
+under a mesh (the dense one by heads only); a cache-less forward (K5),
+cross-attention and the verify mode raise (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -63,7 +78,9 @@ def _run_windowed(fn, cfg: ModelConfig, is_local: bool):
 
 
 class Attention(nn.Module):
-    """Q/K/V/O projections, plus per-head q/k norms under ``qk_norm``."""
+    """Q/K/V/O projections, plus per-head q/k norms under ``qk_norm``;
+    ``mesh``, the serving mesh of a rank's shard (``bridge.shard_model``),
+    else None."""
 
     def __init__(self, wq: Linear, wk: Linear, wv: Linear, wo: Linear,
                  q_norm: Norm | None = None, k_norm: Norm | None = None):
@@ -71,6 +88,7 @@ class Attention(nn.Module):
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
         self.q_norm = q_norm
         self.k_norm = k_norm
+        self.mesh = None
 
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig) -> Attention:
@@ -177,7 +195,7 @@ def _attend_blockwise(q, k, v, q_offset, *, scale, cap, causal, window,
 
 def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
                   cache_pos, page_table, is_local: bool, scale, b, s,
-                  n_new=None):
+                  n_new=None, mesh=None, by=None):
     """Paged-cache step: scatter the new K/V into their pages, attend
     through K4, project.
 
@@ -193,6 +211,9 @@ def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
     falls past the table's reach, write to the allocator's scratch page
     (the logical page is clipped into the table before it is looked up)
     and read back 0 from K4's verify launch.
+
+    ``by`` is the mesh policy (``"heads"`` or ``"pages"``, module
+    docstring) of a sharded cache, else None.
     """
     quant = len(cache) == 4
     ck, cv = cache[0], cache[1]
@@ -206,6 +227,14 @@ def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
         from repro_torch.serving.cache import page_slots
         pidx, slot = page_slots(page_table, tok_pos,
                                 rows[None, :] < n_new[:, None], page)
+    if by == "pages":
+        # global page ids → this rank's slab; the pages it does not own
+        # are written by their owners
+        per = ck.shape[0]
+        local = pidx - mesh.rank * per
+        mine = (local >= 0) & (local < per)
+        pidx, slot = local[mine], slot[mine]
+        k, v = k[mine], v[mine]
     cks = cvs = None
     if quant:
         cks, cvs = cache[2], cache[3]
@@ -218,6 +247,11 @@ def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
     else:
         ck[pidx, slot] = k.to(ck.dtype)
         cv[pidx, slot] = v.to(cv.dtype)
+    if by == "pages":
+        o = _paged_attend_split(q, tok_pos, page_table, tuple(cache), cfg,
+                                scale=scale, is_local=is_local, mesh=mesh)
+        return _project_out(params, o.reshape(b, s, cfg.q_dim), cfg,
+                            whole=True), tuple(cache)
     lengths = (cache_pos + (s if n_new is None else n_new)).to(torch.int32)
     q_chunk = None if s <= PAGED_FLASH_MAX_Q else PAGED_PREFILL_CHUNK_Q
     window = cfg.sliding_window if is_local else None
@@ -227,10 +261,71 @@ def _attend_paged(params: Attention, q, k, v, cfg: ModelConfig, *, cache,
                                window=window, softcap=cfg.attn_logit_softcap,
                                q_chunk=q_chunk, k_scales=cks, v_scales=cvs,
                                new_lens=None if n_new is None
-                               else n_new.to(torch.int32))
-    o = o.reshape(b, s, cfg.q_dim)
-    y = apply_linear(params.wo, o, mode=cfg.quant_proj)
-    return y, tuple(cache)
+                               else n_new.to(torch.int32),
+                               split_heads=cfg.n_kv_heads)
+    o = o.reshape(b, s, -1)
+    return _project_out(params, o, cfg), tuple(cache)
+
+
+def _paged_attend_split(q, tok_pos, page_table, pools, cfg: ModelConfig, *,
+                        scale, is_local: bool, mesh):
+    """Split-KV paged attention over this rank's slab of the pool.
+
+    q (B, S, H, hd) whole; ``pools`` this rank's (k_pages, v_pages[,
+    k_scales, v_scales]), each (P/m, page, K, ...).  The rank walks the
+    table entries naming its own pages (the others gather page 0 of its
+    slab and are masked), and the partial softmaxes combine exactly: the
+    global row max by ``pmax``, then ``psum`` of the normaliser and of
+    the weighted V (flash attention's identity across ranks; only
+    (B, H, S)-sized partials cross the mesh, never KV).  Returns
+    (B, S, H, hd) in q's dtype, the same bits on every rank."""
+    from repro_torch.kernels.flash_attention.ref import (
+        dequantize_gathered, paged_gather, paged_gather_scales)
+    quant = len(pools) == 4
+    per, page = pools[0].shape[:2]
+    b, s, h, hd = q.shape
+    kh = cfg.n_kv_heads
+    g = h // kh
+    local = page_table.long() - mesh.rank * per
+    owned = (local >= 0) & (local < per)                   # (B, max_pages)
+    local = torch.where(owned, local, 0)
+    kd = paged_gather(pools[0], local)                     # (B, T, K, hd)
+    vd = paged_gather(pools[1], local)
+    if quant:
+        kd = dequantize_gathered(kd, paged_gather_scales(pools[2], local))
+        vd = dequantize_gathered(vd, paged_gather_scales(pools[3], local))
+    t_len = kd.shape[1]
+    own_tok = owned.repeat_interleave(page, dim=1)[:, None, None, None, :]
+    sc = torch.einsum("bskgh,btkh->bkgst", q.reshape(b, s, kh, g, hd).float(),
+                      kd.float()) * scale
+    sc = softcap(sc, cfg.attn_logit_softcap)
+    sc = sc + _mask_bias(tok_pos[:, None, None, :],
+                         torch.arange(t_len, device=q.device),
+                         window=cfg.sliding_window, is_local=is_local)
+    sc = torch.where(own_tok, sc, NEG_INF)
+    # the global row max is finite: the diagonal was just written to a page
+    # some rank owns
+    m = mesh.pmax(torch.amax(sc, dim=-1))                  # (B, K, G, S)
+    p = torch.where(own_tok, torch.exp(sc - m[..., None]), 0.0)
+    # the weighted V and the normaliser summed in one collective
+    both = mesh.psum(torch.cat([torch.einsum("bkgst,btkh->bkgsh", p,
+                                             vd.float()),
+                                p.sum(dim=-1)[..., None]], dim=-1))
+    acc, l = both[..., :hd], both[..., hd]
+    o = (acc / torch.clamp(l, min=1e-37)[..., None]).to(q.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
+
+
+def _project_out(params: Attention, o, cfg: ModelConfig, *,
+                 whole: bool = False):
+    """``wo`` over the attention output (B, S, ·).  ``whole``: ``o`` holds
+    every head (the ``pages`` policy), of which a row-parallel ``wo``
+    takes this rank's columns; else ``o`` is the rank's heads already."""
+    wo = params.wo
+    if wo.shard == "row" and whole:
+        lo, hi = wo.mesh.shard_bounds(cfg.q_dim)
+        o = o[..., lo:hi]
+    return apply_linear(wo, o, mode=cfg.quant_proj)
 
 
 def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
@@ -241,7 +336,8 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     cache: tuple | None = None,
                     cache_pos: torch.Tensor | None = None,
                     page_table: torch.Tensor | None = None,
-                    n_new: torch.Tensor | None = None):
+                    n_new: torch.Tensor | None = None,
+                    kv_shard: str | None = None):
     """Self-attention over x (B, S, D), causal or (``causal=False``, the
     encoder's) bidirectional, without a cache or with a dense or paged one;
     or cross-attention from x to ``memory`` (B, T, D).
@@ -261,7 +357,9 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     int vector of per-sequence write positions (mixed-length batches), and
     attention runs over the whole cache with per-sequence causal masking.
     With ``page_table`` the cache is one layer's page pools
-    (``_attend_paged``; ``n_new`` selects its verify mode).
+    (``_attend_paged``; ``n_new`` selects its verify mode).  ``kv_shard``
+    is the cache's mesh policy (``"heads"`` / ``"pages"``, module
+    docstring; None unsharded).
 
     Returns (y, the layer's cache tuple or None).
     """
@@ -269,8 +367,11 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError("cross-attention (memory=) takes no cache: K and V "
                          "come from the memory at every call")
     b, s, _ = x.shape
-    kh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    g = cfg.n_heads // cfg.n_kv_heads
     hd = cfg.head_dim
+    mesh = params.mesh
+    by = _mesh_policy(mesh, kv_shard, cache=cache, memory=memory,
+                      n_new=n_new)
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
 
     if memory is not None:
@@ -285,7 +386,14 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         k = apply_linear(params.wk, x, mode=cfg.quant_proj)
         v = apply_linear(params.wv, x, mode=cfg.quant_proj)
 
-    q = _split_heads(q, cfg.n_heads, hd)
+    if by == "pages":
+        # each rank computed its columns; every rank attends every head
+        q, k, v = _whole_columns(mesh, (params.wq, params.wk, params.wv),
+                                 (q, k, v))
+    # a tensor-parallel rank holds its own heads: K/m KV heads, g q heads
+    # each
+    kh = k.shape[-1] // hd
+    q = _split_heads(q, kh * g, hd)
     k = _split_heads(k, kh, hd)
     v = _split_heads(v, kh, hd)
 
@@ -309,7 +417,7 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         return _attend_paged(params, q, k, v, cfg, cache=cache,
                              cache_pos=cache_pos, page_table=page_table,
                              is_local=is_local, scale=scale, b=b, s=s,
-                             n_new=n_new)
+                             n_new=n_new, mesh=mesh, by=by)
 
     new_cache = None
     if cache is not None:
@@ -346,6 +454,48 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                           scale=scale, cap=cfg.attn_logit_softcap,
                           window=cfg.sliding_window, is_local=is_local,
                           causal=causal)
-    o = o.reshape(b, s, cfg.q_dim)
-    y = apply_linear(params.wo, o, mode=cfg.quant_proj)
-    return y, new_cache
+    return _project_out(params, o.reshape(b, s, -1), cfg), new_cache
+
+
+def _whole_columns(mesh, projections, outputs):
+    """``outputs`` (…, n_i) made whole: those of a column-parallel
+    projection gathered over the mesh in rank order along the last dim,
+    side by side in one collective; the others are whole already."""
+    split = [i for i, p in enumerate(projections) if p.shard == "column"]
+    out = list(outputs)
+    if not split:
+        return out
+    every = mesh.all_gather(torch.cat([outputs[i] for i in split],
+                                      dim=-1)[None], dim=0)
+    lo = 0
+    for i in split:
+        w = outputs[i].shape[-1]
+        piece = every[..., lo:lo + w]                 # (ranks, …, w)
+        out[i] = piece.movedim(0, -2).reshape(*piece.shape[1:-1], -1)
+        lo += w
+    return out
+
+
+def _mesh_policy(mesh, kv_shard, *, cache, memory, n_new):
+    """None without a mesh of more than one rank, else the cache's policy
+    ``kv_shard``.  Raises on what does not run over a mesh."""
+    if mesh is None or mesh.size == 1:
+        return None
+    if memory is not None:
+        raise NotImplementedError(
+            "cross-attention (memory=) under a mesh: ROADMAP queue 1, "
+            "item 13")
+    if cache is None:
+        raise NotImplementedError(
+            "a cache-less forward (prefill_step, K5) under a mesh: ROADMAP "
+            "queue 1, item 13")
+    if n_new is not None:
+        raise NotImplementedError(
+            "speculative verify (n_new) is not supported on the sharded "
+            "paged decode path: the Scheduler degrades to 1-token decode "
+            "under a mesh of more than one rank")
+    if kv_shard not in ("heads", "pages"):
+        raise ValueError(f"a mesh of {mesh.size} ranks with a cache whose "
+                         f"policy is {kv_shard!r}: build it with "
+                         "CacheConfig(mesh=)")
+    return kv_shard

@@ -58,19 +58,26 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
 # Token embedding + LM head
 # --------------------------------------------------------------------------
 class Embedding(nn.Module):
-    """Token table (vocab, d_model), f32."""
+    """Token table (vocab, d_model), f32.  Over a serving mesh
+    (``bridge.shard_model``) a rank holds its slice of the vocabulary:
+    ``shard == "vocab"``, ``mesh`` its mesh."""
 
     def __init__(self, table: torch.Tensor):
         super().__init__()
         self.register_buffer("table", table)
+        self.shard: str | None = None
+        self.mesh = None
 
 
 class LMHead(nn.Module):
-    """Untied output head ``w`` (vocab, d_model), f32."""
+    """Untied output head ``w`` (vocab, d_model), f32; ``shard`` and
+    ``mesh`` as ``Embedding``'s."""
 
     def __init__(self, w: torch.Tensor):
         super().__init__()
         self.register_buffer("w", w)
+        self.shard: str | None = None
+        self.mesh = None
 
 
 def init_embedding(generator: torch.Generator, cfg: ModelConfig) -> Embedding:
@@ -81,7 +88,20 @@ def init_embedding(generator: torch.Generator, cfg: ModelConfig) -> Embedding:
 
 def embed_tokens(params: Embedding, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    x = params.table[tokens]
+    """The tokens' rows of the table (scaled, in the activation dtype).  A
+    vocab-parallel table looks up the tokens it holds, zeros for the
+    others, and sums over the mesh: each row comes from one rank, so the
+    sum is the unsharded lookup."""
+    if params.shard == "vocab":
+        mesh = params.mesh
+        n = params.table.shape[0]
+        local = tokens - mesh.rank * n
+        mine = (local >= 0) & (local < n)
+        x = torch.where(mine[..., None], params.table[local.clamp(0, n - 1)],
+                        0.0)
+        x = mesh.psum(x)
+    else:
+        x = params.table[tokens]
     if cfg.embed_scale is not None:
         x = x * cfg.embed_scale
     return x.to(cfg.activation_dtype)
@@ -89,9 +109,15 @@ def embed_tokens(params: Embedding, tokens: torch.Tensor,
 
 def unembed(params: Embedding, x: torch.Tensor, cfg: ModelConfig,
             head_params: LMHead | None = None) -> torch.Tensor:
-    """Logits in f32; tied (embed table) or separate head; final softcap."""
-    table = head_params.w if head_params is not None else params.table
+    """Logits in f32; tied (embed table) or separate head; final softcap.
+    A vocab-parallel table gives this rank's columns of the logits, which
+    are gathered over the mesh in rank order (the whole vocabulary on
+    every rank)."""
+    head = head_params if head_params is not None else params
+    table = head.w if head_params is not None else params.table
     logits = x.float() @ table.float().t()
+    if head.shard == "vocab":
+        logits = head.mesh.all_gather(logits, dim=-1)
     if cfg.logits_multiplier != 1.0:
         logits = logits / cfg.logits_multiplier
     return softcap(logits, cfg.final_logit_softcap)

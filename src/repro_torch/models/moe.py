@@ -28,8 +28,11 @@ Matching the reference where torch differs from XLA:
     adds them in), with no atomics: the result is deterministic and the
     same on the card and the CPU.
 
-The expert-parallel and data-parallel (``shard_map``) branches need a mesh
-and come with sharding (ROADMAP queue 1, item 13).
+The expert-parallel and data-parallel (``shard_map``) branches need a
+mesh.  The port's meshes (``launch/mesh.py``) serve the dense attention
+families so far; MoE layers under a mesh, and these branches, are the
+rest of ROADMAP queue 1, item 13 (``bridge.shard_model`` refuses an MoE
+model).
 """
 from __future__ import annotations
 
@@ -208,8 +211,9 @@ def apply_moe(params: MoE, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, D) → (y, aux) with the load-balance loss in aux."""
     if cfg.moe_impl == "sharded":
         raise NotImplementedError(
-            "moe_impl='sharded' (the expert- and data-parallel dispatch) "
-            "needs a mesh: ROADMAP queue 1, item 13 (sharding)")
+            "moe_impl='sharded' (the expert- and data-parallel dispatch): "
+            "MoE under a mesh is ROADMAP queue 1, item 13 (the port's "
+            "meshes serve the dense attention families so far)")
     gates, idx, aux = route(params.router, x, cfg)
     y = _dispatch_compute(x, gates, idx, params.experts, cfg)
     if params.shared is not None:

@@ -23,6 +23,15 @@ or patches it cannot use, a cached call without memory) the port raises.
 Under ``cfg.remat == "block"`` with grad enabled (training) every decoder,
 Mamba and encoder block runs as an activation checkpoint (``_remat``).
 
+Over a serving mesh (``bridge.shard_model`` sets ``model.mesh`` and gives
+each rank its slices) the forward is the rank's: the vocab-parallel
+embedding and head, column- and row-parallel projections and the sharded
+paged attention (``models/attention.py``) reduce over the mesh so that the
+residual stream, the norms and the logits are the same bits on every rank
+(ranks that picked different greedy tokens would wait on each other in a
+collective).  Dense attention families only, on a cache (ROADMAP queue 1,
+item 13 for the rest).
+
 Cache convention (decode) — see serving/cache.py:
   dense:  {"k","v"}: (L, B, S_max, KVH, hd); layer i attends through the
           views cache["k"][i], cache["v"][i], written in place.
@@ -140,6 +149,16 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{', '.join(FAMILIES)}")
 
 
+def check_mesh_supported(cfg: ModelConfig) -> None:
+    """Refuse a family the port does not serve over a mesh yet."""
+    if cfg.is_moe or is_ssm_family(cfg) or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) under a mesh: the port's meshes "
+            "serve the dense attention families; MoE (expert and data "
+            "parallel), SSM and hybrid (ssm_heads / ssm_inner) and the "
+            "encoder-decoder's memory= are ROADMAP queue 1, item 13")
+
+
 def is_ssm_family(cfg: ModelConfig) -> bool:
     return cfg.family in ("ssm", "hybrid")
 
@@ -223,12 +242,13 @@ def _remat(cfg: ModelConfig, fn, *args, **kwargs):
 
 def _decoder_block(p: DecoderBlock, x, cfg: ModelConfig, *, positions,
                    is_local, cache_kv, cache_pos, page_table=None,
-                   n_new=None, memory=None):
+                   n_new=None, memory=None, kv_shard=None):
     h = apply_norm(p.norm_attn, x, cfg)
     a_out, new_kv = apply_attention(p.attn, h, cfg, positions=positions,
                                     is_local=is_local, cache=cache_kv,
                                     cache_pos=cache_pos,
-                                    page_table=page_table, n_new=n_new)
+                                    page_table=page_table, n_new=n_new,
+                                    kv_shard=kv_shard)
     if p.norm_attn_post is not None:
         a_out = apply_norm(p.norm_attn_post, a_out, cfg)
     x = x + cfg.residual_multiplier * a_out.to(x.dtype)
@@ -384,6 +404,23 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     check_supported(cfg)
     _check_inputs(cfg, cache=cache, frontend_embeds=frontend_embeds,
                   encoder_frames=encoder_frames, memory=memory)
+    mesh = getattr(model, "mesh", None)
+    sharded = mesh is not None and mesh.size > 1
+    # the cache's resolved policy (serving/cache.py): "heads", "pages", or
+    # None on a cache built without a mesh
+    kv_shard = cache.get("kv_shard") if cache is not None else None
+    if sharded:
+        check_mesh_supported(cfg)
+        if frontend_embeds is not None or cache is None:
+            raise NotImplementedError(
+                "under a mesh the forward serves a cache (prefill and "
+                "decode); a cache-less forward (prefill_step, K5, "
+                "frontend_embeds) is ROADMAP queue 1, item 13")
+    if sharded != (kv_shard is not None):
+        raise ValueError(
+            f"a model on {mesh.size if sharded else 1} rank(s) with a cache "
+            f"split by {kv_shard}: build the cache with CacheConfig(mesh=) "
+            "of the model's mesh (bridge.shard_model)")
     paged = cache is not None and "k_pages" in cache
     ssm_cache = cache is not None and "ssm_h" in cache
     if n_valid is not None and not ssm_cache:
@@ -430,7 +467,7 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
                                positions=positions, is_local=flag,
                                cache_kv=cache_kv, cache_pos=cache_pos,
                                page_table=page_table, n_new=n_valid,
-                               memory=memory)
+                               memory=memory, kv_shard=kv_shard)
             if "load_balance_loss" in aux:
                 lb = lb + aux["load_balance_loss"]
     if paged or ssm_cache:

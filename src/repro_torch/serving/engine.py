@@ -36,6 +36,13 @@ An encoder-decoder is served by ``encode`` once, then ``prefill``,
 decoder layer cross-attends to it at every step (the cache holds the
 decoder's self-attention KV only).  ``spec_step`` takes no memory, as in
 the JAX package, so it raises on an encoder-decoder.
+
+Over a serving mesh each rank calls these with its shard of the model
+(``bridge.shard_model``) and its slab of the cache (``CacheConfig(mesh=)``):
+the JAX package's ``_mesh_context`` is the model's own ``mesh``, which the
+forward reduces over (``models/transformer.py``).  Every rank gets the same
+logits and tokens.  ``prefill_step`` (cache-less, K5) and ``spec_step``
+(the verify mode) raise under a mesh of more than one rank.
 """
 from __future__ import annotations
 
@@ -64,10 +71,12 @@ def prefill_step(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     return logits, aux
 
 
-def validate_decode_cache(cache: dict, cfg: ModelConfig) -> None:
-    """Fail loudly on a cache built for another model config, or on a
-    layout the decode path cannot execute (int8 pages without their scale
-    pools would be read as raw integers)."""
+def validate_decode_cache(cache: dict, cfg: ModelConfig, mesh=None) -> None:
+    """Fail loudly on a cache built for another model config (or another
+    mesh: under the cache's ``kv_shard`` ``"heads"`` a rank's pools hold
+    ``n_kv_heads / m`` heads of the model's ``mesh``), or on a layout the
+    decode path cannot execute (int8 pages without their scale pools
+    would be read as raw integers)."""
     if ("ssm_h" in cache) != is_ssm_family(cfg):
         # a family/cache mismatch would run the wrong layer loop over the
         # wrong state
@@ -76,7 +85,13 @@ def validate_decode_cache(cache: dict, cfg: ModelConfig) -> None:
             f"cache carries {got} but cfg.family is {cfg.family!r} — was "
             "it built with a different model config?")
     paged = "k_pages" in cache
-    want = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
+    kvh = cfg.n_kv_heads
+    if cache.get("kv_shard") == "heads":
+        if mesh is None:
+            raise ValueError("a cache split by KV heads over a mesh, "
+                             "served without the model's mesh")
+        kvh //= mesh.size
+    want = (cfg.n_layers, kvh, cfg.head_dim)
     for name in PAGE_STATE_KEYS if paged else ("k", "v"):
         if name not in cache:
             continue
@@ -160,7 +175,7 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
     ``seq_lens = prompt_lens``).
     """
     b, s_pad = prompts.shape
-    validate_decode_cache(cache, cfg)
+    validate_decode_cache(cache, cfg, getattr(model, "mesh", None))
     capacity = cache_capacity(cache)
     if capacity is not None and start_pos + s_pad > capacity:
         # past capacity the page-table lookup would fault on the card
@@ -221,7 +236,7 @@ def serve_step(model: Model, cache: dict, tokens: torch.Tensor,
 
     Returns (logits (B, 1, V) f32, cache — updated in place).
     """
-    validate_decode_cache(cache, cfg)
+    validate_decode_cache(cache, cfg, getattr(model, "mesh", None))
     capacity = cache_capacity(cache)
     if (isinstance(pos, int) and capacity is not None
             and pos + tokens.shape[1] > capacity):
@@ -251,7 +266,7 @@ def greedy_decode(model: Model, cache: dict, first_token: torch.Tensor,
     Returns (tokens (B, n_steps + 1) — ``first_token`` followed by the
     greedy continuations — and the cache, updated in place).
     """
-    validate_decode_cache(cache, cfg)
+    validate_decode_cache(cache, cfg, getattr(model, "mesh", None))
     dev = first_token.device
     if start_pos is None:
         if "seq_lens" not in cache:

@@ -30,11 +30,21 @@ it keeps the two packages' writes, and so their results, the same).
 
 The host reads back, per tick, the decode's tokens (plain: the argmax;
 speculative: ``pred``, ``m`` and ``acc`` in one copy) and the pool's
-stack pointer for the occupancy log; per admission, the allocator's
-``ok`` and the first token.  Mesh-sharded pools (the JAX package's
-``_pin_shardings`` and per-shard occupancy) wait for ROADMAP queue 1,
-item 13, and the deprecated ``page_size=``/``pool_pages=``/``kv_quant=``
-keywords are not ported: ``config=`` is their spelling.
+stack pointers for the occupancy log; per admission, the allocator's
+``ok`` and the first token.
+
+Over a serving mesh (``CacheConfig(mesh=...)``) every rank runs its own
+Scheduler on its shard of the model (``bridge.shard_model``) and its slab
+of the pool, with the same requests in the same order: the allocator's
+state, the admissions and the tokens are the same on every rank, so the
+ranks stay in step through the forward's collectives.  Under the
+``pages`` policy the allocator keeps per-shard free lists
+(``pool_occupancy().per_shard``), and a prefix-shared admission copies
+its boundary page across ranks.  ``spec=`` degrades to 1-token decode
+under a mesh of more than one rank, as in the JAX package.  There is no
+``_pin_shardings``: each rank's tensors are its own, placed once.  The
+deprecated ``page_size=``/``pool_pages=``/``kv_quant=`` keywords are not
+ported: ``config=`` is their spelling.
 """
 from __future__ import annotations
 
@@ -59,8 +69,9 @@ __all__ = ["Request", "Scheduler", "PoolOccupancy", "SpecConfig"]
 
 class PoolOccupancy(NamedTuple):
     """Pool usage in the handler's units (pages, or busy batch slots for
-    the SSM families): ``used``/``total``, and ((used, size),) per pool
-    shard (one shard in the port)."""
+    the SSM families): ``used``/``total``, and ((used, size), ...) per
+    pool shard.  Admission gates on every shard covering its round-robin
+    share, so the fullest shard of ``per_shard`` binds, not the total."""
 
     used: int
     total: int
@@ -129,7 +140,8 @@ class Scheduler:
         ``layout="paged"`` and ``alloc="dynamic"``: ``page_size``,
         ``pool_pages`` (may be far below ``slots * ceil(max_len /
         page_size)``: admission control and prefix sharing make
-        oversubscription safe) and ``kv_quant``.  The SSM families use the
+        oversubscription safe), ``kv_quant`` and ``mesh`` (this rank's
+        mesh: ``model`` must be its shard).  The SSM families use the
         dense layout.  Default: ``default_serving_config`` (dynamic
         16-token pages; dense for SSM and hybrid).
       share_prefix: alias common prompt-prefix pages between live
@@ -140,7 +152,8 @@ class Scheduler:
       spec: a ``SpecConfig`` for speculative decode; greedy output is the
         plain decode's (bitwise with the plain versions on the CPU).
         Families whose handler lacks ``supports_speculative`` (SSM,
-        hybrid) warn and serve plain decode.
+        hybrid), and any family under a mesh of more than one rank, warn
+        and serve plain decode.
       device: where the caches live (default the card; raises without
         one).
     """
@@ -159,6 +172,13 @@ class Scheduler:
                 "then prefill / greedy_decode with memory=")
         if config is None:
             config = default_serving_config(cfg)
+        model_mesh = getattr(model, "mesh", None)
+        if config.model_size() != (1 if model_mesh is None
+                                   else model_mesh.size):
+            raise ValueError(
+                f"CacheConfig mesh of {config.model_size()} ranks, model "
+                f"sharded over {1 if model_mesh is None else model_mesh.size}"
+                " (bridge.shard_model)")
         self.handler = state_handler(cfg, config)
         self.handler.require_scheduler_config()
         self.model, self.cfg, self.config = model, cfg, config
@@ -179,6 +199,11 @@ class Scheduler:
                 f"state handler {self.handler.name!r} does not support "
                 "speculative rollback; degrading to 1-token decode",
                 stacklevel=2)
+        elif spec is not None and config.model_size() > 1:
+            warnings.warn(
+                "speculative decode is not supported over a sharded pool "
+                f"(mesh of {config.model_size()} ranks); degrading to "
+                "1-token decode", stacklevel=2)
         elif spec is not None:
             if spec.n_draft < 1:
                 raise ValueError(f"n_draft must be >= 1, got {spec.n_draft}")
@@ -196,6 +221,8 @@ class Scheduler:
         # kept after retirement
         self.request_log: dict[int, dict] = {}
         self.occupancy_log: list[int] = []
+        # pages in use per pool shard after each tick
+        self.shard_occupancy_log: list[tuple[int, ...]] = []
         self._next_rid = 0
         self._ticks = 0
 
@@ -251,7 +278,9 @@ class Scheduler:
         self._decode()
         done = self._retire()
         self._ticks += 1
-        self.occupancy_log.append(self.pool_occupancy().used)
+        occ = self.pool_occupancy()
+        self.occupancy_log.append(occ.used)
+        self.shard_occupancy_log.append(tuple(u for u, _ in occ.per_shard))
         return done
 
     def run(self, max_ticks: int | None = None) -> dict[int, np.ndarray]:

@@ -149,9 +149,11 @@ class PagedKVHandler(StateHandler):
                 f"alloc={c.alloc if c else None!r}")
 
     def occupancy(self, cache):
-        """(used, total, per_shard) pages (one shard)."""
-        used, total = alloc.pool_occupancy(cache)
-        return used, total, ((used, total),)
+        """(used, total, per_shard) pages: per shard of its free lists
+        (one read of the stack pointers), and their sums."""
+        per_shard = alloc.shard_occupancy(cache)
+        return (sum(u for u, _ in per_shard), sum(n for _, n in per_shard),
+                per_shard)
 
     def admit(self, cache, slot, n_tokens):
         return alloc.admit_sequence(cache, slot, n_tokens)
@@ -162,7 +164,7 @@ class PagedKVHandler(StateHandler):
 
     def fork(self, cache, parent, child, prefix_len, n_tokens):
         return alloc.fork_sequence(cache, parent, child, prefix_len,
-                                   n_tokens)
+                                   n_tokens, mesh=self.config.mesh)
 
     def reset_rows(self, cache, slot):
         """Point row ``slot``'s table at the scratch page, length 0 (its

@@ -229,8 +229,9 @@ def test_quant_launcher_refuses_plans_that_do_not_fit(cuda, plan):
     q = torch.zeros((4, 2048), dtype=torch.int8, device=cuda)
     s = torch.full((4, 1), float("nan"), device=cuda)
     rc = _build.library("quant_act").launch_quant_act(
-        x.data_ptr(), None, q.data_ptr(), s.data_ptr(), None, 4, 2048, 127,
-        1, 0, *plan, cuda.index, torch.cuda.current_stream(cuda).cuda_stream)
+        x.data_ptr(), None, q.data_ptr(), s.data_ptr(), None, None, 4, 2048,
+        127, 1, 0, *plan, 0, cuda.index,
+        torch.cuda.current_stream(cuda).cuda_stream)
     torch.cuda.synchronize()
     assert rc != 0
     assert torch.isnan(s).all() and not q.any()
@@ -545,7 +546,8 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     flash_attention(*_flash_case(1, 70, 70, 4, 2, 64, cuda))
     torch.cuda.synchronize()
     assert launch_counts() == {"quant_act": 1, "quant_act_glu": 1,
-                               "fused_qkv": 1,
+                               "row_absmax": 0, "tiled_matmul_int32": 0,
+                               "int8_epilogue": 0, "fused_qkv": 1,
                                "tiled_matmul": 1, "paged_decode": 1,
                                "paged_decode_verify": 1,
                                "flash_attention": 1,
@@ -1283,3 +1285,140 @@ def test_train_step_card_matches_cpu(cuda):
     assert counts["flash_attention_backward"] == cfg.n_layers
     assert sum(n for k, n in counts.items() if not k.startswith("flash")) \
         == 0
+
+
+# ---------------------------------------------------------------------------
+# the row-parallel modes of K1 and K2 (a serving mesh's wo and down)
+# ---------------------------------------------------------------------------
+def _parts(x, n):
+    """x's columns in n equal contiguous slices (each rank's input)."""
+    k = x.shape[1] // n
+    return [x[:, i * k:(i + 1) * k].contiguous() for i in range(n)]
+
+
+@pytest.mark.parametrize("glu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n", [((4, 12288), 4), ((256, 7168), 4),
+                                     ((129, 5504), 2), ((5, 776), 2)])
+def test_k1_absmax_modes_rebuild_the_whole_rows_quantization(cuda, shape, n,
+                                                             dtype, glu):
+    """K1's absmax mode of each slice of the rows, then its given-absmax
+    mode with the slices' maximum, is bitwise K1 of the whole rows (and
+    each launch is bitwise its plain version)."""
+    from repro_torch.kernels.quant_act.ops import row_absmax
+    x = _randn(shape, 1, cuda, 3.0).to(dtype)
+    x[0] = 0
+    up = _randn(shape, 2, cuda).to(dtype) if glu else None
+    whole = quant_act_glu(x, up) if glu else quant_act(x)
+    xs = _parts(x, n)
+    ups = _parts(up, n) if glu else [None] * n
+    reset_launch_counts()
+    maxes = [row_absmax(a, u) for a, u in zip(xs, ups)]
+    for a, u, got in zip(xs, ups, maxes):
+        want = (quant_ref.row_absmax_glu_ref(a, u) if glu
+                else quant_ref.row_absmax_ref(a))
+        assert torch.equal(got, want)
+    absmax = torch.stack(maxes).amax(0)
+    for i, (a, u) in enumerate(zip(xs, ups)):
+        got = (quant_act_glu(a, u, absmax=absmax) if glu
+               else quant_act(a, absmax=absmax))
+        want = (quant_ref.quant_act_glu_ref(a, u, absmax=absmax) if glu
+                else quant_ref.quant_act_ref(a, absmax=absmax))
+        k = a.shape[1]
+        assert torch.equal(got.values, whole.values[:, i * k:(i + 1) * k])
+        assert torch.equal(got.scale, whole.scale)
+        assert torch.equal(got.values, want[0])
+        assert torch.equal(got.scale, want[1])
+    counts = launch_counts()
+    assert counts["row_absmax"] == n
+    assert counts["quant_act_glu" if glu else "quant_act"] == n
+
+
+@pytest.mark.parametrize("m,k,n,parts", [(4, 12288, 2048, 4),
+                                         (256, 7168, 1536, 4),
+                                         (4, 5504, 2048, 2),
+                                         (40, 2752, 2048, 4)])
+def test_k2_int32_and_epilogue_modes_rebuild_the_whole_product(cuda, m, k, n,
+                                                               parts):
+    """K2's int32-out mode over slices of K, summed, then its epilogue
+    mode, is bitwise K2 over the whole K (and each launch is bitwise its
+    plain version)."""
+    from repro_torch.core.quantization import QTensor
+    from repro_torch.kernels.tiled_matmul.ops import (int8_epilogue,
+                                                      tiled_matmul_int32)
+    a, (b,) = _operands(m, k, [n], cuda, seed=7)
+    bias = _randn((n,), 8, cuda)
+    whole = tiled_matmul(a, b, bias, out_dtype=torch.bfloat16)
+    step = k // parts
+    reset_launch_counts()
+    acc = None
+    for i in range(parts):
+        lo, hi = i * step, (i + 1) * step
+        ai = QTensor(a.values[:, lo:hi].contiguous(), a.scale, 8)
+        bi = QTensor(b.values[lo:hi].t().contiguous().t(), b.scale, 8)
+        part = tiled_matmul_int32(ai, bi)
+        assert torch.equal(part, matmul_ref.int_matmul_exact(ai.values,
+                                                             bi.values))
+        acc = part if acc is None else acc + part
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = int8_epilogue(acc, a.scale, b, bias, out_dtype=out_dtype)
+        assert torch.equal(got, matmul_ref.int8_epilogue_ref(
+            acc, a.scale, b.scale, bias, out_dtype))
+    assert torch.equal(int8_epilogue(acc, a.scale, b, bias), whole)
+    counts = launch_counts()
+    assert counts["tiled_matmul_int32"] == parts
+    assert counts["int8_epilogue"] == 3
+
+
+@pytest.mark.parametrize("plan", [GemmPlan("swap", 8, 1, 24),
+                                  GemmPlan("swap", 8, 4, 6),
+                                  GemmPlan("swap", 64, 3, 8)])
+def test_k2_int32_mode_takes_every_swap_split(cuda, plan):
+    """The int32-out mode under forced swap plans, split or not: the exact
+    product; the wide variant is refused (it has no int32 output)."""
+    from repro_torch.kernels.tiled_matmul.ops import tiled_matmul_int32
+    a, (b,) = _operands(4 if plan.cols == 8 else 100, 3072, [1024], cuda)
+    got = tiled_matmul_int32(a, b, plan=plan)
+    assert torch.equal(got, matmul_ref.int_matmul_exact(a.values, b.values))
+    with pytest.raises(ValueError, match="swap"):
+        tiled_matmul_int32(a, b, plan=GemmPlan("wide", 256, 1, 24))
+
+
+def test_mesh_serving_on_one_card(cuda):
+    """Ranks sharing the card over gloo: qwen2.5-3b's smoke config (w8a8,
+    bf16 pools) serves one trace through the Scheduler; mesh 2 (heads,
+    K4 on each rank's KV head, planned as the unsharded launch) gives mesh
+    1's tokens, and on mesh 4 (pages) every rank emits the same tokens at
+    every tick."""
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.core.quantize_params import quantize_model_params
+    from repro_torch.launch.mesh import spawn_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_mesh_ranks as ranks
+    cfg = get_smoke_config("qwen2_5_3b").replace(quant_proj="w8a8",
+                                                 dtype="bfloat16")
+    model = quantize_model_params(init_model(
+        torch.Generator().manual_seed(0), cfg.replace(quant_proj="none"),
+        device="cpu"))
+    tree = params_to_numpy(model, cfg)
+    rng = np.random.default_rng(3)
+    trace = [(t, rng.integers(0, cfg.vocab_size, n), b)
+             for t, n, b in ((0, 9, 4), (0, 13, 5), (1, 15, 3), (2, 5, 4))]
+    cache_kw = dict(layout="paged", alloc="dynamic", page_size=4,
+                    pool_pages=24)
+    sched_kw = dict(slots=3, max_len=64, bucket=4, dtype=torch.bfloat16)
+    runs = {m: spawn_ranks(ranks.sched_trace, m, backend="gloo",
+                           device="cuda:0",
+                           args=(tree, cfg, trace, cache_kw, sched_kw),
+                           timeout=300)
+            for m in (1, 2, 4)}
+    for a, b in zip(runs[2][0]["tokens"], runs[1][0]["tokens"]):
+        assert np.array_equal(a, b)
+    assert [r["policy"] for r in runs[4]] == ["pages"] * 4
+    for r in runs[4][1:]:
+        assert r["ticks"] == runs[4][0]["ticks"]

@@ -42,3 +42,30 @@ def test_no_jax_or_reference_import(path):
     for mod in _imported_modules(tree):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod!r}"
+
+
+NEW_MODULES = ["repro_torch.launch.mesh", "repro_torch.launch.sharding",
+               "repro_torch.configs.mistral_large_123b",
+               "repro_torch.bridge", "repro_torch.serving.scheduler"]
+
+
+def test_mesh_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in NEW_MODULES:
+        assert "src/" + mod.replace(".", "/") + ".py" in names
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_importing_loads_neither_jax_nor_the_reference(module):
+    """Run time, not only the source: importing the module (and all it
+    imports) leaves JAX and the JAX package unloaded."""
+    import subprocess
+    import sys
+    code = (f"import sys, {module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

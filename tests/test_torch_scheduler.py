@@ -85,13 +85,14 @@ def test_init_cache_dynamic_equals_jax():
         assert page_nbytes(c) == jax_page_nbytes(jc)
     # int8 values and their f32 scale rows: 2·L·page·KH·(hd + 4) bytes
     assert page_nbytes(int8) == 2 * 3 * 16 * 2 * (16 + 4)
-    # static tables cannot oversubscribe the pool; only one pool shard
+    # static tables cannot oversubscribe the pool; shards must divide it
     cfg = get_smoke_config("qwen2_5_3b")
     with pytest.raises(ValueError, match="dynamic"):
         init_cache(cfg, 2, 40, config=CacheConfig(
             layout="paged", page_size=16, pool_pages=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        al.init_allocator(8, shards=2)
+    assert al.init_allocator(8, shards=2)["free"].shape == (2, 4)
+    with pytest.raises(ValueError, match="split"):
+        al.init_allocator(8, shards=3)
 
 
 @pytest.mark.parametrize("seed", range(6))
