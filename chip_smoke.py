@@ -1696,12 +1696,12 @@ def profiled_ranges(ranges):
 
 
 # the MoE block's stages, named in its profiles: the routing, the whole
-# dispatch-experts-combine, the experts (dequant, einsums and silu), the
-# dequant of the int8 experts to bf16
+# dispatch-experts-weighting, the sum of each token's copies, the experts
+# (dequant, einsums and silu), the dequant of the int8 experts to bf16
 MOE_MODULE = "repro_torch.models.moe"
 MOE_RANGES = {"moe route": (MOE_MODULE, "route"),
-              "moe dispatch+experts+combine": (MOE_MODULE,
-                                               "_dispatch_compute"),
+              "moe dispatch+experts": (MOE_MODULE, "_dispatch_compute"),
+              "moe combine": (MOE_MODULE, "_combine"),
               "moe experts": (MOE_MODULE, "expert_ffn"),
               "moe dequant": (MOE_MODULE, "expert_weight")}
 
@@ -1757,8 +1757,8 @@ def range_times(ranges, averages):
         got["moe einsums+silu (experts - dequant)"] = (
             got.get("moe experts", 0.0) - got.get("moe dequant", 0.0))
         got["moe dispatch+combine (the whole - experts)"] = (
-            got.get("moe dispatch+experts+combine", 0.0)
-            - got.get("moe experts", 0.0))
+            got.get("moe dispatch+experts", 0.0)
+            + got.get("moe combine", 0.0) - got.get("moe experts", 0.0))
     return got
 
 
@@ -2764,6 +2764,12 @@ def card_vs_cpu_scheduler(dev):
 # router logits differ in their last bits (the model's logits by 1e-5 at
 # most, TOL_NONE), which can swap only such a pair: the limit is 10x that
 ROUTE_TIE = 1e-4
+# the MoE Scheduler trace's budgets are halved to make room for the mesh
+# phase's MoE program: the two runs, each driven twice (checked, then
+# counted) at 48 layers, took most of the MoE path's 292 s on a host where
+# phase 4 took 1.47x its usual time (their ticks are the host's: 0.72 of a
+# profiled tick idle); the prompts, and so the waits for pages, stay
+MOE_SCHED_BUDGET_DIV = 2
 
 
 def resident_gb(model):
@@ -2797,9 +2803,10 @@ def blockwise_model(arch, dev, seed):
 
 def moe_scheduler(model, cfg, dev):
     """Phase 4's Scheduler trace through the MoE model, plain and
-    self_trunc (its first DRAFT_LAYERS layers as the draft), bf16 pools;
-    spec tokens held to the plain run's by the near-tie rule."""
-    trace = sched_trace(cfg.vocab_size)
+    self_trunc (its first DRAFT_LAYERS layers as the draft), bf16 pools,
+    its budgets divided by MOE_SCHED_BUDGET_DIV; spec tokens held to the
+    plain run's by the near-tie rule."""
+    trace = sched_trace(cfg.vocab_size, MOE_SCHED_BUDGET_DIV)
     trunc = (first_layers(model, DRAFT_LAYERS),
              cfg.replace(n_layers=DRAFT_LAYERS))
     plain = sched_run(f"moe scheduler plain ({cfg.name}), bf16 pools", model,
@@ -2841,8 +2848,8 @@ def recorded_routes(routes):
     mod = importlib.import_module(MOE_MODULE)
     wrapped = mod.route
 
-    def record(router, x, cfg):
-        out = wrapped(router, x, cfg)
+    def record(router, x, cfg, mesh=None):
+        out = wrapped(router, x, cfg, mesh)
         top = torch.softmax(x.float() @ router.w.float(), dim=-1).topk(
             cfg.top_k + 1, dim=-1).values
         gap = (top[..., -2] - top[..., -1]) / top[..., -2]
@@ -4874,6 +4881,14 @@ MISTRAL_LAYERS = 12
 MISTRAL_SEED = 7
 MISTRAL_PROMPTS = (64, 128, 192, 256)
 MISTRAL_STEPS = 16
+# qwen3-moe-30b-a3b's serve on mesh 4 (heads: its 4 KV heads, one a rank;
+# its 128 experts E-split, 32 a rank) against mesh 1: 4 of its 48 layers,
+# experts w8, projections w8a8, bf16, the prompts and steps of the mistral
+# serve.  Every layer's MoE block is held bitwise mesh 1's at decode and
+# prefill rows (MOE_MESH_ROWS: (batch, tokens))
+MOE_MESH_LAYERS = 4
+MOE_MESH_SEED = 11
+MOE_MESH_ROWS = ((4, 1), (1, 256))
 # mesh 4's logits against mesh 1's, over the row's largest |logit|: every
 # projection and every attention output is bitwise mesh 1's (checked), so
 # only the head's f32 product differs (each rank's 8192 vocabulary
@@ -4921,12 +4936,22 @@ def mesh_configs(smoke, world=2):
     return qwen, mistral
 
 
+def moe_mesh_config(smoke):
+    """qwen3-moe-30b-a3b at full width and MOE_MESH_LAYERS layers, w8a8
+    bf16 (its experts w8, ``mesh_model``); its smoke config for a
+    rehearsal on the CPU."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if smoke else get_config)(MOE_ARCH).replace(
+        quant_proj="w8a8", dtype="bfloat16")
+    return cfg if smoke else cfg.replace(n_layers=MOE_MESH_LAYERS)
+
+
 def mesh_model(cfg, mesh, seed):
     """``cfg``'s model on ``mesh``'s device, this rank's shard of it: each
     whole layer drawn from one seeded generator on the device (the same
     numbers on every rank and as the unsharded phases draw), quantized in
-    place, sliced, and the rest freed, so a rank never holds more than one
-    f32 layer; the ranks draw in turn.  Returns (model, seconds: the
+    place (an MoE model's experts too), sliced, and the rest freed, so a
+    rank never holds more than one f32 layer; the ranks draw in turn.  Returns (model, seconds: the
     ranks' turns included)."""
     from repro_torch.bridge import shard_model
     from repro_torch.core.quantize_params import quantize_model_params
@@ -4941,8 +4966,9 @@ def mesh_model(cfg, mesh, seed):
             gen = torch.Generator(device=dev).manual_seed(seed)
             model = init_model(gen, cfg, device=dev,
                                each_block=lambda b: shard_model(
-                                   quantize_model_params(b, in_place=True),
-                                   mesh))
+                                   quantize_model_params(
+                                       b, in_place=True,
+                                       quantize_experts=cfg.is_moe), mesh))
             model = shard_model(model, mesh)
             sync(dev)
             if dev.type == "cuda":
@@ -4953,14 +4979,17 @@ def mesh_model(cfg, mesh, seed):
 
 def mesh_layer_launches(cfg, by) -> dict:
     """One layer's launches in one forward on a mesh (w8a8): wo and down
-    row-parallel, each one K1 absmax launch, one K1 given-absmax launch
-    (quant_act, or quant_act_glu in SwiGLU), one K2 int32-out and one K2
-    epilogue in place of its K2; the column projections as unsharded; K4
-    under ``heads``, none under ``pages`` (plain PyTorch, as the
-    reference's combine)."""
+    row-parallel (an MoE layer's wo alone: its experts run no kernel), each
+    one K1 absmax launch, one K1 given-absmax launch (quant_act, or
+    quant_act_glu in SwiGLU), one K2 int32-out and one K2 epilogue in
+    place of its K2; the column projections as unsharded; K4 under
+    ``heads``, none under ``pages`` (plain PyTorch, as the reference's
+    combine)."""
     want = layer_launches(cfg, paged=by == "heads")
-    want["tiled_matmul"] -= 2
-    want.update(row_absmax=2, tiled_matmul_int32=2, int8_epilogue=2)
+    rows = 1 + int(not cfg.is_moe or cfg.n_shared_experts > 0)
+    want["tiled_matmul"] -= rows
+    want.update(row_absmax=rows, tiled_matmul_int32=rows,
+                int8_epilogue=rows)
     return want
 
 
@@ -5152,7 +5181,7 @@ def pages_witness_rank(mesh, smoke=False):
             "seconds": time.perf_counter() - t, **err}
 
 
-def mistral_prompts(cfg, dev):
+def serve_prompts(cfg, dev):
     """4 prompts of 64-256 tokens, right-padded: (prompts, lengths)."""
     g = torch.Generator().manual_seed(31)
     lens = torch.tensor(MISTRAL_PROMPTS if cfg.vocab_size > 1000
@@ -5192,26 +5221,49 @@ def layer0_projections(model, cfg, mesh):
     return out
 
 
-def mistral_rank(mesh, smoke=False):
-    """A rank of mistral-large-123b's greedy serve: layer 0's projections,
-    then ``prefill`` of the 4 prompts into paged bf16 pools and
-    MISTRAL_STEPS ``serve_step``s, logits kept, exact launch counts, times,
-    peak memory and slab shapes; then the collective share of more decode
-    steps.  Rank 0 (or mesh 1) returns the logits and projections."""
+def moe_layer_outputs(model, cfg, mesh):
+    """Every layer's MoE block on seeded inputs at MOE_MESH_ROWS, whole: an
+    E-split rank's combine runs on the sum of every rank's per-copy
+    contributions, so its output is the whole block's."""
+    from repro_torch.models.moe import apply_moe
+    out = {}
+    for b, s in MOE_MESH_ROWS:
+        x = device_randn((b, s, cfg.d_model), 50 + s, mesh.device, 1.0,
+                         torch.bfloat16)
+        for i, layer in enumerate(model.layers):
+            y, _ = apply_moe(layer.moe, x, cfg)
+            out[f"layer {i} moe ({b} x {s})"] = y.cpu()
+    return out
+
+
+def expert_bytes(model):
+    """The bytes of the MoE layers' expert stacks a model (or rank)
+    holds."""
+    from repro_torch.models.moe import Experts
+    return sum(b.numel() * b.element_size() for m in model.modules()
+               if isinstance(m, Experts) for b in m.buffers())
+
+
+def serve_rank(mesh, cfg, seed, probe):
+    """A rank of ``cfg``'s greedy serve: ``probe(model, cfg, mesh)`` (whole
+    outputs to hold bitwise against mesh 1's), then ``prefill`` of the 4
+    prompts into paged bf16 pools and MISTRAL_STEPS ``serve_step``s,
+    logits kept, exact launch counts, times, peak memory and slab shapes;
+    then the collective share of more decode steps.  Rank 0 (or mesh 1)
+    returns the logits and the probe's outputs."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.cache import CacheConfig, init_cache
     from repro_torch.serving.engine import prefill, serve_step
     dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    _, cfg = mesh_configs(smoke)
-    model, draw_s = mesh_model(cfg, mesh, MISTRAL_SEED)
-    prompts, lens = mistral_prompts(cfg, dev)
+    model, draw_s = mesh_model(cfg, mesh, seed)
+    prompts, lens = serve_prompts(cfg, dev)
     max_len = prompts.shape[1] + MISTRAL_STEPS + COLLECTIVE_STEPS + PAGE
     config = CacheConfig(layout="paged", page_size=PAGE, mesh=mesh)
     by = config.resolved_kv_shard(cfg.n_kv_heads)
     with torch.inference_mode():
-        proj = layer0_projections(model, cfg, mesh)
+        probed = probe(model, cfg, mesh)
         cache = init_cache(cfg, len(lens), max_len, torch.bfloat16, config,
                            device=dev)
         reset_launch_counts()
@@ -5249,10 +5301,25 @@ def mistral_rank(mesh, smoke=False):
                        if dev.type == "cuda" else 0.0),
            "shapes": slab_shapes(cache), "collective_share": share,
            "decode_step_ms": step_ms, "collectives_a_step": n_coll,
-           "resident_gb": resident_gb(model)}
+           "resident_gb": resident_gb(model),
+           "expert_bytes": expert_bytes(model)}
     if mesh.rank == 0:
-        out.update(logits=torch.stack(logits).cpu(), projections=proj)
+        out.update(logits=torch.stack(logits).cpu(), probed=probed)
     return out
+
+
+def mistral_rank(mesh, smoke=False):
+    """A rank of mistral-large-123b's greedy serve (``serve_rank``), layer
+    0's projections probed."""
+    _, cfg = mesh_configs(smoke)
+    return serve_rank(mesh, cfg, MISTRAL_SEED, layer0_projections)
+
+
+def moe_mesh_rank(mesh, smoke=False):
+    """A rank of qwen3-moe-30b-a3b's greedy serve (``serve_rank``), every
+    layer's MoE block probed (``moe_layer_outputs``)."""
+    return serve_rank(mesh, moe_mesh_config(smoke), MOE_MESH_SEED,
+                      moe_layer_outputs)
 
 
 # the sharded-training part of the mesh phase: qwen2.5-3b at full width
@@ -5624,14 +5691,15 @@ def mesh4_rank(mesh, smoke=False):
     """The mesh phase's programs in one spawn of 4 ranks (each rank starts
     once): qwen2.5-3b's Scheduler trace on 2 ranks (``heads``,
     ``mesh2_rank``) and on 4 (``pages``), the pages depth witness,
-    mistral-large-123b's serve, then sharded training; each part's memory
-    freed before the next."""
+    mistral-large-123b's serve, qwen3-moe-30b-a3b's serve, then sharded
+    training; each part's memory freed before the next."""
     import gc
     out, seconds = {}, {}
     for name, fn, args in (("qwen2", mesh2_rank, (smoke,)),
                            ("qwen", mesh_sched_rank, (smoke,)),
                            ("witness", pages_witness_rank, (smoke,)),
                            ("mistral", mistral_rank, (smoke,)),
+                           ("moe", moe_mesh_rank, (smoke,)),
                            ("train", train_mesh_rank, (smoke,))):
         t0 = time.perf_counter()
         out[name] = fn(mesh, *args)
@@ -5877,115 +5945,29 @@ def check_qwen_mesh(world, runs, qwen_cfg, qwen_ref, ref_tok_s, smi):
                 unsharded_tok_s=ref_tok_s)
 
 
-def mesh_paths(dev, smi, smoke=False):
-    """The mesh phase: the new K1 / K2 modes checked and timed in this
-    process; then qwen2.5-3b's Scheduler trace on meshes 2 (heads) and 4
-    (pages), each at its MESH_QWEN_LAYERS depth, unsharded here first,
-    their tokens held against the unsharded run's by the near-tie rule;
-    the pages mesh's depth witness (``pages_witness_rank``); then
-    mistral-large-123b at full width, MISTRAL_LAYERS layers: mesh 1
-    here, mesh 4 in four ranks, every projection of layer 0 bitwise, the
-    tokens by the near-tie rule, the logits within MESH_LOGIT_REL.  Each
-    rank's counts are exact and every rank emits the same tokens.  Then
-    sharded training (``train_mesh_rank``, ``check_train_mesh``) on the
-    same 4 ranks as a (data 2, model 2) mesh, against the unsharded steps
-    run here first.  The 4-rank programs run in one spawn
-    (``mesh4_rank``): the ranks start once."""
-    from repro_torch.launch.mesh import Mesh, spawn_ranks
-    res = {"errs": check_mesh_modes(dev), "rows": {}}
-    for name in ("mistral wo", "mistral down"):
-        k, n = MESH_MODE_SHAPES[name]
-        for m in MESH_MODE_ROWS:
-            res["rows"][f"{name} {m}"] = time_mesh_modes(
-                dev, m, k, n, glu=name.endswith("down"))
-    for m in MESH_MODE_ROWS:
-        for mode, r in mesh_layer_rows(res["rows"], m).items():
-            lib = ("-" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f}")
-            print(f"  mesh mode {mode:18s} mistral rank layer, {m:3d} rows: "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
-                  f"{r['bound_ms']:.4f} ({r['bound_by']}), library {lib} "
-                  f"[{smi}]")
-    _, mistral_cfg = mesh_configs(smoke)
-    res["qwen"] = {}
-    refs = {}
-    for world in (2, 4):
-        qwen_cfg, _ = mesh_configs(smoke, world)
-        stamp(f"mesh phase: {qwen_cfg.name} unsharded, {qwen_cfg.n_layers} "
-              "layers")
-        refs[world] = unsharded_sched_ref(qwen_cfg, dev)
-        print(f"{qwen_cfg.name} Scheduler unsharded, {qwen_cfg.n_layers} "
-              f"layers: {refs[world][1]:.1f} tok/s (host clock) [{smi}]")
-        torch.cuda.empty_cache()
-    stamp(f"mesh phase: {mistral_cfg.name} on 1 rank (here)")
-    one = mistral_rank(Mesh(1, backend=MESH_BACKEND, device=dev), smoke)
-    print(f"mesh 1 {mistral_cfg.name}: {describe(mistral_cfg)}; resident "
-          f"{one['resident_gb']:.2f} GB, peak {one['peak_gb']:.2f} GB, drawn "
-          f"in {one['draw_s']:.1f} s")
-    torch.cuda.empty_cache()
-    stamp("mesh phase: sharded training, the unsharded steps (here)")
-    train_ref = train_mesh_reference(dev, smoke)
-    stamp("mesh phase: 4 ranks (the Scheduler trace on 2 and on 4, the "
-          "depth witness, mistral-large-123b, sharded training)")
-    every = spawn_ranks(mesh4_rank, 4, backend=MESH_BACKEND,
-                        device=MESH_DEVICE, args=(smoke,),
-                        timeout=MESH_TIMEOUT)
-    print("  each part's seconds on rank 0 (the ranks start once): "
-          + ", ".join(f"{k} {v:.1f}" for k, v in every[0]["seconds"].items()))
-    qwen_cfg, _ = mesh_configs(smoke, 2)
-    res["qwen"][2] = check_qwen_mesh(2, [r["qwen2"] for r in every[:2]],
-                                     qwen_cfg, *refs[2], smi)
-    qwen_cfg, _ = mesh_configs(smoke, 4)
-    res["qwen"][4] = check_qwen_mesh(4, [r["qwen"] for r in every],
-                                     qwen_cfg, *refs[4], smi)
-    runs = [r["witness"] for r in every]
-    w0 = runs[0]
-    what = (f"mesh 4 ({w0['policy']}) qwen2.5-3b, {w0['layers']} layers: "
-            "split-KV attention against the plain f32 reference on the "
-            "gathered pools")
-    for r in runs:
-        if r["policy"] != "pages" or r["calls"] != w0["calls"]:
-            fail(f"{what}: rank {r['rank']} policy {r['policy']}, "
-                 f"{r['calls']} calls (rank 0: {w0['calls']})")
-        worst = max(r["split"])
-        if worst > PAGES_WITNESS_REL:
-            fail(f"{what}: rank {r['rank']} layer "
-                 f"{r['split'].index(worst)} at {worst:.3e} of its row's "
-                 f"largest |value| (limit {PAGES_WITNESS_REL:.3e})")
-    res["witness"] = {k: w0[k] for k in ("layers", "calls", "seconds",
-                                          "split", "k4")}
-    print(f"{what}: {w0['calls']} calls over {PAGES_WITNESS_TICKS} ticks "
-          f"in {w0['seconds']:.1f} s; worst split-KV {max(w0['split']):.3e}"
-          f" of its row's largest |value| (layer "
-          f"{w0['split'].index(max(w0['split']))}; limit "
-          f"{PAGES_WITNESS_REL:.3e}), K4 on the same inputs "
-          f"{max(w0['k4']):.3e} (layer {w0['k4'].index(max(w0['k4']))})")
-    print("  by layer, split-KV: "
-          + " ".join(f"{e:.2e}" for e in w0["split"]))
-    print("  by layer, K4:       "
-          + " ".join(f"{e:.2e}" for e in w0["k4"]))
-    runs = [r["mistral"] for r in every]
+def check_mesh_serve(runs, one, cfg, probed, smi):
+    """The checks and prints of ``serve_rank``'s mesh-4 runs against mesh
+    1's ``one``: exact launch counts and the same tokens on every rank, the
+    probe's outputs (``probed`` says what they are) bitwise mesh 1's, the
+    logits within MESH_LOGIT_REL while the inputs agree, the tokens by the
+    near-tie rule; returns the record."""
     r0 = runs[0]
-    what = (f"mesh 4 ({r0['policy']}) {mistral_cfg.name}, "
-            f"{mistral_cfg.n_layers} layers")
+    what = f"mesh 4 ({r0['policy']}) {cfg.name}, {cfg.n_layers} layers"
     for r in runs:
         if r["counts"] != r["want"]:
             fail(f"{what}: rank {r['rank']} launches {r['counts']} != "
                  f"{r['want']}")
         if not torch.equal(r["tokens"], r0["tokens"]):
             fail(f"{what}: rank {r['rank']}'s tokens differ from rank 0's")
-    if one["counts"] != {k: n for k, n in expected_mistral_one(
-            mistral_cfg).items()}:
-        fail(f"mesh 1 {mistral_cfg.name}: launches {one['counts']}")
-    for name, want in one["projections"].items():
-        got = r0["projections"][name]
+    if one["counts"] != expected_serve_one(cfg):
+        fail(f"mesh 1 {cfg.name}: launches {one['counts']}")
+    for name, want in one["probed"].items():
+        got = r0["probed"][name]
         if not torch.equal(got, want):
             fail(f"{what}: {name} differs from mesh 1's (max |err| "
                  f"{(got.double() - want.double()).abs().max():.3e})")
     print(f"{what}: launches a rank {r0['counts']} (exact on every rank); "
-          f"layer 0's {len(one['projections'])} projection outputs (q, k, v, "
-          f"gate, up gathered; wo, down reduced; at {MESH_MODE_ROWS} rows) "
-          "bitwise mesh 1's")
+          f"{probed}, {len(one['probed'])} tensors, bitwise mesh 1's")
     ref_toks, got_toks = one["tokens"], r0["tokens"]
     gaps, top2, worst = {}, {}, 0.0
     for step in range(got_toks.shape[1]):
@@ -6028,19 +6010,140 @@ def mesh_paths(dev, smi, smoke=False):
           f"collectives, {r0['collective_share']:.3f} of it in them (gloo "
           "through host buffers, 4 ranks on one card: an artefact of host "
           f"staging) [{smi}]")
-    res["mistral"] = {"one": {k: v for k, v in one.items()
-                              if k not in ("logits", "projections")},
-                      "four": {k: v for k, v in r0.items()
-                               if k not in ("logits", "projections")},
-                      "logit_rel": worst, "identical_share": share}
+    return {"one": {k: v for k, v in one.items()
+                    if k not in ("logits", "probed")},
+            "four": {k: v for k, v in r0.items()
+                     if k not in ("logits", "probed")},
+            "logit_rel": worst, "identical_share": share}
+
+
+def mesh_paths(dev, smi, smoke=False):
+    """The mesh phase: the new K1 / K2 modes checked and timed in this
+    process; then qwen2.5-3b's Scheduler trace on meshes 2 (heads) and 4
+    (pages), each at its MESH_QWEN_LAYERS depth, unsharded here first,
+    their tokens held against the unsharded run's by the near-tie rule;
+    the pages mesh's depth witness (``pages_witness_rank``); then
+    mistral-large-123b at full width, MISTRAL_LAYERS layers: mesh 1
+    here, mesh 4 in four ranks, every projection of layer 0 bitwise, the
+    tokens by the near-tie rule, the logits within MESH_LOGIT_REL; then
+    qwen3-moe-30b-a3b at full width, MOE_MESH_LAYERS layers, the same
+    way, every layer's MoE block bitwise mesh 1's and each rank's expert
+    bytes a quarter of mesh 1's (``moe_mesh_rank``).  Each
+    rank's counts are exact and every rank emits the same tokens.  Then
+    sharded training (``train_mesh_rank``, ``check_train_mesh``) on the
+    same 4 ranks as a (data 2, model 2) mesh, against the unsharded steps
+    run here first.  The 4-rank programs run in one spawn
+    (``mesh4_rank``): the ranks start once."""
+    from repro_torch.launch.mesh import Mesh, spawn_ranks
+    res = {"errs": check_mesh_modes(dev), "rows": {}}
+    for name in ("mistral wo", "mistral down"):
+        k, n = MESH_MODE_SHAPES[name]
+        for m in MESH_MODE_ROWS:
+            res["rows"][f"{name} {m}"] = time_mesh_modes(
+                dev, m, k, n, glu=name.endswith("down"))
+    for m in MESH_MODE_ROWS:
+        for mode, r in mesh_layer_rows(res["rows"], m).items():
+            lib = ("-" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            print(f"  mesh mode {mode:18s} mistral rank layer, {m:3d} rows: "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}), library {lib} "
+                  f"[{smi}]")
+    _, mistral_cfg = mesh_configs(smoke)
+    res["qwen"] = {}
+    refs = {}
+    for world in (2, 4):
+        qwen_cfg, _ = mesh_configs(smoke, world)
+        stamp(f"mesh phase: {qwen_cfg.name} unsharded, {qwen_cfg.n_layers} "
+              "layers")
+        refs[world] = unsharded_sched_ref(qwen_cfg, dev)
+        print(f"{qwen_cfg.name} Scheduler unsharded, {qwen_cfg.n_layers} "
+              f"layers: {refs[world][1]:.1f} tok/s (host clock) [{smi}]")
+        torch.cuda.empty_cache()
+    ones = {}
+    moe_cfg = moe_mesh_config(smoke)
+    for key, cfg, fn in (("mistral", mistral_cfg, mistral_rank),
+                         ("moe", moe_cfg, moe_mesh_rank)):
+        stamp(f"mesh phase: {cfg.name} on 1 rank (here)")
+        t0 = time.perf_counter()
+        ones[key] = fn(Mesh(1, backend=MESH_BACKEND, device=dev), smoke)
+        one = ones[key]
+        one["seconds"] = time.perf_counter() - t0
+        print(f"mesh 1 {cfg.name}: {describe(cfg)}; resident "
+              f"{one['resident_gb']:.2f} GB, peak {one['peak_gb']:.2f} GB, "
+              f"drawn in {one['draw_s']:.1f} s; {one['seconds']:.1f} s")
+        torch.cuda.empty_cache()
+    stamp("mesh phase: sharded training, the unsharded steps (here)")
+    train_ref = train_mesh_reference(dev, smoke)
+    stamp("mesh phase: 4 ranks (the Scheduler trace on 2 and on 4, the "
+          "depth witness, mistral-large-123b, qwen3-moe-30b-a3b, sharded "
+          "training)")
+    every = spawn_ranks(mesh4_rank, 4, backend=MESH_BACKEND,
+                        device=MESH_DEVICE, args=(smoke,),
+                        timeout=MESH_TIMEOUT)
+    print("  each part's seconds on rank 0 (the ranks start once): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in every[0]["seconds"].items()))
+    qwen_cfg, _ = mesh_configs(smoke, 2)
+    res["qwen"][2] = check_qwen_mesh(2, [r["qwen2"] for r in every[:2]],
+                                     qwen_cfg, *refs[2], smi)
+    qwen_cfg, _ = mesh_configs(smoke, 4)
+    res["qwen"][4] = check_qwen_mesh(4, [r["qwen"] for r in every],
+                                     qwen_cfg, *refs[4], smi)
+    runs = [r["witness"] for r in every]
+    w0 = runs[0]
+    what = (f"mesh 4 ({w0['policy']}) qwen2.5-3b, {w0['layers']} layers: "
+            "split-KV attention against the plain f32 reference on the "
+            "gathered pools")
+    for r in runs:
+        if r["policy"] != "pages" or r["calls"] != w0["calls"]:
+            fail(f"{what}: rank {r['rank']} policy {r['policy']}, "
+                 f"{r['calls']} calls (rank 0: {w0['calls']})")
+        worst = max(r["split"])
+        if worst > PAGES_WITNESS_REL:
+            fail(f"{what}: rank {r['rank']} layer "
+                 f"{r['split'].index(worst)} at {worst:.3e} of its row's "
+                 f"largest |value| (limit {PAGES_WITNESS_REL:.3e})")
+    res["witness"] = {k: w0[k] for k in ("layers", "calls", "seconds",
+                                          "split", "k4")}
+    print(f"{what}: {w0['calls']} calls over {PAGES_WITNESS_TICKS} ticks "
+          f"in {w0['seconds']:.1f} s; worst split-KV {max(w0['split']):.3e}"
+          f" of its row's largest |value| (layer "
+          f"{w0['split'].index(max(w0['split']))}; limit "
+          f"{PAGES_WITNESS_REL:.3e}), K4 on the same inputs "
+          f"{max(w0['k4']):.3e} (layer {w0['k4'].index(max(w0['k4']))})")
+    print("  by layer, split-KV: "
+          + " ".join(f"{e:.2e}" for e in w0["split"]))
+    print("  by layer, K4:       "
+          + " ".join(f"{e:.2e}" for e in w0["k4"]))
+    res["mistral"] = check_mesh_serve(
+        [r["mistral"] for r in every], ones["mistral"], mistral_cfg,
+        f"layer 0's projection outputs (q, k, v, gate, up gathered; wo, "
+        f"down reduced; at {MESH_MODE_ROWS} rows)", smi)
+    res["moe"] = check_mesh_serve(
+        [r["moe"] for r in every], ones["moe"], moe_cfg,
+        f"every layer's MoE block output (at {MOE_MESH_ROWS} (batch, "
+        "tokens))", smi)
+    four, one = res["moe"]["four"], res["moe"]["one"]
+    for r in every:
+        got = r["moe"]["expert_bytes"]
+        if 4 * got != one["expert_bytes"]:
+            fail(f"mesh 4 {moe_cfg.name}: rank {r['moe']['rank']} holds "
+                 f"{got} bytes of experts, mesh 1 {one['expert_bytes']} (a "
+                 "quarter expected)")
+    print(f"  {moe_cfg.name}: expert bytes a rank {four['expert_bytes']} = "
+          f"mesh 1's {one['expert_bytes']} / 4 (E-split, "
+          f"{moe_cfg.n_experts // 4} experts a rank); the program "
+          f"{every[0]['seconds']['moe']:.1f} s on 4 ranks, "
+          f"{one['seconds']:.1f} s on 1 (host clock) [{smi}]")
     stamp("mesh phase: sharded training")
     res["train"] = check_train_mesh([r["train"] for r in every], train_ref,
                                     smi, smoke)
     return res
 
 
-def expected_mistral_one(cfg):
-    """Mesh 1's launches in the mistral serve: the unsharded layer's."""
+def expected_serve_one(cfg):
+    """Mesh 1's launches in ``serve_rank``'s serve: the unsharded
+    layer's."""
     return {k: n * cfg.n_layers * (1 + MISTRAL_STEPS)
             for k, n in layer_launches(cfg, paged=True).items()}
 
@@ -6422,6 +6525,14 @@ def main():
           f"{m4['collective_share']:.3f}; logits within "
           f"{mesh['mistral']['logit_rel']:.3e}; identical share "
           f"{mesh['mistral']['identical_share']:.3f} [{smi}]")
+    o1, o4 = mesh["moe"]["one"], mesh["moe"]["four"]
+    print(f"{MOE_ARCH} ({MOE_MESH_LAYERS} layers, w8a8 bf16, experts w8 "
+          f"E-split): mesh 1 {o1['tok_s']:.1f} tok/s, mesh 4 "
+          f"({o4['policy']}) {o4['tok_s']:.1f} tok/s; expert bytes a rank "
+          f"{o4['expert_bytes']} (mesh 1 {o1['expert_bytes']}); collective "
+          f"share {o4['collective_share']:.3f}; logits within "
+          f"{mesh['moe']['logit_rel']:.3e}; identical share "
+          f"{mesh['moe']['identical_share']:.3f} [{smi}]")
     st = mesh["train"]
     print(f"sharded training ({TRAIN_ARCH}, {TRAIN_MESH_LAYERS} layers, bf16 "
           f"ZeRO-1, mesh (data {TRAIN_MESH[0]}, model {TRAIN_MESH[1]}), 4 "

@@ -233,21 +233,26 @@ def shard_model(model: nn.Module, mesh):
     (K) are split ``"row"``; an ``Embedding`` or ``LMHead`` split by
     vocabulary ``"vocab"``; each gets the mesh.  Quantized values stay
     K-major, and a weight is quantized whole before it is sliced (its
-    per-column scales are the whole column's).  ``model.mesh`` is set, so
+    per-column scales are the whole column's).  An MoE layer's ``Experts``
+    keep the rank's slice of the expert dim, or else of ``expert_mlp``
+    (int8 values with their (E, 1, N) scales alike; the router stays
+    replicated, as in the JAX package's serving rules), and its ``MoE``
+    gets the mesh (``models/moe.py`` reads the split from the slice's
+    shape).  ``model.mesh`` is set, so
     the forward runs the rank's program.  ``model`` may be a whole
     ``Model`` or one block (``init_model(each_block=...)`` shards each
     block as it is drawn); modules sliced before are left as they are.  A
-    mesh of one rank slices nothing.  MoE, SSM, hybrid and
-    encoder-decoder models raise (ROADMAP queue 1, item 13)."""
+    mesh of one rank slices nothing.  SSM, hybrid and encoder-decoder
+    models raise (ROADMAP queue 1, item 13)."""
     for mod in model.modules():
-        if isinstance(mod, (MoE, SSMBlock, Encoder)):
+        if isinstance(mod, (SSMBlock, Encoder)):
             raise NotImplementedError(
                 f"{type(mod).__name__} under a mesh: the port's meshes serve "
-                "the dense attention families; the rest is ROADMAP queue 1, "
-                "item 13")
+                "the dense attention and MoE families; the rest is ROADMAP "
+                "queue 1, item 13")
     model.mesh = mesh
     for mod in model.modules():
-        if isinstance(mod, Attention):
+        if isinstance(mod, (Attention, MoE)):
             mod.mesh = mesh
     if mesh.size == 1:
         return model

@@ -24,10 +24,17 @@ compiler to ask, so a cell here is placement arithmetic:
 
 What only a compiler gives (temporaries, output and code bytes, HLO FLOPs,
 collective bytes, the roofline fraction) is absent and listed so in each
-record (``ABSENT``); the roofline itself is ROADMAP queue 1, item 2.  A
-family whose path raises under a mesh is refused with its item number
-(MoE, SSM, hybrid, encoder-decoder, and the vision family's patches):
-``--all`` lists each refusal.
+record (``ABSENT``); the roofline itself is ROADMAP queue 1, item 2.  The
+dense and MoE families are placed.  An MoE cell's expert stacks follow
+the same rules: int8 in a serving cell, on ``model`` by expert where the
+count divides it (qwen3-moe's 128 on 16) or else by ``expert_mlp``
+(granite's 40); a train cell's master and moments split over ``data``
+by expert and over ``model`` by ``expert_mlp`` (the FSDP rules), which
+``bridge.shard_train_state`` reaches from the E-split compute copy
+through the whole tensor (``launch.sharding.TrainPlacement.relayout``).
+A family whose path raises under a mesh is refused with its item number
+(SSM, hybrid, encoder-decoder, and the vision family's patches): ``--all``
+lists each refusal.
 
 Usage (no card):
   python -m repro_torch.launch.dryrun --arch qwen2_5_3b --shape train_4k \

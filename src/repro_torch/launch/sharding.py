@@ -18,8 +18,10 @@ Policies (``docs/DESIGN.md`` §3):
     batch every axis.  Sharded training (``training/train_step.py``) keeps
     its bf16 compute copy by the compute rules (``fsdp=False``) and the
     f32 master and AdamW moments by the FSDP rules (ZeRO-1):
-    ``TrainPlacement`` holds both, and ``shard_like_params`` takes a
-    rank's FSDP slice of its compute-layout tensors (the JAX package's
+    ``TrainPlacement`` holds both (an MoE layer's expert stacks move
+    between them through the whole tensor, ``relayout``), and
+    ``shard_like_params`` takes a rank's FSDP slice of its compute-layout
+    tensors (the JAX package's
     ``shard_like_params`` constrains a tree to those placements).
     ``shard_batch`` places the batch by the activation rules, over
     ``data``.
@@ -42,7 +44,7 @@ __all__ = ["DEFAULT_LOGICAL_RULES", "PARAM_RULES", "make_activation_rules",
            "param_specs", "tree_specs", "model_param_shapes", "on_axis",
            "entry_axes", "local_shape", "take_shard", "TrainPlacement",
            "train_placement", "shard_like_params", "shard_batch",
-           "BATCH_AXES"]
+           "BATCH_AXES", "gather_whole", "RELAYOUT"]
 
 # --------------------------------------------------------------------------
 # Activation rules
@@ -269,16 +271,27 @@ class TrainPlacement:
     tensor by the FSDP rules: whole-tensor entries, as ``param_specs``
     gives them.  ``fsdp_dim`` is, for each name, the dim of the rank's
     compute slice that the FSDP rules split further, and the axes they
-    split it over (None where the two placements agree).  ``partial``
-    names the tensors replicated over ``model`` whose gradients are each
-    rank's share: a tensor-parallel attention's unsplit K/V projections
-    (KV heads that do not divide ``model``) and its q/k norms, which feed
-    only the rank's heads."""
+    split it over (None where the two placements agree, or where the FSDP
+    slice is not inside the compute slice).  ``relayout`` names the
+    tensors of that last kind: an MoE layer's expert stacks, which compute
+    E-split over ``model`` but rest split over ``data`` by expert and over
+    ``model`` by ``expert_mlp`` (the JAX package's FSDP rules).  Their way
+    between the layouts goes through the whole tensor (``gather_whole``):
+    the master's slice is taken from it, a gradient is gathered whole over
+    ``model``, sliced by the FSDP placement and reduce-scattered over
+    ``data``, and the compute copy is the master gathered whole over both
+    axes, then sliced; the state a rank keeps is only its slices, the
+    bytes the dry run predicts.  ``partial`` names the tensors replicated
+    over ``model`` whose gradients are each rank's share: a
+    tensor-parallel attention's unsplit K/V projections (KV heads that do
+    not divide ``model``) and its q/k norms, which feed only the rank's
+    heads."""
     mesh: Any
     compute: dict
     fsdp: dict
     fsdp_dim: dict
     partial: frozenset
+    relayout: frozenset = frozenset()
 
     def grad_specs(self, zero1: bool) -> dict:
         """The placement of each reduced gradient: the FSDP slices under
@@ -286,17 +299,21 @@ class TrainPlacement:
         return self.fsdp if zero1 else self.compute
 
 
-def _refinement(name, c, f):
-    """(dim, axes) where ``f`` splits a dim ``c`` leaves whole, or None."""
+# _refinement's answer for an FSDP slice that is not inside the compute
+# slice
+RELAYOUT = "relayout"
+
+
+def _refinement(c, f):
+    """(dim, axes) where ``f`` splits one dim ``c`` leaves whole, None where
+    the two agree, ``RELAYOUT`` otherwise."""
     out = None
     for dim, (ce, fe) in enumerate(zip(c, f)):
         ca, fa = entry_axes(ce), entry_axes(fe)
         if ca == fa:
             continue
         if ca or out is not None:
-            raise NotImplementedError(
-                f"{name}: FSDP placement {f} is not the compute placement "
-                f"{c} with one whole dim split further")
+            return RELAYOUT
         out = (dim, fa)
     return out
 
@@ -309,7 +326,9 @@ def train_placement(shapes: dict[str, tuple], mesh) -> TrainPlacement:
     train cell."""
     compute = param_specs(shapes, mesh, make_param_rules(False))
     fsdp = param_specs(shapes, mesh, make_param_rules(True))
-    fsdp_dim = {n: _refinement(n, compute[n], fsdp[n]) for n in shapes}
+    cuts = {n: _refinement(compute[n], fsdp[n]) for n in shapes}
+    relayout = frozenset(n for n, cut in cuts.items() if cut == RELAYOUT)
+    fsdp_dim = {n: None if n in relayout else cut for n, cut in cuts.items()}
     partial = set()
     for name, spec in compute.items():
         head, sep, rest = name.partition(".attn.")
@@ -318,16 +337,33 @@ def train_placement(shapes: dict[str, tuple], mesh) -> TrainPlacement:
             continue
         if any(on_axis(e) for e in compute.get(f"{head}.attn.wq.w", ())):
             partial.add(name)
-    return TrainPlacement(mesh, compute, fsdp, fsdp_dim, frozenset(partial))
+    return TrainPlacement(mesh, compute, fsdp, fsdp_dim, frozenset(partial),
+                          relayout)
+
+
+def gather_whole(t, spec: tuple, mesh):
+    """The whole tensor from each rank's block ``t`` placed by ``spec``:
+    all-gathered over each split dim's axes (``mesh`` a
+    ``launch.mesh.Mesh``; every rank of those axes calls it)."""
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if axes:
+            t = mesh.all_gather(t, dim=dim, axis=axes)
+    return t
 
 
 def shard_like_params(tree: dict, placement: TrainPlacement) -> dict:
-    """Each rank's FSDP slice (a view) of its compute-layout tensors
-    ``tree`` (gradients, weights), by name: the counterpart of the JAX
-    package's ``shard_like_params``."""
+    """Each rank's FSDP slice of its compute-layout tensors ``tree``
+    (gradients, weights), by name: a view where the slice lies inside the
+    compute slice, else taken from the whole tensor (``relayout``: a
+    collective, so every rank calls it with the same names).  The
+    counterpart of the JAX package's ``shard_like_params``."""
     mesh = placement.mesh
     out = {}
     for name, t in tree.items():
+        if name in placement.relayout:
+            t = take_shard(gather_whole(t, placement.compute[name], mesh),
+                           placement.fsdp[name], mesh)
         cut = placement.fsdp_dim[name]
         if cut is not None:
             dim, axes = cut

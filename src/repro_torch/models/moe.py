@@ -28,11 +28,53 @@ Matching the reference where torch differs from XLA:
     adds them in), with no atomics: the result is deterministic and the
     same on the card and the CPU.
 
-The expert-parallel and data-parallel (``shard_map``) branches need a
-mesh.  The port's meshes (``launch/mesh.py``) serve the dense attention
-families so far; MoE layers under a mesh, and these branches, are the
-rest of ROADMAP queue 1, item 13 (``bridge.shard_model`` refuses an MoE
-model).
+Over a mesh (``bridge.shard_model`` sets ``MoE.mesh``; the serving rules
+of ``launch/sharding.py`` place the experts, ``router`` stays replicated)
+the JAX package's ``shard_map`` branches (``_dispatch_compute(ep_axis=)``)
+become the rank's program.  Routing runs whole on every rank (its input,
+the residual stream, is the same bits on every rank).  Which dim of the
+stacks the rank holds decides its program:
+
+  * **E-split** (the expert dim divides the ``model`` axis: qwen3-moe's
+    128 experts on 2 or 4 ranks).  The rank dispatches to its own slice of
+    experts only; expert ids stay global, offset by the rank's first
+    expert (the reference's ``e_off``), so capacity, the kept copies and
+    the drops are the unsharded model's, and a copy routed to another
+    rank's expert is masked out.  Each copy (token, j) lives on exactly
+    one rank, so the rank-order sum (``Mesh.psum``) of the masked per-copy
+    contributions, (B, S, k, D), is exact, and the ascending-expert-id
+    combine then runs on that sum as on one device: the output is
+    **bitwise** the unsharded port's.  The reference sums the (B, S, D)
+    output once instead (one psum); the port moves k times those bytes to
+    keep the order: per layer and rank, at qwen3-moe's k = 8, D = 2048 in
+    bf16, 131,072 bytes for a decode step of 4 rows (16,384 for the
+    reference's psum) and 33,554,432 for a prefill of 4 x 256 tokens
+    (4,194,304); gloo carries bf16 as f32, twice that.
+  * **``expert_mlp`` split** (an expert count that does not divide the
+    axis: granite's 40 on 16, or 6 experts on 4 ranks).  ``gate`` and
+    ``up`` hold the rank's columns and ``down`` its rows, so the rank's
+    combine is its share of the output, and the (B, S, D) shares are
+    summed in rank order.  This is not bitwise (the F sum is split): the
+    f32 output is within 1e-6 relative error of one device's
+    (``tests/test_torch_moe_mesh.py``).  The reference's EP branch pads
+    such a stack with dummy experts and splits it E-wise; both compute
+    the same function, and the port computes on the slice it stores, so
+    a rank's bytes stay those of its placement.
+  * **Neither divides**: the rank computes every expert, as one device.
+
+On a ``("data", "model")`` mesh each data rank holds its own rows of the
+batch (``launch.sharding.shard_batch``) and dispatches them alone, as
+the reference's data-parallel branch does: per-sequence capacity makes
+that the global computation, and tokens never leave their rank.  The
+load-balance loss's means ``me`` and ``fe`` are the global batch's: each
+is averaged over ``data`` before their product, ``me`` through an
+all-reduce that carries its gradient (``launch.mesh.copy_to`` then
+``reduce_from``: the sum forward and backward, since the train step
+averages each data rank's gradients).  Under autograd the dispatched
+input and the gates enter the rank's experts through ``copy_to``, so
+their gradients are summed over ``model``.  ``moe_impl="local"`` on a
+mesh of more than one rank raises: it asks for GSPMD's global placement,
+which the port does not have.
 """
 from __future__ import annotations
 
@@ -44,6 +86,7 @@ from torch import nn
 
 from repro_torch.core.quantization import QTensor
 from repro_torch.core.quantized_linear import Linear, init_linear
+from repro_torch.launch.mesh import copy_to, reduce_from
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import _ACT, FFN, apply_ffn, init_ffn
 
@@ -74,10 +117,18 @@ class Experts(nn.Module):
             return getattr(self, name)
         return QTensor(values, getattr(self, name + "_scale"), self.bits)
 
+    def stack_shape(self, name: str = "gate") -> tuple[int, ...]:
+        """The shape of the stack this module holds (a rank's slice on a
+        mesh)."""
+        values = getattr(self, name + "_values")
+        return tuple((getattr(self, name) if values is None
+                      else values).shape)
+
 
 class MoE(nn.Module):
     """The float ``router`` (D, E), the ``experts`` and, with shared
-    experts, a dense ``shared`` FFN."""
+    experts, a dense ``shared`` FFN.  ``mesh`` is set by
+    ``bridge.shard_model``."""
 
     def __init__(self, router: Linear, experts: Experts,
                  shared: FFN | None = None):
@@ -85,6 +136,7 @@ class MoE(nn.Module):
         self.router = router
         self.experts = experts
         self.shared = shared
+        self.mesh = None
 
 
 def _expert_stack(generator, shape, fan_in):
@@ -117,9 +169,11 @@ def _capacity(cfg: ModelConfig, s: int) -> int:
     return min(c, max(s, cfg.top_k))
 
 
-def route(router: Linear, x: torch.Tensor, cfg: ModelConfig):
+def route(router: Linear, x: torch.Tensor, cfg: ModelConfig, mesh=None):
     """Returns (gates (B, S, k) in x's dtype, idx (B, S, k), aux): the top
-    k of the router's softmax, ties to the lower expert id."""
+    k of the router's softmax, ties to the lower expert id.  On a mesh
+    with a ``data`` axis of more than one rank the load-balance loss is
+    the global batch's (module docstring)."""
     e, k = cfg.n_experts, cfg.top_k
     logits = x.float() @ router.w.float()
     probs = torch.softmax(logits, dim=-1)
@@ -130,6 +184,10 @@ def route(router: Linear, x: torch.Tensor, cfg: ModelConfig):
     # the load-balance loss (Switch eq. 4): E * sum_e f_e * P_e
     me = probs.mean(dim=(0, 1))
     fe = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
+    if mesh is not None and mesh.data > 1:
+        n = torch.full((), mesh.data, dtype=torch.float32, device=x.device)
+        me = reduce_from(mesh, copy_to(mesh, me, "data"), "data") / n
+        fe = mesh.psum(fe, "data") / n
     return gates.to(x.dtype), idx, {"load_balance_loss": e * (me * fe).sum()}
 
 
@@ -165,16 +223,22 @@ def _rows(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         *index.shape, d)
 
 
-def _dispatch_compute(x, gates, idx, experts: Experts, cfg: ModelConfig):
-    """Sort-based capacity dispatch, the expert FFNs and the combine, per
-    sequence.  x (B, S, D); gates / idx (B, S, k)."""
+def _dispatch_compute(x, gates, idx, experts: Experts, cfg: ModelConfig,
+                      e_off: int = 0) -> torch.Tensor:
+    """Sort-based capacity dispatch to the experts ``experts`` holds (global
+    ids ``e_off`` on), their FFNs, and each copy's weighted output: x (B,
+    S, D); gates / idx (B, S, k) → (B, S, k, D), a token's copies in
+    ascending expert id, zero where a copy was dropped or routed to an
+    expert held elsewhere.  ``_combine`` adds them."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    e_local = experts.stack_shape()[0]
     c = _capacity(cfg, s)
     dev = x.device
     tk = s * k
     # the copies sorted by expert, each expert's in token order; copy i of
-    # the flat (S * k) order is token i // k's
+    # the flat (S * k) order is token i // k's.  Counts and starts are over
+    # every expert: a copy's slot is the unsharded model's
     flat_e = idx.reshape(b, tk)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     counts = torch.zeros((b, e), dtype=torch.long, device=dev).scatter_add_(
@@ -183,39 +247,76 @@ def _dispatch_compute(x, gates, idx, experts: Experts, cfg: ModelConfig):
 
     # dispatch: slot p of expert e holds its p-th copy while p < its count;
     # an empty slot reads a zero row (token s); copies past c are dropped
+    mine = slice(e_off, e_off + e_local)
     p = torch.arange(c, device=dev)
-    q = (starts[..., None] + p).clamp(max=tk - 1).reshape(b, e * c)
-    tok = torch.where(p < counts[..., None],
-                      torch.gather(order // k, 1, q).reshape(b, e, c), s)
+    q = (starts[:, mine, None] + p).clamp(max=tk - 1).reshape(b, e_local * c)
+    tok = torch.where(p < counts[:, mine, None],
+                      torch.gather(order // k, 1, q).reshape(b, e_local, c),
+                      s)
     xbuf = _rows(torch.cat([x, x.new_zeros((b, 1, d))], dim=1), tok)
-    ybuf = expert_ffn(xbuf, experts, cfg).reshape(b, e * c, d)
+    ybuf = expert_ffn(xbuf, experts, cfg).reshape(b, e_local * c, d)
 
-    # combine: each copy's slot in its expert (>= c: dropped); a token's
-    # copies are added in ascending expert id, the order in which the
-    # reference's scatter-add adds them, rounding in x's dtype after each
+    # each copy's slot in its expert (>= c: dropped), its copies in
+    # ascending expert id, the order in which the reference's scatter-add
+    # adds them
     pos_sorted = (torch.arange(tk, device=dev)
                   - torch.gather(starts, 1, torch.gather(flat_e, 1, order)))
     pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
     asc = torch.argsort(idx, dim=-1)
     pos = torch.gather(pos.reshape(b, s, k), -1, asc)           # (B, S, k)
-    slot = torch.gather(idx, -1, asc) * c + pos.clamp(max=c - 1)
+    local = torch.gather(idx, -1, asc) - e_off
+    live = (pos < c) & (local >= 0) & (local < e_local)
+    slot = local.clamp(0, e_local - 1) * c + pos.clamp(max=c - 1)
     w = torch.gather(gates, -1, asc).to(x.dtype)[..., None]
-    yk = torch.where((pos < c)[..., None], _rows(ybuf, slot) * w, 0)
-    y = torch.zeros_like(x)
-    for j in range(k):
+    return torch.where(live[..., None], _rows(ybuf, slot) * w, 0)
+
+
+def _combine(yk: torch.Tensor) -> torch.Tensor:
+    """A token's k contributions (B, S, k, D) added one after another in
+    the activation dtype, rounding after each."""
+    y = torch.zeros_like(yk[:, :, 0])
+    for j in range(yk.shape[2]):
         y = y + yk[:, :, j]
     return y
 
 
+def expert_split(experts: Experts, cfg: ModelConfig) -> str | None:
+    """Which dim of the stacks a rank holds a slice of: ``"experts"``,
+    ``"expert_mlp"``, or None (every expert whole)."""
+    e_local, _, f_local = experts.stack_shape()
+    if e_local < cfg.n_experts:
+        return "experts"
+    if f_local < cfg.d_ff_expert:
+        return "expert_mlp"
+    return None
+
+
 def apply_moe(params: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D) → (y, aux) with the load-balance loss in aux."""
-    if cfg.moe_impl == "sharded":
+    """x: (B, S, D) → (y, aux) with the load-balance loss in aux; on a
+    mesh, the rank's program (module docstring)."""
+    mesh = params.mesh
+    if mesh is not None and mesh.world > 1 and cfg.moe_impl == "local":
         raise NotImplementedError(
-            "moe_impl='sharded' (the expert- and data-parallel dispatch): "
-            "MoE under a mesh is ROADMAP queue 1, item 13 (the port's "
-            "meshes serve the dense attention families so far)")
-    gates, idx, aux = route(params.router, x, cfg)
-    y = _dispatch_compute(x, gates, idx, params.experts, cfg)
+            f"moe_impl='local' on a mesh of {mesh.world} ranks: it asks for "
+            "the global dispatch GSPMD places in the JAX package, which the "
+            "port does not have; use 'auto' or 'sharded' (the rank's "
+            "expert-parallel and data-parallel dispatch)")
+    gates, idx, aux = route(params.router, x, cfg, mesh)
+    split = (None if mesh is None or mesh.size == 1
+             else expert_split(params.experts, cfg))
+    if split is None:
+        y = _combine(_dispatch_compute(x, gates, idx, params.experts, cfg))
+    else:
+        # each rank's share of the gradients of the dispatched input and
+        # the gates is summed over the mesh
+        xe, ge = copy_to(mesh, x), copy_to(mesh, gates)
+        if split == "experts":
+            e_off = mesh.rank * params.experts.stack_shape()[0]
+            yk = _dispatch_compute(xe, ge, idx, params.experts, cfg, e_off)
+            y = _combine(reduce_from(mesh, yk))
+        else:
+            y = reduce_from(mesh, _combine(
+                _dispatch_compute(xe, ge, idx, params.experts, cfg)))
     if params.shared is not None:
         y = y + apply_ffn(params.shared, x, cfg)
     return y, aux

@@ -29,8 +29,9 @@ embedding and head, column- and row-parallel projections and the sharded
 paged attention (``models/attention.py``) reduce over the mesh so that the
 residual stream, the norms and the logits are the same bits on every rank
 (ranks that picked different greedy tokens would wait on each other in a
-collective).  Dense attention families only (ROADMAP queue 1, item 13
-for the rest), on a cache or without one: the cache-less forward
+collective).  The dense attention families and MoE (its experts split
+by ``models/moe.py``; ROADMAP queue 1, item 13 for the rest), on a cache
+or without one: the cache-less forward
 (``prefill_step``, and training, which differentiates it through the
 mesh's autograd collectives) runs each rank's heads through K5.  With
 ``split_logits=True`` (the train step's loss) a vocab-parallel head's
@@ -155,12 +156,12 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_mesh_supported(cfg: ModelConfig) -> None:
     """Refuse a family the port does not serve over a mesh yet."""
-    if cfg.is_moe or is_ssm_family(cfg) or cfg.is_encoder_decoder:
+    if is_ssm_family(cfg) or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) under a mesh: the port's meshes "
-            "serve the dense attention families; MoE (expert and data "
-            "parallel), SSM and hybrid (ssm_heads / ssm_inner) and the "
-            "encoder-decoder's memory= are ROADMAP queue 1, item 13")
+            "serve the dense attention and MoE families; SSM and hybrid "
+            "(ssm_heads / ssm_inner) and the encoder-decoder's memory= are "
+            "ROADMAP queue 1, item 13")
 
 
 def is_ssm_family(cfg: ModelConfig) -> bool:

@@ -33,11 +33,13 @@ global batch as one device:
     (``placement.partial``) are summed over ``model``;
   * the gradients go to f32 and are reduce-scattered over ``data`` into
     the FSDP slice of each leaf, as a mean (``Mesh.reduce_scatter``, in
-    rank order; a leaf the FSDP rules leave whole is averaged whole);
+    rank order; a leaf the FSDP rules leave whole is averaged whole; an
+    MoE expert stack, ``placement.relayout``, is gathered whole over
+    ``model`` first and sliced by its FSDP placement);
   * AdamW updates the rank's slice of the f32 master and moments, clipping
     by the whole tree's norm (``optim/adamw.py``);
   * the bf16 compute copy is the master's cast, all-gathered over
-    ``data``;
+    ``data`` (a relayout leaf over both axes, then sliced);
   * the loss and the metrics are the global batch's: each data rank's
     means averaged over ``data``.
 
@@ -54,8 +56,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.launch.sharding import (TrainPlacement, shard_batch,
-                                         shard_like_params)
+from repro_torch.launch.sharding import (TrainPlacement, entry_axes,
+                                         gather_whole, shard_batch,
+                                         shard_like_params, take_shard)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model, apply_model
 from repro_torch.optim.adamw import AdamW, AdamWState
@@ -145,7 +148,7 @@ class TrainState:
         master = params
         if placement is not None:
             master = {n: t.clone() if placement.fsdp_dim[n] is not None
-                      else t
+                      or n in placement.relayout else t
                       for n, t in shard_like_params(params,
                                                     placement).items()}
         for name, t in _compute_cast(params, torch.bfloat16).items():
@@ -224,6 +227,9 @@ def _reduce_grads(grads: dict, placement: TrainPlacement,
         if name in placement.partial:
             g = mesh.psum(g, "model")
         cut = placement.fsdp_dim[name] if zero1 else None
+        if zero1 and name in placement.relayout:
+            g, cut = _relayout_grad(g, placement.compute[name],
+                                placement.fsdp[name], mesh)
         if mesh.data > 1:
             g = (mesh.reduce_scatter(g, cut[0], "data") if cut is not None
                  else mesh.psum(g, "data")) / count
@@ -231,18 +237,42 @@ def _reduce_grads(grads: dict, placement: TrainPlacement,
     return out
 
 
+def _relayout_grad(g, compute: tuple, fsdp: tuple, mesh):
+    """A relayout leaf's gradient on its way to the FSDP slice: gathered
+    whole over its compute split, then cut by every FSDP axis but
+    ``data``; returns it and the dim ``data`` splits (or None), as
+    ``fsdp_dim`` gives it for the other leaves."""
+    g = gather_whole(g, compute, mesh)
+    cut = None
+    for dim, entry in enumerate(fsdp):
+        axes = entry_axes(entry)
+        if "data" in axes:
+            cut = (dim, axes)
+        elif axes:
+            n = g.shape[dim] // mesh.extent(axes)
+            g = g.narrow(dim, mesh.index(axes) * n, n)
+    return g, cut
+
+
 def _refresh_compute(params: dict, master: dict,
                      placement: TrainPlacement | None) -> None:
     """The compute copy as the master's cast, each FSDP-split leaf
-    all-gathered over ``data``."""
+    all-gathered over ``data`` (a relayout leaf gathered whole, then
+    sliced by its compute placement)."""
     for name, p in params.items():
         m = master[name]
         if p is m:
             continue
         src = m.to(p.dtype)
-        cut = None if placement is None else placement.fsdp_dim[name]
-        if cut is not None:
-            src = placement.mesh.all_gather(src, dim=cut[0], axis=cut[1])
+        if placement is not None and name in placement.relayout:
+            mesh = placement.mesh
+            src = take_shard(gather_whole(src, placement.fsdp[name], mesh),
+                             placement.compute[name], mesh)
+        else:
+            cut = None if placement is None else placement.fsdp_dim[name]
+            if cut is not None:
+                src = placement.mesh.all_gather(src, dim=cut[0],
+                                                axis=cut[1])
         p.copy_(src)
 
 

@@ -33,9 +33,10 @@ from repro_torch.launch import dryrun, shapes
 from repro_torch.launch.mesh import PlacementMesh, make_production_mesh
 from repro_torch.roofline.model_flops import count_params, model_flops
 
-DENSE = ["qwen2_5_3b", "gemma2_27b", "chatglm3_6b", "mistral_large_123b"]
-REFUSED = {"qwen3_moe_30b_a3b": "moe", "granite_moe_3b_a800m": "moe",
-           "mamba2_370m": "ssm", "zamba2_7b": "hybrid",
+# the families the dry run places: dense and MoE
+PLACED = ["qwen2_5_3b", "gemma2_27b", "chatglm3_6b", "mistral_large_123b",
+          "qwen3_moe_30b_a3b", "granite_moe_3b_a800m"]
+REFUSED = {"mamba2_370m": "ssm", "zamba2_7b": "hybrid",
            "seamless_m4t_medium": "audio", "phi3_vision_4_2b": "vlm"}
 MESHES = {"single": False, "multi": True}
 
@@ -162,7 +163,7 @@ def _jax_bytes(arch, shape, mesh) -> dict:
 
 
 @pytest.mark.parametrize("mesh_tag", list(MESHES))
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PLACED)
 def test_per_rank_bytes_equal_the_jax_placements(arch, mesh_tag):
     multi = MESHES[mesh_tag]
     stand_in = PlacementMesh(**make_production_mesh(multi_pod=multi).shape)
@@ -198,7 +199,7 @@ def test_refused_families_raise_with_their_item_number(arch):
 def test_all_writes_a_record_a_placed_cell(tmp_path, capsys):
     assert dryrun.main(["--all", "--out", str(tmp_path)]) == 0
     files = sorted(p.name for p in tmp_path.iterdir())
-    want = sorted(f"{a}__{s}__single.json" for a in DENSE
+    want = sorted(f"{a}__{s}__single.json" for a in PLACED
                   for s in shapes.cells_for(get_config(a)))
     assert files == want
     for name in files:

@@ -210,13 +210,6 @@ def test_dequant_is_the_reference_formula(dtype):
         assert torch.equal(got, q.values.to(dtype) * q.scale.to(dtype))
 
 
-def test_sharded_moe_impl_raises():
-    _, _, tcfg, block = _block_pair("qwen3_moe_30b_a3b", "default")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        moe.apply_moe(block, torch.zeros(1, 2, tcfg.d_model),
-                      tcfg.replace(moe_impl="sharded"))
-
-
 # ---------------------------------------------------------------------------
 # weights: bridge, init, quantization
 # ---------------------------------------------------------------------------
