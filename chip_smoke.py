@@ -2940,12 +2940,13 @@ HYBRID_ARCH, SSM_ARCH = "zamba2_7b", "mamba2_370m"
 # phase 5's depth for zamba2-7b: layer 5 is its first shared site (every
 # 6th layer), so 6 layers hold one application of the shared block
 HYBRID_CHECK_LAYERS = 6
-# the depth of the slot families' Scheduler runs (zamba2-7b: two shared
-# sites, layers 5 and 11).  At full depth they took ~70 s of the
-# script's 1200 s; what they check (exact launch counts, tokens and the
-# slot state after every tick bitwise against the plain versions) holds
-# at any depth, and the serve and prefill_step keep full depth.
-SLOT_SCHED_LAYERS = 12
+# the depth of the slot families' Scheduler runs (zamba2-7b: its first
+# shared site, layer 5).  At full depth they took ~70 s of the script's
+# 1200 s; the cut from 12 layers made part of the room the mesh phase's
+# SSM program needed.  What they check (exact launch counts, tokens and
+# the slot state after every tick bitwise against the plain versions)
+# holds at any depth, and the serve and prefill_step keep full depth.
+SLOT_SCHED_LAYERS = 6
 
 
 def slot_scheduler(model, cfg, dev, spec=None):
@@ -4861,8 +4862,10 @@ MESH_QWEN = "qwen2_5_3b"
 # card sets the depths' cost
 MESH_QWEN_LAYERS = {2: 8, 4: 2}
 # the trace's budgets on the meshes, halved to make room for the
-# sharded-training part: each decode tick is ~16-34 gloo collectives
-MESH_BUDGET_DIV = 2
+# sharded-training part, quartered for the SSM and hybrid program: each
+# decode tick is ~16-34 gloo collectives (the near-tie rule and the
+# launch counts hold at any budget; no page wait is asked of the meshes)
+MESH_BUDGET_DIV = 4
 # the pages mesh's depth witness: qwen2.5-3b at all its layers on 4 ranks,
 # 4 requests served for a few ticks, every layer's split-KV attention
 # output held against the plain f32 reference (paged_decode_attention_ref)
@@ -5195,7 +5198,7 @@ def layer0_projections(model, cfg, mesh):
     """Layer 0's seven projections on seeded inputs at decode and prefill
     rows, whole: q, k, v, gate and up gathered over the mesh, wo and down
     after their reduction (a rank's wo takes its columns of the whole
-    attention output)."""
+    attention output); returned by rank 0 (every rank computes them)."""
     from repro_torch.core.qkv_fusion import apply_fused_qkv
     from repro_torch.core.quantized_linear import (apply_linear_swiglu,
                                                    apply_linears)
@@ -5218,13 +5221,14 @@ def layer0_projections(model, cfg, mesh):
                "gate": whole(gate, ffn.gate), "up": whole(up, ffn.up),
                "down": apply_linear_swiglu(ffn.down, gate, up, mode="w8a8")}
         out.update({f"{name} ({m} rows)": t.cpu() for name, t in got.items()})
-    return out
+    return out if mesh.rank == 0 else {}
 
 
 def moe_layer_outputs(model, cfg, mesh):
     """Every layer's MoE block on seeded inputs at MOE_MESH_ROWS, whole: an
     E-split rank's combine runs on the sum of every rank's per-copy
-    contributions, so its output is the whole block's."""
+    contributions, so its output is the whole block's; returned by rank
+    0."""
     from repro_torch.models.moe import apply_moe
     out = {}
     for b, s in MOE_MESH_ROWS:
@@ -5233,7 +5237,7 @@ def moe_layer_outputs(model, cfg, mesh):
         for i, layer in enumerate(model.layers):
             y, _ = apply_moe(layer.moe, x, cfg)
             out[f"layer {i} moe ({b} x {s})"] = y.cpu()
-    return out
+    return out if mesh.rank == 0 else {}
 
 
 def expert_bytes(model):
@@ -5244,26 +5248,31 @@ def expert_bytes(model):
                if isinstance(m, Experts) for b in m.buffers())
 
 
-def serve_rank(mesh, cfg, seed, probe):
-    """A rank of ``cfg``'s greedy serve: ``probe(model, cfg, mesh)`` (whole
-    outputs to hold bitwise against mesh 1's), then ``prefill`` of the 4
-    prompts into paged bf16 pools and MISTRAL_STEPS ``serve_step``s,
-    logits kept, exact launch counts, times, peak memory and slab shapes;
-    then the collective share of more decode steps.  Rank 0 (or mesh 1)
-    returns the logits and the probe's outputs."""
+def serve_rank(mesh, cfg, seed, probe, config, per_forward,
+               share_steps=COLLECTIVE_STEPS):
+    """A rank of ``cfg``'s greedy serve on a cache built by ``config`` (a
+    ``CacheConfig`` of ``mesh``): ``probe(model, cfg, mesh)`` (its
+    outputs, held against mesh 1's, and its seconds), then ``prefill`` of
+    the 4 prompts and MISTRAL_STEPS ``serve_step``s, logits kept, launch
+    counts against ``per_forward`` (one forward's) times the forwards,
+    times, peak memory, the cache's and the expert and Mamba2 weights'
+    bytes, slab shapes; then the collective share of ``share_steps`` more
+    decode steps.  Rank 0 (or mesh 1) returns the logits."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serving.cache import CacheConfig, init_cache
+    from repro_torch.models.ssm import Mamba2
+    from repro_torch.serving.cache import init_cache
     from repro_torch.serving.engine import prefill, serve_step
     dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     model, draw_s = mesh_model(cfg, mesh, seed)
     prompts, lens = serve_prompts(cfg, dev)
-    max_len = prompts.shape[1] + MISTRAL_STEPS + COLLECTIVE_STEPS + PAGE
-    config = CacheConfig(layout="paged", page_size=PAGE, mesh=mesh)
-    by = config.resolved_kv_shard(cfg.n_kv_heads)
+    max_len = prompts.shape[1] + MISTRAL_STEPS + share_steps + PAGE
     with torch.inference_mode():
+        t0 = time.perf_counter()
         probed = probe(model, cfg, mesh)
+        sync(dev)
+        probe_s = time.perf_counter() - t0
         cache = init_cache(cfg, len(lens), max_len, torch.bfloat16, config,
                            device=dev)
         reset_launch_counts()
@@ -5283,43 +5292,324 @@ def serve_rank(mesh, cfg, seed, probe):
         sync(dev)
         t_decode = time.perf_counter() - t0
         counts = launch_counts()
-        want = {k: n * cfg.n_layers * (1 + MISTRAL_STEPS)
-                for k, n in mesh_layer_launches(cfg, by).items()}
+        want = {k: n * (1 + MISTRAL_STEPS) for k, n in per_forward.items()}
         state = {"tok": tok}
 
         def step():
             lg, _ = serve_step(model, cache, state["tok"], None, cfg)
             state["tok"] = lg[:, -1].argmax(-1)[:, None]
 
-        share, step_ms, n_coll = collective_share(step, mesh)
-    out = {"rank": mesh.rank, "policy": by, "counts": counts, "want": want,
+        share, step_ms, n_coll = collective_share(step, mesh, share_steps)
+    out = {"rank": mesh.rank, "policy": cache.get("kv_shard"),
+           "counts": counts, "want": want,
            "tokens": torch.cat(toks, dim=1).cpu(),
            "prefill_s": t_prefill,
            "tok_s": len(lens) * MISTRAL_STEPS / t_decode,
-           "draw_s": draw_s,
+           "draw_s": draw_s, "probe_s": probe_s, "probed": probed,
            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                        if dev.type == "cuda" else 0.0),
            "shapes": slab_shapes(cache), "collective_share": share,
            "decode_step_ms": step_ms, "collectives_a_step": n_coll,
            "resident_gb": resident_gb(model),
-           "expert_bytes": expert_bytes(model)}
+           "expert_bytes": expert_bytes(model),
+           "mamba_bytes": buffer_bytes(model, Mamba2),
+           "cache_bytes": {k: v.numel() * v.element_size()
+                           for k, v in cache.items() if torch.is_tensor(v)}}
     if mesh.rank == 0:
-        out.update(logits=torch.stack(logits).cpu(), probed=probed)
+        out["logits"] = torch.stack(logits).cpu()
     return out
 
 
+def paged_serve_rank(mesh, cfg, seed, probe):
+    """``serve_rank`` on the paged bf16 pool (PAGE-token pages), each
+    layer's launches ``mesh_layer_launches`` under the pool's policy."""
+    from repro_torch.serving.cache import CacheConfig
+    config = CacheConfig(layout="paged", page_size=PAGE, mesh=mesh)
+    by = config.resolved_kv_shard(cfg.n_kv_heads)
+    return serve_rank(mesh, cfg, seed, probe, config,
+                      {k: n * cfg.n_layers
+                       for k, n in mesh_layer_launches(cfg, by).items()})
+
+
 def mistral_rank(mesh, smoke=False):
-    """A rank of mistral-large-123b's greedy serve (``serve_rank``), layer
-    0's projections probed."""
+    """A rank of mistral-large-123b's greedy serve (``paged_serve_rank``),
+    layer 0's projections probed."""
     _, cfg = mesh_configs(smoke)
-    return serve_rank(mesh, cfg, MISTRAL_SEED, layer0_projections)
+    return paged_serve_rank(mesh, cfg, MISTRAL_SEED, layer0_projections)
 
 
 def moe_mesh_rank(mesh, smoke=False):
-    """A rank of qwen3-moe-30b-a3b's greedy serve (``serve_rank``), every
-    layer's MoE block probed (``moe_layer_outputs``)."""
-    return serve_rank(mesh, moe_mesh_config(smoke), MOE_MESH_SEED,
-                      moe_layer_outputs)
+    """A rank of qwen3-moe-30b-a3b's greedy serve (``paged_serve_rank``),
+    every layer's MoE block probed (``moe_layer_outputs``)."""
+    return paged_serve_rank(mesh, moe_mesh_config(smoke), MOE_MESH_SEED,
+                            moe_layer_outputs)
+
+
+# mamba2-370m and zamba2-7b served on mesh 4 against mesh 1, w8a8 bf16 at
+# full width (mamba2: 8 of its 32 SSM heads a rank; zamba2: 28 of 112 SSM
+# heads and 8 of 32 attention heads a rank), greedily, the mistral serve's
+# prompts and steps, on the dense slot cache (CacheConfig(mesh=)).  The
+# depths: zamba2 at HYBRID_CHECK_LAYERS (its first shared site), mamba2 at
+# 12 of its 48 layers.  At 48 a mesh-4 decode step makes 146 gloo
+# collectives (3 a layer, the embedding's and the head's), at gloo's ~7.5
+# ms each on one card (PERF.md) over a second a step; and the
+# norm's sum over the ranks is not bitwise, so a deeper model drifts
+# further from mesh 1 (its K1 roundings of out_proj's input flip).  A cut
+# must keep NEAR_TIE, mamba2 no lower than 12 layers and zamba2 its shared
+# site.  Every layer's Mamba2 block is probed on seeded inputs at
+# SSM_MESH_ROWS ((batch, tokens): a decode step from a seeded state, and a
+# prefill-commit of SSM_MESH_VALID of its tokens)
+SSM_MESH_LAYERS = {SSM_ARCH: 12, HYBRID_ARCH: HYBRID_CHECK_LAYERS}
+SSM_MESH_SEEDS = {SSM_ARCH: 17, HYBRID_ARCH: 16}
+SSM_MESH_ROWS = ((4, 1), (1, 256))
+SSM_MESH_VALID = 200
+# decode steps of the collective share (COLLECTIVE_STEPS elsewhere): a
+# mesh-4 step of these models is 0.15-0.3 s of gloo
+SSM_COLLECTIVE_STEPS = 4
+# a Mamba2 block's tensors a rank holds a quarter of on mesh 4 (the rest
+# whole): in_z / in_x by their ssm_inner columns (values and per-column
+# scales), out_proj by its rows (its per-column scales whole), conv_x by
+# channel
+MAMBA_SPLIT = ("in_z.w_q_values", "in_z.w_q_scale", "in_x.w_q_values",
+               "in_x.w_q_scale", "out_proj.w_q_values", "conv_x.w")
+# the slot state's arrays a rank holds a quarter of (the rest whole)
+SLOT_SPLIT = ("ssm_h", "conv_x", "shared_k", "shared_v")
+
+
+def ssm_mesh_config(arch, smoke):
+    """``arch`` at full width and its SSM_MESH_LAYERS depth, w8a8 bf16; its
+    smoke config for a rehearsal on the CPU."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if smoke else get_config)(arch).replace(
+        quant_proj="w8a8", dtype="bfloat16")
+    return cfg if smoke else cfg.replace(n_layers=SSM_MESH_LAYERS[arch])
+
+
+def ssm_mesh_launches(cfg, world) -> dict:
+    """One forward's launches of an SSM or hybrid model (w8a8, the dense
+    slot cache) on ``world`` ranks: ``forward_launches``; on more than one,
+    each Mamba layer's out_proj and each shared site's wo and down
+    row-parallel (a K1 absmax launch, a K1 given-absmax launch, a K2
+    int32-out and a K2 epilogue in place of its K2)."""
+    from repro_torch.serving.cache import n_shared_sites
+    want = forward_launches(cfg)
+    if world > 1:
+        rows = cfg.n_layers + 2 * n_shared_sites(cfg)
+        want["tiled_matmul"] -= rows
+        for k in ("row_absmax", "tiled_matmul_int32", "int8_epilogue"):
+            want[k] += rows
+    return want
+
+
+def digest(t) -> str:
+    """An exact fingerprint of a tensor's bits."""
+    return hashlib.sha256(t.detach().contiguous().cpu().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def ssm_layer_probe(model, cfg, mesh, world=4):
+    """Every layer's Mamba2 block on seeded inputs at SSM_MESH_ROWS, the
+    state drawn whole and each rank given its slice: ``digests`` of the
+    in_z / in_x columns, the gated norm's input ``y`` (the scan output plus
+    the skip term) and the new ``ssm_h`` / ``conv_x`` of each of
+    ``world`` ranks' heads (on mesh 1 every rank's slice of the whole ones,
+    on a mesh of ``world`` its own, under its rank), the block's output
+    (whole on every rank) and its digest."""
+    from repro_torch.models import ssm
+    dev, p = mesh.device, cfg.ssm_head_dim
+    h, k, n = cfg.ssm_n_heads, cfg.ssm_conv - 1, cfg.ssm_state
+    own = mesh.size > 1
+    per = h // world
+    linears, norm = ssm.apply_linears, ssm._gated_norm
+    seen = {}
+
+    def rec_linears(projections, x, **kw):
+        out = linears(projections, x, **kw)
+        seen["z"], seen["x"] = out[0], out[1]
+        return out
+
+    def rec_norm(y, z, *args, **kw):
+        seen["y"] = y
+        return norm(y, z, *args, **kw)
+
+    digests, outputs = {}, {}
+    rows = SSM_MESH_ROWS if cfg.vocab_size > 1000 else ((4, 1), (1, 32))
+    ssm.apply_linears, ssm._gated_norm = rec_linears, rec_norm
+    try:
+        for b, s in rows:
+            x = device_randn((b, s, cfg.d_model), 60 + s, dev, 1.0,
+                             torch.bfloat16)
+            whole = {"h": device_randn((b, h, p, n), 61 + s, dev, 0.1),
+                     "conv_x": device_randn((b, k, cfg.d_inner), 62 + s,
+                                            dev),
+                     "conv_B": device_randn((b, k, n), 63 + s, dev),
+                     "conv_C": device_randn((b, k, n), 64 + s, dev)}
+            nv = (None if s == 1 else
+                  torch.full((b,), min(SSM_MESH_VALID, s - 3), device=dev))
+            lo, hi = ((mesh.rank * per, (mesh.rank + 1) * per) if own
+                      else (0, h))
+            state = dict(whole, h=whole["h"][:, lo:hi],
+                         conv_x=whole["conv_x"][..., lo * p:hi * p])
+            for i, layer in enumerate(model.layers):
+                y, new = ssm.apply_mamba2(layer.mamba, x, cfg, state=state,
+                                          n_valid=nv)
+                tag = f"layer {i} ({b} x {s})"
+                parts = {"z": seen["z"], "x": seen["x"], "y": seen["y"],
+                         "ssm_h": new["h"], "conv_x": new["conv_x"]}
+                for r in ([mesh.rank] if own else range(world)):
+                    c0 = (r - (mesh.rank if own else 0)) * per
+                    for name, t in parts.items():
+                        heads = name == "ssm_h"
+                        a, z = (c0, c0 + per) if heads else \
+                            (c0 * p, (c0 + per) * p)
+                        cut = t[:, a:z] if heads else t[..., a:z]
+                        digests[(tag, name, r)] = digest(cut)
+                digests[(tag, "out")] = digest(y)
+                outputs[tag] = y.cpu()
+    finally:
+        ssm.apply_linears, ssm._gated_norm = linears, norm
+    return {"digests": digests,
+            "outputs": outputs if mesh.rank == 0 else None}
+
+
+def buffer_bytes(model, kind):
+    """{buffer name within a module of ``kind``: its bytes summed over the
+    model's modules of that kind}."""
+    out = collections.Counter()
+    for m in model.modules():
+        if isinstance(m, kind):
+            for name, b in m.named_buffers():
+                out[name] += b.numel() * b.element_size()
+    return dict(out)
+
+
+def ssm_serve_rank(mesh, arch, smoke):
+    """A rank of ``arch``'s greedy serve (``serve_rank``) on the dense slot
+    cache, every layer's Mamba2 block probed (``ssm_layer_probe``)."""
+    from repro_torch.serving.cache import CacheConfig
+    cfg = ssm_mesh_config(arch, smoke)
+    return serve_rank(mesh, cfg, SSM_MESH_SEEDS[arch], ssm_layer_probe,
+                      CacheConfig(mesh=mesh),
+                      ssm_mesh_launches(cfg, mesh.size), SSM_COLLECTIVE_STEPS)
+
+
+def ssm_mesh_rank(mesh, smoke=False):
+    """A rank of the SSM and hybrid serves (``ssm_serve_rank``):
+    mamba2-370m, then zamba2-7b, each model freed before the next."""
+    import gc
+    out = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        t0 = time.perf_counter()
+        out[arch] = ssm_serve_rank(mesh, arch, smoke)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_ssm_mesh(runs, one, arch, smi, smoke=False):
+    """The checks and prints of ``ssm_serve_rank``'s mesh-4 runs of
+    ``arch`` against mesh 1's ``one``: exact launch counts and the same
+    tokens on every rank; every layer's in_z / in_x columns, gated-norm
+    input and new ssm_h / conv_x bitwise mesh 1's slice of them on every
+    rank, the layer's output the same bits on every rank and within
+    NORM_MESH_REL of mesh 1's; the tokens by the near-tie rule; each rank's
+    bytes of the split Mamba2 weights and slot state a quarter of mesh
+    1's, the rest whole; returns the record."""
+    from repro_torch.models.ssm import NORM_MESH_REL
+    cfg = ssm_mesh_config(arch, smoke)
+    r0 = runs[0]
+    what = (f"mesh 4 ({r0['policy']}) {cfg.name}, {cfg.n_layers} layers, "
+            "dense slot cache")
+    for r in runs:
+        if r["counts"] != r["want"]:
+            fail(f"{what}: rank {r['rank']} launches {r['counts']} != "
+                 f"{r['want']}")
+        if not torch.equal(r["tokens"], r0["tokens"]):
+            fail(f"{what}: rank {r['rank']}'s tokens differ from rank 0's")
+    one_want = {k: n * (1 + MISTRAL_STEPS)
+                for k, n in ssm_mesh_launches(cfg, 1).items()}
+    if one["counts"] != one_want:
+        fail(f"mesh 1 {cfg.name}: launches {one['counts']} != {one_want}")
+    n_bits = 0
+    for r in runs:
+        for key, d in r["probed"]["digests"].items():
+            if len(key) == 2:                  # the whole output
+                if d != r0["probed"]["digests"][key]:
+                    fail(f"{what}: {key[0]}'s output on rank {r['rank']} "
+                         "differs from rank 0's")
+                continue
+            if d != one["probed"]["digests"][key]:
+                fail(f"{what}: {key[0]} {key[1]} of rank {key[2]}'s heads "
+                     "differs from mesh 1's slice of it")
+            n_bits += 1
+    limit = NORM_MESH_REL[torch.bfloat16]
+    worst = 0.0
+    for tag, want in one["probed"]["outputs"].items():
+        got = r0["probed"]["outputs"][tag]
+        err = float((got.double() - want.double()).abs().max()
+                    / want.double().abs().max())
+        worst = max(worst, err)
+        if err > limit:
+            fail(f"{what}: {tag}'s output at {err:.3e} of mesh 1's largest "
+                 f"|value| (limit {limit:.3e})")
+    print(f"{what}: launches a rank {r0['counts']} (exact on every rank); "
+          f"every layer's in_z / in_x columns, gated-norm input and new "
+          f"ssm_h / conv_x at {SSM_MESH_ROWS} (batch, tokens) bitwise mesh "
+          f"1's slice on every rank ({n_bits} tensors); the layers' outputs "
+          f"the same bits on every rank, within {worst:.3e} of mesh 1's "
+          f"largest |value| (limit {limit:.3e}: the gated norm's sum over "
+          "the ranks)")
+    logit_rel, live, share = mesh_tokens(f"{what} against mesh 1", one, r0)
+    for key in one["mamba_bytes"]:
+        n = 4 if key in MAMBA_SPLIT else 1
+        for r in runs:
+            if n * r["mamba_bytes"][key] != one["mamba_bytes"][key]:
+                fail(f"{what}: rank {r['rank']} holds "
+                     f"{r['mamba_bytes'][key]} bytes of the Mamba2 blocks' "
+                     f"{key}, mesh 1 {one['mamba_bytes'][key]} (1/{n} "
+                     "expected)")
+    for key in one["cache_bytes"]:
+        n = 4 if key in SLOT_SPLIT else 1
+        for r in runs:
+            if n * r["cache_bytes"][key] != one["cache_bytes"][key]:
+                fail(f"{what}: rank {r['rank']} holds "
+                     f"{r['cache_bytes'][key]} bytes of the cache's {key}, "
+                     f"mesh 1 {one['cache_bytes'][key]} (1/{n} expected)")
+    split = sum(v for k, v in r0["mamba_bytes"].items() if k in MAMBA_SPLIT)
+    whole = sum(v for k, v in r0["mamba_bytes"].items()
+                if k not in MAMBA_SPLIT)
+    slab = {k: v for k, v in r0["cache_bytes"].items() if k in SLOT_SPLIT}
+    print(f"  logits (prefill and the {live - 1} decode steps whose inputs "
+          f"agree) within {logit_rel:.3e} of the largest |logit| (printed, "
+          "no limit: the layers are held above)")
+    print(f"  bytes a rank: the Mamba2 blocks' split weights {split} (mesh "
+          f"1: {4 * split}), their replicated ones {whole} (whole); the "
+          f"slot state's split arrays {slab} (a quarter of mesh 1's), the "
+          "rest whole")
+    for r in runs:
+        print(f"  rank {r['rank']}: resident {r['resident_gb']:.2f} GB, peak "
+              f"{r['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated), "
+              f"drawn in {r['draw_s']:.1f} s, layers probed in "
+              f"{r['probe_s']:.1f} s")
+    print(f"  prefill of {list(MISTRAL_PROMPTS)} tokens: mesh 1 "
+          f"{one['prefill_s'] * 1e3:.3f} ms, mesh 4 "
+          f"{r0['prefill_s'] * 1e3:.3f} ms; decode: mesh 1 "
+          f"{one['tok_s']:.1f} tok/s, mesh 4 {r0['tok_s']:.1f} tok/s (host "
+          f"clock); mesh 4's decode step {r0['decode_step_ms']:.3f} ms with "
+          f"a synchronize around each of its {r0['collectives_a_step']:.0f} "
+          f"collectives, {r0['collective_share']:.3f} of it in them (gloo "
+          "through host buffers, 4 ranks on one card); the serve "
+          f"{r0['seconds']:.1f} s on 4 ranks, {one['seconds']:.1f} s on 1 "
+          f"(host clock) [{smi}]")
+    return {"one": {k: v for k, v in one.items()
+                    if k not in ("logits", "probed")},
+            "four": {k: v for k, v in r0.items()
+                     if k not in ("logits", "probed")},
+            "logit_rel": logit_rel, "out_rel": worst,
+            "identical_share": share, "layers": cfg.n_layers,
+            "split_bytes": split, "replicated_bytes": whole}
 
 
 # the sharded-training part of the mesh phase: qwen2.5-3b at full width
@@ -5691,8 +5981,9 @@ def mesh4_rank(mesh, smoke=False):
     """The mesh phase's programs in one spawn of 4 ranks (each rank starts
     once): qwen2.5-3b's Scheduler trace on 2 ranks (``heads``,
     ``mesh2_rank``) and on 4 (``pages``), the pages depth witness,
-    mistral-large-123b's serve, qwen3-moe-30b-a3b's serve, then sharded
-    training; each part's memory freed before the next."""
+    mistral-large-123b's serve, qwen3-moe-30b-a3b's serve, mamba2-370m's
+    and zamba2-7b's serves, then sharded training; each part's memory
+    freed before the next."""
     import gc
     out, seconds = {}, {}
     for name, fn, args in (("qwen2", mesh2_rank, (smoke,)),
@@ -5700,6 +5991,7 @@ def mesh4_rank(mesh, smoke=False):
                            ("witness", pages_witness_rank, (smoke,)),
                            ("mistral", mistral_rank, (smoke,)),
                            ("moe", moe_mesh_rank, (smoke,)),
+                           ("ssm", ssm_mesh_rank, (smoke,)),
                            ("train", train_mesh_rank, (smoke,))):
         t0 = time.perf_counter()
         out[name] = fn(mesh, *args)
@@ -5945,6 +6237,35 @@ def check_qwen_mesh(world, runs, qwen_cfg, qwen_ref, ref_tok_s, smi):
                 unsharded_tok_s=ref_tok_s)
 
 
+def mesh_tokens(what, one, r0):
+    """The near-tie rule on mesh 4's tokens (``r0``'s) against mesh 1's
+    (``one``'s, whose logits give the gaps), and the logits' largest
+    difference over the row's largest |logit| at the steps whose inputs
+    still agree: (that difference, the steps, the identical share)."""
+    ref_toks, got_toks = one["tokens"], r0["tokens"]
+    gaps, top2 = {}, {}
+    for step in range(got_toks.shape[1]):
+        lg = one["logits"][step]
+        vals, idx = lg.topk(2, dim=-1)
+        rel = (vals[:, 0] - vals[:, 1]) / lg.abs().amax(-1)
+        for b in range(lg.shape[0]):
+            gaps[(b, step)], top2[(b, step)] = float(rel[b]), idx[b].tolist()
+    first = [first_divergence(ref_toks[b].tolist(), got_toks[b].tolist())
+             for b in range(ref_toks.shape[0])]
+    # the logits at the first differing token still share their inputs
+    live = min(min(f if f is not None else got_toks.shape[1] for f in first)
+               + 1, got_toks.shape[1])
+    worst = max(
+        float(((r0["logits"][step] - one["logits"][step]).abs().amax(-1)
+               / one["logits"][step].abs().amax(-1)).max())
+        for step in range(live))
+    share = near_tie_rule(
+        what, {b: ref_toks[b] for b in range(ref_toks.shape[0])},
+        {b: got_toks[b] for b in range(got_toks.shape[0])}, gaps, top2,
+        NEAR_TIE)
+    return worst, live, share
+
+
 def check_mesh_serve(runs, one, cfg, probed, smi):
     """The checks and prints of ``serve_rank``'s mesh-4 runs against mesh
     1's ``one``: exact launch counts and the same tokens on every rank, the
@@ -5968,31 +6289,10 @@ def check_mesh_serve(runs, one, cfg, probed, smi):
                  f"{(got.double() - want.double()).abs().max():.3e})")
     print(f"{what}: launches a rank {r0['counts']} (exact on every rank); "
           f"{probed}, {len(one['probed'])} tensors, bitwise mesh 1's")
-    ref_toks, got_toks = one["tokens"], r0["tokens"]
-    gaps, top2, worst = {}, {}, 0.0
-    for step in range(got_toks.shape[1]):
-        lg = one["logits"][step]
-        vals, idx = lg.topk(2, dim=-1)
-        rel = (vals[:, 0] - vals[:, 1]) / lg.abs().amax(-1)
-        for b in range(lg.shape[0]):
-            gaps[(b, step)], top2[(b, step)] = float(rel[b]), idx[b].tolist()
-    first = [first_divergence(ref_toks[b].tolist(), got_toks[b].tolist())
-             for b in range(ref_toks.shape[0])]
-    # the logits at the first differing token still share their inputs
-    live = min(min(f if f is not None else got_toks.shape[1] for f in first)
-               + 1, got_toks.shape[1])
-    for step in range(live):
-        diff = (r0["logits"][step] - one["logits"][step]).abs().amax(-1)
-        rel = float((diff / one["logits"][step].abs().amax(-1)).max())
-        worst = max(worst, rel)
+    worst, live, share = mesh_tokens(f"{what} against mesh 1", one, r0)
     if worst > MESH_LOGIT_REL:
         fail(f"{what}: logits differ from mesh 1's by {worst:.3e} of the "
              f"largest |logit| (limit {MESH_LOGIT_REL})")
-    share = near_tie_rule(
-        f"{what} against mesh 1",
-        {b: ref_toks[b] for b in range(ref_toks.shape[0])},
-        {b: got_toks[b] for b in range(got_toks.shape[0])}, gaps, top2,
-        NEAR_TIE)
     print(f"  logits (prefill and the {live - 1} decode steps whose inputs "
           f"agree) within {worst:.3e} of the largest |logit| (limit "
           f"{MESH_LOGIT_REL})")
@@ -6028,7 +6328,12 @@ def mesh_paths(dev, smi, smoke=False):
     tokens by the near-tie rule, the logits within MESH_LOGIT_REL; then
     qwen3-moe-30b-a3b at full width, MOE_MESH_LAYERS layers, the same
     way, every layer's MoE block bitwise mesh 1's and each rank's expert
-    bytes a quarter of mesh 1's (``moe_mesh_rank``).  Each
+    bytes a quarter of mesh 1's (``moe_mesh_rank``); then mamba2-370m and
+    zamba2-7b at full width, SSM_MESH_LAYERS layers, on the dense slot
+    cache, every layer's Mamba2 stages bitwise mesh 1's slice and its
+    output within the norm's tolerance, each rank's split weights and slot
+    state a quarter of mesh 1's (``ssm_mesh_rank``, ``check_ssm_mesh``).
+    Each
     rank's counts are exact and every rank emits the same tokens.  Then
     sharded training (``train_mesh_rank``, ``check_train_mesh``) on the
     same 4 ranks as a (data 2, model 2) mesh, against the unsharded steps
@@ -6073,11 +6378,20 @@ def mesh_paths(dev, smi, smoke=False):
               f"{one['resident_gb']:.2f} GB, peak {one['peak_gb']:.2f} GB, "
               f"drawn in {one['draw_s']:.1f} s; {one['seconds']:.1f} s")
         torch.cuda.empty_cache()
+    stamp("mesh phase: mamba2-370m and zamba2-7b on 1 rank (here)")
+    ones["ssm"] = ssm_mesh_rank(Mesh(1, backend=MESH_BACKEND, device=dev),
+                                smoke)
+    for arch, one in ones["ssm"].items():
+        cfg = ssm_mesh_config(arch, smoke)
+        print(f"mesh 1 {cfg.name}: {describe(cfg)}; resident "
+              f"{one['resident_gb']:.2f} GB, peak {one['peak_gb']:.2f} GB, "
+              f"drawn in {one['draw_s']:.1f} s; {one['seconds']:.1f} s")
+    torch.cuda.empty_cache()
     stamp("mesh phase: sharded training, the unsharded steps (here)")
     train_ref = train_mesh_reference(dev, smoke)
     stamp("mesh phase: 4 ranks (the Scheduler trace on 2 and on 4, the "
-          "depth witness, mistral-large-123b, qwen3-moe-30b-a3b, sharded "
-          "training)")
+          "depth witness, mistral-large-123b, qwen3-moe-30b-a3b, "
+          "mamba2-370m and zamba2-7b, sharded training)")
     every = spawn_ranks(mesh4_rank, 4, backend=MESH_BACKEND,
                         device=MESH_DEVICE, args=(smoke,),
                         timeout=MESH_TIMEOUT)
@@ -6135,6 +6449,13 @@ def mesh_paths(dev, smi, smoke=False):
           f"{moe_cfg.n_experts // 4} experts a rank); the program "
           f"{every[0]['seconds']['moe']:.1f} s on 4 ranks, "
           f"{one['seconds']:.1f} s on 1 (host clock) [{smi}]")
+    res["ssm"] = {arch: check_ssm_mesh([r["ssm"][arch] for r in every],
+                                       ones["ssm"][arch], arch, smi, smoke)
+                  for arch in (SSM_ARCH, HYBRID_ARCH)}
+    print(f"  the SSM and hybrid program {every[0]['seconds']['ssm']:.1f} s "
+          "on 4 ranks (both serves, their draws and probes included), "
+          f"{sum(o['seconds'] for o in ones['ssm'].values()):.1f} s on 1 "
+          f"(host clock) [{smi}]")
     stamp("mesh phase: sharded training")
     res["train"] = check_train_mesh([r["train"] for r in every], train_ref,
                                     smi, smoke)
@@ -6533,6 +6854,16 @@ def main():
           f"share {o4['collective_share']:.3f}; logits within "
           f"{mesh['moe']['logit_rel']:.3e}; identical share "
           f"{mesh['moe']['identical_share']:.3f} [{smi}]")
+    for arch, r in mesh["ssm"].items():
+        s1, s4 = r["one"], r["four"]
+        print(f"{arch} ({r['layers']} layers, w8a8 bf16, dense slot cache): "
+              f"mesh 1 {s1['tok_s']:.1f} tok/s, mesh 4 ({s4['policy']}) "
+              f"{s4['tok_s']:.1f} tok/s; split Mamba2 weights "
+              f"{r['split_bytes']} bytes a rank; collective share "
+              f"{s4['collective_share']:.3f}; layer outputs within "
+              f"{r['out_rel']:.3e}, logits within {r['logit_rel']:.3e}; "
+              f"identical share {r['identical_share']:.3f}; the serve "
+              f"{s4['seconds']:.1f} s on 4 ranks [{smi}]")
     st = mesh["train"]
     print(f"sharded training ({TRAIN_ARCH}, {TRAIN_MESH_LAYERS} layers, bf16 "
           f"ZeRO-1, mesh (data {TRAIN_MESH[0]}, model {TRAIN_MESH[1]}), 4 "

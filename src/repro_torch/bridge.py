@@ -46,7 +46,8 @@ from repro_torch.launch.sharding import (make_param_rules,
 from repro_torch.models.ffn import FFN
 from repro_torch.models.layers import Embedding, LMHead, Norm
 from repro_torch.models.moe import Experts, MoE
-from repro_torch.models.ssm import IN_PROJ, ConvWeight, Mamba2, SSMParams
+from repro_torch.models.ssm import (IN_PROJ, ConvWeight, Mamba2, SSMParams,
+                                   check_head_split)
 from repro_torch.models.transformer import (DecoderBlock, Encoder, Model,
                                             SSMBlock, check_supported,
                                             is_ssm_family)
@@ -238,22 +239,29 @@ def shard_model(model: nn.Module, mesh):
     (int8 values with their (E, 1, N) scales alike; the router stays
     replicated, as in the JAX package's serving rules), and its ``MoE``
     gets the mesh (``models/moe.py`` reads the split from the slice's
-    shape).  ``model.mesh`` is set, so
+    shape).  A Mamba2 block keeps its ``in_z`` / ``in_x`` columns and
+    ``out_proj`` rows (``"column"`` / ``"row"``) and its ``conv_x``
+    channels of the rank's SSM heads, its other weights whole, and gets
+    the mesh (``models/ssm.py``); SSM heads that do not divide the mesh
+    raise.  A hybrid's shared block is sliced as a dense decoder block.
+    ``model.mesh`` is set, so
     the forward runs the rank's program.  ``model`` may be a whole
     ``Model`` or one block (``init_model(each_block=...)`` shards each
     block as it is drawn); modules sliced before are left as they are.  A
-    mesh of one rank slices nothing.  SSM, hybrid and encoder-decoder
-    models raise (ROADMAP queue 1, item 13)."""
+    mesh of one rank slices nothing.  Encoder-decoder models raise
+    (ROADMAP queue 1, item 13)."""
     for mod in model.modules():
-        if isinstance(mod, (SSMBlock, Encoder)):
+        if isinstance(mod, Encoder):
             raise NotImplementedError(
-                f"{type(mod).__name__} under a mesh: the port's meshes serve "
-                "the dense attention and MoE families; the rest is ROADMAP "
-                "queue 1, item 13")
+                "Encoder under a mesh: the port's meshes serve the dense "
+                "attention, MoE, SSM and hybrid families; the "
+                "encoder-decoder is ROADMAP queue 1, item 13")
     model.mesh = mesh
     for mod in model.modules():
-        if isinstance(mod, (Attention, MoE)):
+        if isinstance(mod, (Attention, MoE, Mamba2)):
             mod.mesh = mesh
+        if isinstance(mod, Mamba2):
+            check_head_split(mod.ssm.A_log.shape[0], mesh.size)
     if mesh.size == 1:
         return model
     specs = param_specs(model_param_shapes(model), mesh, make_param_rules())

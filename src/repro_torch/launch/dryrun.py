@@ -24,17 +24,24 @@ compiler to ask, so a cell here is placement arithmetic:
 
 What only a compiler gives (temporaries, output and code bytes, HLO FLOPs,
 collective bytes, the roofline fraction) is absent and listed so in each
-record (``ABSENT``); the roofline itself is ROADMAP queue 1, item 2.  The
-dense and MoE families are placed.  An MoE cell's expert stacks follow
+record (``ABSENT``); the roofline itself is ROADMAP queue 1, item 15.
+The dense, MoE, SSM and hybrid families are placed.  An MoE cell's expert
+stacks follow
 the same rules: int8 in a serving cell, on ``model`` by expert where the
 count divides it (qwen3-moe's 128 on 16) or else by ``expert_mlp``
 (granite's 40); a train cell's master and moments split over ``data``
 by expert and over ``model`` by ``expert_mlp`` (the FSDP rules), which
 ``bridge.shard_train_state`` reaches from the E-split compute copy
 through the whole tensor (``launch.sharding.TrainPlacement.relayout``).
-A family whose path raises under a mesh is refused with its item number
-(SSM, hybrid, encoder-decoder, and the vision family's patches): ``--all``
-lists each refusal.
+mamba2-370m (under 2 B parameters: ``dp``, its weights replicated over
+``model`` and the batch over every axis it divides) and zamba2-7b
+(``tp``: ``in_z`` / ``in_x`` / ``conv_x`` by ``ssm_inner``, ``out_proj``
+by its rows) are placed at all four of their cells, ``long_500k``
+included; a serving cell's cache is the slot state (``ssm_h`` by
+``ssm_heads``, ``conv_x`` by ``ssm_inner``) and zamba2's 13 shared-site
+KV caches (by KV heads).  A family whose path raises under a mesh is
+refused with its item number (the encoder-decoder and the vision
+family's patches): ``--all`` lists each refusal.
 
 Usage (no card):
   python -m repro_torch.launch.dryrun --arch qwen2_5_3b --shape train_4k \
@@ -204,7 +211,7 @@ def place_cell(cfg: ModelConfig, cell: ShapeCell, mesh, *,
     rec["model_flops"] = model_flops(cfg, shapes, kind=cell.kind,
                                      tokens=tokens, kv_len=cell.seq_len,
                                      batch=cell.global_batch)
-    rec["absent"] = {k: "needs a compiler (ROADMAP queue 1, item 2)"
+    rec["absent"] = {k: "needs a compiler (ROADMAP queue 1, item 15)"
                      for k in ABSENT}
     return rec
 

@@ -43,7 +43,7 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "PlacementMesh", "make_serving_mesh", "make_host_mesh",
            "make_production_mesh", "spawn_ranks", "copy_to", "reduce_from",
-           "gather_from", "BACKENDS"]
+           "all_reduce", "gather_from", "BACKENDS"]
 
 BACKENDS = ("gloo", "nccl")
 # a collective that waits longer than this fails the rank
@@ -288,6 +288,21 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _AllReduce(torch.autograd.Function):
+    """``psum`` forward and backward: a sum whose result feeds each rank's
+    own work (the gated norm's sum of squares in ``models/ssm.py``), so
+    each rank's gradient of it is a share of the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.psum(g.contiguous(), ctx.axis), None, None
+
+
 class _GatherFrom(torch.autograd.Function):
     """``all_gather`` forward, this rank's slice backward."""
 
@@ -319,6 +334,12 @@ def reduce_from(mesh, x: torch.Tensor, axis="model") -> torch.Tensor:
     """``psum`` of ``x`` over ``axis``, its gradient passed through to each
     rank's part."""
     return _ReduceFrom.apply(x, mesh, axis) if _live(mesh, axis) else x
+
+
+def all_reduce(mesh, x: torch.Tensor, axis="model") -> torch.Tensor:
+    """``psum`` of ``x`` over ``axis``, its gradient summed over ``axis``
+    too (where the sum feeds rank-local work, unlike ``reduce_from``)."""
+    return _AllReduce.apply(x, mesh, axis) if _live(mesh, axis) else x
 
 
 def gather_from(mesh, x: torch.Tensor, dim: int = -1,

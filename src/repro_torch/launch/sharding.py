@@ -285,7 +285,10 @@ class TrainPlacement:
     over ``model`` whose gradients are each rank's share: a
     tensor-parallel attention's unsplit K/V projections (KV heads that do
     not divide ``model``) and its q/k norms, which feed only the rank's
-    heads."""
+    heads, and a tensor-parallel Mamba2 block's ``in_B``, ``in_C``,
+    ``in_dt``, ``conv_B``, ``conv_C``, ``A_log``, ``D``, ``dt_bias`` and
+    gated-norm weight, whose outputs (or slices) feed only the rank's SSM
+    heads or channels."""
     mesh: Any
     compute: dict
     fsdp: dict
@@ -331,12 +334,16 @@ def train_placement(shapes: dict[str, tuple], mesh) -> TrainPlacement:
     fsdp_dim = {n: None if n in relayout else cut for n, cut in cuts.items()}
     partial = set()
     for name, spec in compute.items():
-        head, sep, rest = name.partition(".attn.")
-        if not sep or rest.startswith("wo.") or \
-                any(on_axis(e) for e in spec):
+        if any(on_axis(e) for e in spec):
             continue
-        if any(on_axis(e) for e in compute.get(f"{head}.attn.wq.w", ())):
-            partial.add(name)
+        # a tensor-parallel attention's whole tensors but wo's; a
+        # tensor-parallel Mamba2 block's whole tensors (models/ssm.py)
+        for block, split in ((".attn.", "wq.w"), (".mamba.", "in_x.w")):
+            head, sep, rest = name.partition(block)
+            if sep and not rest.startswith("wo.") and any(
+                    on_axis(e)
+                    for e in compute.get(f"{head}{block}{split}", ())):
+                partial.add(name)
     return TrainPlacement(mesh, compute, fsdp, fsdp_dim, frozenset(partial),
                           relayout)
 

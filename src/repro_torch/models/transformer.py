@@ -29,9 +29,12 @@ embedding and head, column- and row-parallel projections and the sharded
 paged attention (``models/attention.py``) reduce over the mesh so that the
 residual stream, the norms and the logits are the same bits on every rank
 (ranks that picked different greedy tokens would wait on each other in a
-collective).  The dense attention families and MoE (its experts split
-by ``models/moe.py``; ROADMAP queue 1, item 13 for the rest), on a cache
-or without one: the cache-less forward
+collective).  The dense attention families, MoE (its experts split by
+``models/moe.py``), SSM and hybrid (each Mamba2 block on the rank's
+``ssm_heads``, ``models/ssm.py``; the hybrid's shared block as a dense
+decoder block on its KV heads; ROADMAP queue 1, item 13 for the
+encoder-decoder and the vision family's patches), on a cache or without
+one: the cache-less forward
 (``prefill_step``, and training, which differentiates it through the
 mesh's autograd collectives) runs each rank's heads through K5.  With
 ``split_logits=True`` (the train step's loss) a vocab-parallel head's
@@ -156,12 +159,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_mesh_supported(cfg: ModelConfig) -> None:
     """Refuse a family the port does not serve over a mesh yet."""
-    if is_ssm_family(cfg) or cfg.is_encoder_decoder:
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) under a mesh: the port's meshes "
-            "serve the dense attention and MoE families; SSM and hybrid "
-            "(ssm_heads / ssm_inner) and the encoder-decoder's memory= are "
-            "ROADMAP queue 1, item 13")
+            "serve the dense attention, MoE, SSM and hybrid families; the "
+            "encoder-decoder's memory= is ROADMAP queue 1, item 13")
 
 
 def is_ssm_family(cfg: ModelConfig) -> bool:
@@ -284,13 +286,16 @@ def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, ssm_state,
 
 
 def _ssm_stack(model: Model, x, cfg: ModelConfig, *, positions, cache,
-               cache_pos, n_valid=None):
+               cache_pos, n_valid=None, kv_shard=None):
     """The SSM / hybrid layer loop (the reference's ``_scan_ssm``): at a
     shared site the shared block runs first, over its own KV cache
     ``shared_k[site]`` / ``shared_v[site]`` (site = the sites before it);
     then the Mamba block, whose new state is written into the cache's
     layer row in place.  With a cache and S > 1 (or ``n_valid``) the
-    blocks run in prefill-commit mode."""
+    blocks run in prefill-commit mode.  On a mesh the cache's rows are the
+    rank's slices (its heads of ``ssm_h``, its channels of ``conv_x``, its
+    KV heads of ``shared_k`` / ``shared_v``: ``kv_shard`` ``"heads"``),
+    which each block reads and writes as they are."""
     site = 0
     for i, (layer, shared_here) in enumerate(zip(model.layers,
                                                  shared_sites(cfg))):
@@ -299,7 +304,8 @@ def _ssm_stack(model: Model, x, cfg: ModelConfig, *, positions, cache,
                         (cache["shared_k"][site], cache["shared_v"][site]))
             x, _, _ = _remat(cfg, _decoder_block, model.shared_attn, x, cfg,
                              positions=positions, is_local=False,
-                             cache_kv=cache_kv, cache_pos=cache_pos)
+                             cache_kv=cache_kv, cache_pos=cache_pos,
+                             kv_shard=kv_shard)
             site += 1
         state = (None if cache is None else
                  {name: cache[key][i] for key, name in SSM_STATE.items()})
@@ -459,7 +465,8 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     lb = torch.zeros((), device=dev)
     if is_ssm_family(cfg):
         x = _ssm_stack(model, x, cfg, positions=positions, cache=cache,
-                       cache_pos=cache_pos, n_valid=n_valid)
+                       cache_pos=cache_pos, n_valid=n_valid,
+                       kv_shard=kv_shard)
     else:
         # each layer's slice of the cache: dense k/v, or the paged pools
         # (and the int8 layout's scale pools, which travel with their pages)

@@ -58,9 +58,14 @@ rank runs the same operations on it).  The cache also carries its
 resolved policy, ``kv_shard`` (the string ``"heads"`` or ``"pages"``;
 absent on a cache built without a mesh of more than one rank): the
 attention, the allocator and ``validate_decode_cache`` branch on it and
-never infer it from a slab's shape.  A dense cache splits only by heads;
-the SSM and hybrid families do not serve under a mesh (ROADMAP queue 1,
-item 13).
+never infer it from a slab's shape.  A dense cache splits only by heads.
+The SSM and hybrid families' slot state splits as the JAX package's
+``cache_logical_axes`` place it: ``ssm_h`` by SSM heads (L, B, H/m, P, N),
+``conv_x`` by their channels (L, B, k-1, d_inner/m), ``conv_B`` /
+``conv_C`` and ``seq_lens`` whole, a hybrid's ``shared_k`` / ``shared_v``
+by KV heads as a dense attention cache (``kv_shard`` ``"heads"``; split by
+sequence it raises, ROADMAP queue 1, item 13).  SSM heads that do not
+divide the ``model`` extent raise.
 """
 from __future__ import annotations
 
@@ -75,6 +80,7 @@ from repro_torch.kernels.flash_attention.decode import ceil_div
 from repro_torch.launch.sharding import (DEFAULT_LOGICAL_RULES, on_axis,
                                          tree_specs)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ssm import check_head_split
 from repro_torch.models.transformer import (check_supported,
                                             is_ssm_family, shared_sites)
 
@@ -231,45 +237,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "scale rows ride the page table")
     check_supported(cfg)
     dev = resolve_device(device)
-    kvh, hd, n_layers = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    kvh = cfg.n_kv_heads
     if is_ssm_family(cfg):
-        if config.model_size() > 1:
-            raise NotImplementedError(
-                f"family {cfg.family!r} under a mesh (ssm_heads / ssm_inner "
-                "rules): ROADMAP queue 1, item 13")
         if config.layout == "paged":
             raise ValueError(
                 "the paged layout applies to attention-family KV caches; "
                 f"family {cfg.family!r} keeps its O(1) SSM state dense")
-        k = cfg.ssm_conv - 1
-        f32 = dict(dtype=torch.float32, device=dev)
-        cache = {
-            "ssm_h": torch.zeros((n_layers, batch, cfg.ssm_n_heads,
-                                  cfg.ssm_head_dim, cfg.ssm_state), **f32),
-            "conv_x": torch.zeros((n_layers, batch, k, cfg.d_inner), **f32),
-            "conv_B": torch.zeros((n_layers, batch, k, cfg.ssm_state), **f32),
-            "conv_C": torch.zeros((n_layers, batch, k, cfg.ssm_state), **f32),
-        }
-        sites = n_shared_sites(cfg)
-        if sites:
-            shape = (sites, batch, max_len, kvh, hd)
-            cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=dev)
-            cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=dev)
-        cache["seq_lens"] = torch.zeros((batch,), dtype=torch.int32,
-                                        device=dev)
-        return cache
-    shapes, dtypes = _kv_shapes(cfg, batch, max_len, dtype, config)
+        check_head_split(cfg.ssm_n_heads, config.model_size())
+        shapes, dtypes = _slot_shapes(cfg, batch, max_len, dtype)
+    else:
+        shapes, dtypes = _kv_shapes(cfg, batch, max_len, dtype, config)
     if config.mesh is not None:
         if config.layout == "dense" and config.resolved_kv_shard(kvh) \
                 == "pages":
             raise NotImplementedError(
-                "a dense cache split by sequence over a mesh: serve with "
-                "the paged layout (ROADMAP queue 1, item 13)")
+                "a dense cache split by sequence over a mesh (a hybrid's "
+                "shared_k / shared_v too): serve with the paged layout "
+                "(ROADMAP queue 1, item 13)")
         shapes = local_shapes(shapes, cache_shardings(cfg, shapes, config),
                               config.mesh)
     cache = {key: torch.zeros(shape, dtype=dtypes[key], device=dev)
              for key, shape in shapes.items()}
     if config.model_size() > 1:
+        # the slot state splits by SSM heads (a pure SSM model has no KV
+        # heads: "heads"), a hybrid's shared KV by its KV heads
         cache["kv_shard"] = config.resolved_kv_shard(kvh)
     if config.layout == "dense":
         return cache
@@ -296,6 +287,28 @@ def pool_pages(cfg: ModelConfig, batch: int, max_len: int,
          else batch * ceil_div(max_len, config.page_size))
     shards = config.shards(cfg.n_kv_heads)
     return ceil_div(n, shards) * shards
+
+
+def _slot_shapes(cfg: ModelConfig, batch: int, max_len: int, dtype):
+    """({key: global shape}, {key: dtype}) of an SSM or hybrid family's
+    slot state: f32 recurrent state and conv tails, the hybrid's shared
+    KV in ``dtype``, int32 lengths."""
+    k, n_layers = cfg.ssm_conv - 1, cfg.n_layers
+    f32 = torch.float32
+    shapes = {"ssm_h": (n_layers, batch, cfg.ssm_n_heads, cfg.ssm_head_dim,
+                        cfg.ssm_state),
+              "conv_x": (n_layers, batch, k, cfg.d_inner),
+              "conv_B": (n_layers, batch, k, cfg.ssm_state),
+              "conv_C": (n_layers, batch, k, cfg.ssm_state)}
+    dtypes = dict.fromkeys(shapes, f32)
+    sites = n_shared_sites(cfg)
+    if sites:
+        shape = (sites, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        shapes.update(shared_k=shape, shared_v=shape)
+        dtypes.update(shared_k=dtype, shared_v=dtype)
+    shapes["seq_lens"] = (batch,)
+    dtypes["seq_lens"] = torch.int32
+    return shapes, dtypes
 
 
 def _kv_shapes(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -330,7 +343,8 @@ def _kv_shapes(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 # the arrays a rank holds only its part of; the others are whole everywhere
-SLAB_KEYS = ("k", "v") + PAGE_STATE_KEYS
+SLAB_KEYS = (("k", "v") + PAGE_STATE_KEYS
+             + ("ssm_h", "conv_x", "shared_k", "shared_v"))
 
 
 def local_shapes(shapes: dict, placements: dict, mesh) -> dict:

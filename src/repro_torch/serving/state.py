@@ -26,6 +26,12 @@ rewind a rejected draft, so the slot handlers do not support speculative
 decode (the Scheduler then serves plain 1-token decode) or prefix
 sharing.  Handlers are host-side glue over the cache dict, which they
 update in place and return.
+
+Over a mesh each rank's handler works on its own slabs (``ssm_h`` of its
+SSM heads, ``conv_x`` of their channels, a hybrid's ``shared_k/v`` of its
+KV heads; ``serving/cache.py``): a row is the same row on every rank, and
+every rank runs the same admissions, frees and views, so the Scheduler's
+decisions stay identical across ranks.
 """
 from __future__ import annotations
 

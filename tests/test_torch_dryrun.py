@@ -33,12 +33,13 @@ from repro_torch.launch import dryrun, shapes
 from repro_torch.launch.mesh import PlacementMesh, make_production_mesh
 from repro_torch.roofline.model_flops import count_params, model_flops
 
-# the families the dry run places: dense and MoE
+# the families the dry run places: dense, MoE, SSM and hybrid
 PLACED = ["qwen2_5_3b", "gemma2_27b", "chatglm3_6b", "mistral_large_123b",
-          "qwen3_moe_30b_a3b", "granite_moe_3b_a800m"]
-REFUSED = {"mamba2_370m": "ssm", "zamba2_7b": "hybrid",
-           "seamless_m4t_medium": "audio", "phi3_vision_4_2b": "vlm"}
+          "qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "mamba2_370m",
+          "zamba2_7b"]
+REFUSED = {"seamless_m4t_medium": "audio", "phi3_vision_4_2b": "vlm"}
 MESHES = {"single": False, "multi": True}
+SHAPES_KIND = {k: c.kind for k, c in shapes.SHAPES.items()}
 
 
 def test_shapes_and_cells_equal_the_jax_packages():
@@ -179,8 +180,8 @@ def test_per_rank_bytes_equal_the_jax_placements(arch, mesh_tag):
             assert rec["moment_bytes"] == 2 * want["master_bytes"]
             assert rec["state_bytes"] == (want["param_bytes"]
                                           + 3 * want["master_bytes"])
-        if shape == "decode_32k":
-            assert rec["cache_bytes"] == want["cache_bytes"]
+        if SHAPES_KIND[shape] == "decode":      # decode_32k, long_500k
+            assert rec["cache_bytes"] == want["cache_bytes"], shape
         assert rec["arg_bytes"] == (rec["state_bytes"]
                                     + rec["opt_scalar_bytes"]
                                     + rec["cache_bytes"]

@@ -162,9 +162,20 @@ def test_dense_cache_splits_by_heads_only():
     with pytest.raises(NotImplementedError, match="item 13"):
         init_cache(cfg, 2, 16, torch.float32,
                    CacheConfig(mesh=FakeMesh(model=4)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        init_cache(get_smoke_config("mamba2_370m"), 2, 16, torch.float32,
-                   CacheConfig(mesh=FakeMesh(model=2)), device="cpu")
+    # the slot state splits by SSM heads since the SSM mesh path landed
+    # (tests/test_torch_ssm_mesh.py)
+    ssm_cfg = get_smoke_config("mamba2_370m")
+    slots = init_cache(ssm_cfg, 2, 16, torch.float32,
+                       CacheConfig(mesh=FakeMesh(model=2)), device="cpu")
+    k = ssm_cfg.ssm_conv - 1
+    assert slots["kv_shard"] == "heads"
+    assert tuple(slots["ssm_h"].shape) == (
+        ssm_cfg.n_layers, 2, ssm_cfg.ssm_n_heads // 2, ssm_cfg.ssm_head_dim,
+        ssm_cfg.ssm_state)
+    assert tuple(slots["conv_x"].shape) == (ssm_cfg.n_layers, 2, k,
+                                            ssm_cfg.d_inner // 2)
+    assert tuple(slots["conv_B"].shape) == (ssm_cfg.n_layers, 2, k,
+                                            ssm_cfg.ssm_state)
 
 
 @pytest.mark.parametrize("m,policy", [(2, "heads"), (4, "pages")])
@@ -459,8 +470,9 @@ def test_w8a8_projections_are_bitwise_the_unsharded_ports():
 def test_shard_model_refuses_what_the_mesh_does_not_serve():
     from repro_torch.bridge import shard_model
     from repro_torch.models.transformer import init_model
-    # MoE shards since its mesh paths landed (tests/test_torch_moe_mesh.py)
-    for arch in ("zamba2_7b", "mamba2_370m", "seamless_m4t_medium"):
+    # MoE, SSM and hybrid models shard since their mesh paths landed
+    # (tests/test_torch_moe_mesh.py, tests/test_torch_ssm_mesh.py)
+    for arch in ("seamless_m4t_medium",):
         model = init_model(torch.Generator().manual_seed(0),
                            get_smoke_config(arch), device="cpu")
         with pytest.raises(NotImplementedError, match="item 13"):
