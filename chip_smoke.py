@@ -130,8 +130,8 @@
    against the plain version, profiled with the MoE block's stages
    (route, dequant, einsums, dispatch and combine) as named ranges; (c)
    the Scheduler trace plain and self_trunc (2-layer draft) on bf16
-   pools, as the qwen2.5-3b runs are held, one tick of each profiled with
-   the same ranges.
+   pools through the model's first 24 layers, as the qwen2.5-3b runs are
+   held, one tick of each profiled with the same ranges.
    The SSM and hybrid path: zamba2-7b (81 Mamba2 layers, d=3584,
    d_inner 7168, 112 SSD heads of 64, state 64; one shared attention +
    SwiGLU block of 32/32 heads of 112 and d_ff 14336 at 13 sites; w8a8,
@@ -217,10 +217,20 @@ Mesh phase (ranks sharing the card over gloo): K1's absmax modes and
    K2's int32-out / epilogue modes bitwise and timed; qwen2.5-3b's
    Scheduler trace on mesh 2 (`heads`) and mesh 4 (`pages`) against an
    unsharded run at each depth; the `pages` depth witness at 36 layers;
-   mistral-large-123b at 12 layers on mesh 1 and mesh 4; then sharded
-   training: qwen2.5-3b at full width and 4 layers, bf16 ZeRO-1, on a
-   (data 2, model 2) mesh of the same 4 ranks (the three 4-rank programs
-   and this one in one spawn), 2 x 4096 tokens a step, 2 steps against
+   mistral-large-123b at 12 layers on mesh 1 and mesh 4; qwen3-moe,
+   mamba2-370m and zamba2-7b likewise; seamless-m4t-medium at full depth
+   (the encode of 4 x 1024 frames, K5 non-causal on each rank's heads, and
+   a paged serve with ``memory=``), phi-3-vision at 4 layers
+   (``prefill_step`` of its 576 patches and 64 tokens, a paged serve) and
+   qwen2.5-3b at 2 layers on the dense cache split by sequence, each on
+   mesh 4 against mesh 1 (layer 0's projections, cross q / k / v / wo
+   included, bitwise; the encoder's layers, the memory and the
+   cross-attention within one bf16 ulp a row; the seq-split attention of
+   every layer within 2^-7 of the plain f32 attention; tokens by the
+   near-tie rule; each rank a quarter of every split weight and cache
+   array); then sharded training: qwen2.5-3b at full width and 4
+   layers, bf16 ZeRO-1, on a (data 2, model 2) mesh of the same 4 ranks
+   (the 4-rank serving programs and this one in one spawn), 2 x 4096 tokens a step, 2 steps against
    the unsharded step run here (loss 1e-2, grad_norm 5e-2), K5 and its
    backward launches exact a rank, the compute copy the same bits on
    both data ranks of each model slice, each rank's state bytes equal to
@@ -2770,6 +2780,11 @@ ROUTE_TIE = 1e-4
 # phase 4 took 1.47x its usual time (their ticks are the host's: 0.72 of a
 # profiled tick idle); the prompts, and so the waits for pages, stay
 MOE_SCHED_BUDGET_DIV = 2
+# and run on the model's first 24 of its 48 layers, to make room for the
+# mesh phase's encoder-decoder, vision and seq-split program: what they
+# check (exact launch counts, pages waited for, spec tokens by the near-tie
+# rule) holds at any depth, and the serve and prefill_step keep all 48
+MOE_SCHED_LAYERS = 24
 
 
 def resident_gb(model):
@@ -2802,10 +2817,13 @@ def blockwise_model(arch, dev, seed):
 
 
 def moe_scheduler(model, cfg, dev):
-    """Phase 4's Scheduler trace through the MoE model, plain and
-    self_trunc (its first DRAFT_LAYERS layers as the draft), bf16 pools,
-    its budgets divided by MOE_SCHED_BUDGET_DIV; spec tokens held to the
-    plain run's by the near-tie rule."""
+    """Phase 4's Scheduler trace through the MoE model's first
+    MOE_SCHED_LAYERS layers, plain and self_trunc (its first DRAFT_LAYERS
+    layers as the draft), bf16 pools, its budgets divided by
+    MOE_SCHED_BUDGET_DIV; spec tokens held to the plain run's by the
+    near-tie rule."""
+    model = first_layers(model, MOE_SCHED_LAYERS)
+    cfg = cfg.replace(n_layers=MOE_SCHED_LAYERS)
     trace = sched_trace(cfg.vocab_size, MOE_SCHED_BUDGET_DIV)
     trunc = (first_layers(model, DRAFT_LAYERS),
              cfg.replace(n_layers=DRAFT_LAYERS))
@@ -4980,16 +4998,20 @@ def mesh_model(cfg, mesh, seed):
     return model, time.perf_counter() - t0
 
 
-def mesh_layer_launches(cfg, by) -> dict:
+def mesh_layer_launches(cfg, by, *, paged=None, cross=False,
+                        flash=False) -> dict:
     """One layer's launches in one forward on a mesh (w8a8): wo and down
-    row-parallel (an MoE layer's wo alone: its experts run no kernel), each
-    one K1 absmax launch, one K1 given-absmax launch (quant_act, or
-    quant_act_glu in SwiGLU), one K2 int32-out and one K2 epilogue in
-    place of its K2; the column projections as unsharded; K4 under
-    ``heads``, none under ``pages`` (plain PyTorch, as the reference's
-    combine)."""
-    want = layer_launches(cfg, paged=by == "heads")
-    rows = 1 + int(not cfg.is_moe or cfg.n_shared_experts > 0)
+    row-parallel (an MoE layer's wo alone: its experts run no kernel; with
+    ``cross`` the cross-attention's wo too), each one K1 absmax launch, one
+    K1 given-absmax launch (quant_act, or quant_act_glu in SwiGLU), one K2
+    int32-out and one K2 epilogue in place of its K2; the column
+    projections as unsharded; K4 on a paged cache (``paged``, by default
+    one split by ``heads``), none under ``pages`` (plain PyTorch, as the
+    reference's combine) or on a dense cache; K5 with ``flash`` (a
+    cache-less forward past the threshold)."""
+    want = layer_launches(cfg, paged=by == "heads" if paged is None
+                          else paged, cross=cross, flash=flash)
+    rows = 1 + int(not cfg.is_moe or cfg.n_shared_experts > 0) + int(cross)
     want["tiled_matmul"] -= rows
     want.update(row_absmax=rows, tiled_matmul_int32=rows,
                 int8_epilogue=rows)
@@ -5195,15 +5217,20 @@ def serve_prompts(cfg, dev):
 
 
 def layer0_projections(model, cfg, mesh):
-    """Layer 0's seven projections on seeded inputs at decode and prefill
-    rows, whole: q, k, v, gate and up gathered over the mesh, wo and down
-    after their reduction (a rank's wo takes its columns of the whole
-    attention output); returned by rank 0 (every rank computes them)."""
+    """Layer 0's projections on seeded inputs at decode and prefill rows,
+    whole: q, k, v, gate and up gathered over the mesh, wo and down after
+    their reduction (a rank's wo takes its columns of the whole attention
+    output); a GELU FFN's up, and down on a seeded input; an
+    encoder-decoder's cross-attention q (from the rows), k and v (from
+    seeded memory rows) gathered and its wo reduced.  Returned by rank 0
+    (every rank computes them)."""
     from repro_torch.core.qkv_fusion import apply_fused_qkv
-    from repro_torch.core.quantized_linear import (apply_linear_swiglu,
+    from repro_torch.core.quantized_linear import (apply_linear,
+                                                   apply_linear_swiglu,
                                                    apply_linears)
     from repro_torch.models.attention import _project_out
-    attn, ffn = model.layers[0].attn, model.layers[0].ffn
+    layer = model.layers[0]
+    attn, ffn, cross = layer.attn, layer.ffn, layer.cross
     dev = mesh.device
 
     def whole(t, lin):
@@ -5214,12 +5241,33 @@ def layer0_projections(model, cfg, mesh):
         x = device_randn((m, cfg.d_model), 40 + m, dev, 1.0, torch.bfloat16)
         o_in = device_randn((m, cfg.q_dim), 41 + m, dev, 1.0, torch.bfloat16)
         q, k, v = apply_fused_qkv(attn.wq, attn.wk, attn.wv, x, mode="w8a8")
-        gate, up = apply_linears((ffn.gate, ffn.up), x, mode="w8a8")
         got = {"q": whole(q, attn.wq), "k": whole(k, attn.wk),
                "v": whole(v, attn.wv),
-               "wo": _project_out(attn, o_in, cfg, whole=True),
-               "gate": whole(gate, ffn.gate), "up": whole(up, ffn.up),
-               "down": apply_linear_swiglu(ffn.down, gate, up, mode="w8a8")}
+               "wo": _project_out(attn, o_in, cfg, whole=True)}
+        if ffn.gate is not None:
+            gate, up = apply_linears((ffn.gate, ffn.up), x, mode="w8a8")
+            got.update(gate=whole(gate, ffn.gate), up=whole(up, ffn.up),
+                       down=apply_linear_swiglu(ffn.down, gate, up,
+                                                mode="w8a8"))
+        else:
+            h = device_randn((m, cfg.d_ff), 42 + m, dev, 1.0,
+                             torch.bfloat16)
+            lo, hi = ((0, cfg.d_ff) if ffn.down.shard != "row"
+                      else mesh.shard_bounds(cfg.d_ff))
+            got.update(up=whole(apply_linear(ffn.up, x, mode="w8a8"),
+                                ffn.up),
+                       down=apply_linear(ffn.down, h[:, lo:hi].contiguous(),
+                                         mode="w8a8"))
+        if cross is not None:
+            mem = device_randn((m, cfg.d_model), 43 + m, dev, 1.0,
+                               torch.bfloat16)
+            cq = apply_linear(cross.wq, x, mode="w8a8")
+            ck, cv = apply_linears((cross.wk, cross.wv), mem, mode="w8a8")
+            got.update({"cross q": whole(cq, cross.wq),
+                        "cross k": whole(ck, cross.wk),
+                        "cross v": whole(cv, cross.wv),
+                        "cross wo": _project_out(cross, o_in, cfg,
+                                                 whole=True)})
         out.update({f"{name} ({m} rows)": t.cpu() for name, t in got.items()})
     return out if mesh.rank == 0 else {}
 
@@ -5249,17 +5297,21 @@ def expert_bytes(model):
 
 
 def serve_rank(mesh, cfg, seed, probe, config, per_forward,
-               share_steps=COLLECTIVE_STEPS):
+               share_steps=COLLECTIVE_STEPS, frames=0):
     """A rank of ``cfg``'s greedy serve on a cache built by ``config`` (a
     ``CacheConfig`` of ``mesh``): ``probe(model, cfg, mesh)`` (its
-    outputs, held against mesh 1's, and its seconds), then ``prefill`` of
-    the 4 prompts and MISTRAL_STEPS ``serve_step``s, logits kept, launch
-    counts against ``per_forward`` (one forward's) times the forwards,
-    times, peak memory, the cache's and the expert and Mamba2 weights'
-    bytes, slab shapes; then the collective share of ``share_steps`` more
-    decode steps.  Rank 0 (or mesh 1) returns the logits."""
+    outputs, held against mesh 1's, and its seconds); for an
+    encoder-decoder, ``encode`` of ``frames`` seeded frames a prompt
+    (``encoder_frames``), its launches and seconds; then ``prefill`` of
+    the 4 prompts and MISTRAL_STEPS ``serve_step``s (with that memory),
+    logits kept, launch counts against ``per_forward`` (one forward's)
+    times the forwards, times, peak memory, the cache's and the expert and
+    Mamba2 weights' bytes, every weight's bytes by name, slab shapes; then
+    the collective share of ``share_steps`` more decode steps.  Rank 0 (or
+    mesh 1) returns the logits."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.ssm import Mamba2
+    from repro_torch.models.transformer import encode
     from repro_torch.serving.cache import init_cache
     from repro_torch.serving.engine import prefill, serve_step
     dev = mesh.device
@@ -5268,24 +5320,43 @@ def serve_rank(mesh, cfg, seed, probe, config, per_forward,
     model, draw_s = mesh_model(cfg, mesh, seed)
     prompts, lens = serve_prompts(cfg, dev)
     max_len = prompts.shape[1] + MISTRAL_STEPS + share_steps + PAGE
+    kw, enc = {}, {}
     with torch.inference_mode():
         t0 = time.perf_counter()
         probed = probe(model, cfg, mesh)
         sync(dev)
         probe_s = time.perf_counter() - t0
+        if frames:
+            reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            kw["memory"] = encode(model, encoder_frames(cfg, frames, dev),
+                                  cfg)
+            sync(dev)
+            enc = {"encode_s": time.perf_counter() - t0,
+                   "encode_counts": launch_counts()}
         cache = init_cache(cfg, len(lens), max_len, torch.bfloat16, config,
                            device=dev)
         reset_launch_counts()
         sync(dev)
         t0 = time.perf_counter()
-        next_logits, cache = prefill(model, cache, prompts, lens, cfg)
+        next_logits, cache = prefill(model, cache, prompts, lens, cfg, **kw)
         sync(dev)
         t_prefill = time.perf_counter() - t0
         tok = next_logits.argmax(-1)[:, None]
         toks, logits = [tok], [next_logits.float()]
+        # a dense cache carries no lengths: each row's position is counted
+        state = {"pos": None if "seq_lens" in cache else lens.clone()}
+
+        def advance(tok):
+            lg, _ = serve_step(model, cache, tok, state["pos"], cfg, **kw)
+            if state["pos"] is not None:
+                state["pos"] = state["pos"] + 1
+            return lg
+
         t0 = time.perf_counter()
         for _ in range(MISTRAL_STEPS):
-            step_logits, cache = serve_step(model, cache, tok, None, cfg)
+            step_logits = advance(tok)
             tok = step_logits[:, -1].argmax(-1)[:, None]
             toks.append(tok)
             logits.append(step_logits[:, -1].float())
@@ -5293,11 +5364,10 @@ def serve_rank(mesh, cfg, seed, probe, config, per_forward,
         t_decode = time.perf_counter() - t0
         counts = launch_counts()
         want = {k: n * (1 + MISTRAL_STEPS) for k, n in per_forward.items()}
-        state = {"tok": tok}
+        state["tok"] = tok
 
         def step():
-            lg, _ = serve_step(model, cache, state["tok"], None, cfg)
-            state["tok"] = lg[:, -1].argmax(-1)[:, None]
+            state["tok"] = advance(state["tok"])[:, -1].argmax(-1)[:, None]
 
         share, step_ms, n_coll = collective_share(step, mesh, share_steps)
     out = {"rank": mesh.rank, "policy": cache.get("kv_shard"),
@@ -5313,8 +5383,11 @@ def serve_rank(mesh, cfg, seed, probe, config, per_forward,
            "resident_gb": resident_gb(model),
            "expert_bytes": expert_bytes(model),
            "mamba_bytes": buffer_bytes(model, Mamba2),
+           "weight_bytes": {n: b.numel() * b.element_size()
+                            for n, b in model.named_buffers()},
            "cache_bytes": {k: v.numel() * v.element_size()
-                           for k, v in cache.items() if torch.is_tensor(v)}}
+                           for k, v in cache.items() if torch.is_tensor(v)},
+           **enc}
     if mesh.rank == 0:
         out["logits"] = torch.stack(logits).cpu()
     return out
@@ -5610,6 +5683,418 @@ def check_ssm_mesh(runs, one, arch, smi, smoke=False):
             "logit_rel": logit_rel, "out_rel": worst,
             "identical_share": share, "layers": cfg.n_layers,
             "split_bytes": split, "replicated_bytes": whole}
+
+
+# the encoder-decoder, vision and dense sequence-split program, mesh 4
+# against mesh 1, w8a8 bf16 at full width, the mistral serve's prompts and
+# steps: seamless-m4t-medium at full depth (12 + 12 layers; heads: 4 of
+# its 16 a rank) encodes ENCDEC_MESH_FRAMES seeded frames a prompt and
+# serves on the paged pool with that memory; phi-3-vision at
+# VLM_MESH_LAYERS of its 32 layers (heads: 8 of 32 a rank) runs
+# ``prefill_step`` of its 576 patches and VLM_MESH_TEXT tokens, then
+# serves on the paged pool; qwen2.5-3b at SEQ_MESH_LAYERS layers (its 2 KV
+# heads on 4 ranks) serves on the dense cache split by sequence.  The
+# threshold is lowered to ENCDEC_MESH_THRESHOLD so that the encoder's
+# 1024 frames and phi3's 640-token prompt attend through K5 on each
+# rank's heads (at 4096 both would attend densely).  Layer 0's
+# projections (cross q / k / v and wo included) are held bitwise mesh 1's;
+# each encoder layer's output, the memory and layer 0's cross-attention
+# within ENCDEC_MESH_REL of each row's largest |value| of mesh 1's (one
+# bf16 ulp: a rank's heads attend through K5 and the dense cross
+# attention on 4 of 16 heads, whose products may take another cuBLAS
+# kernel than on 16; the bitwise count is printed); phi3's prefill_step
+# logits and its serve's within MESH_LOGIT_REL; the dense seq-split
+# attention of every layer within PAGES_WITNESS_REL of the plain f32
+# attention over the whole cache gathered from the ranks (the pages
+# witness's rule); the tokens of each serve by NEAR_TIE
+ENCDEC_MESH_FRAMES = 1024
+ENCDEC_MESH_THRESHOLD = 512
+ENCDEC_MESH_REL = 2 ** -7
+VLM_MESH_LAYERS = 4
+VLM_MESH_TEXT = 64
+SEQ_MESH_LAYERS = 2
+ENCDEC_MESH_SEEDS = {"enc": 19, "vlm": 20, "seq": 21}
+# the decode steps of the collective share: a seamless step is ~70 gloo
+# collectives (6 a decoder layer)
+ENCDEC_COLLECTIVE_STEPS = 4
+
+
+def encdec_mesh_configs(smoke):
+    """{"enc": seamless-m4t-medium, "vlm": phi-3-vision, "seq":
+    qwen2.5-3b} at full width and this program's depths and threshold,
+    w8a8 bf16; their smoke configs (threshold 64) for a rehearsal on the
+    CPU."""
+    from repro_torch.configs import get_config, get_smoke_config
+    get = get_smoke_config if smoke else get_config
+    cfgs = {key: get(arch).replace(quant_proj="w8a8", dtype="bfloat16")
+            for key, arch in (("enc", ENCDEC_ARCH), ("vlm", VLM_ARCH),
+                              ("seq", MESH_QWEN))}
+    if smoke:
+        return cfgs
+    return {"enc": cfgs["enc"].replace(
+                blockwise_attn_threshold=ENCDEC_MESH_THRESHOLD),
+            "vlm": cfgs["vlm"].replace(
+                n_layers=VLM_MESH_LAYERS,
+                blockwise_attn_threshold=ENCDEC_MESH_THRESHOLD),
+            "seq": cfgs["seq"].replace(n_layers=SEQ_MESH_LAYERS)}
+
+
+def encoder_frames(cfg, frames, dev):
+    """4 requests' seeded frame embeddings (4, frames, d_model), bf16."""
+    return device_randn((4, frames, cfg.d_model), 70, dev, 1.0,
+                        torch.bfloat16)
+
+
+def mesh_frames(cfg):
+    return ENCDEC_MESH_FRAMES if cfg.vocab_size > 1000 else 80
+
+
+def encdec_probe(model, cfg, mesh):
+    """seamless: layer 0's projections (``layer0_projections``, bitwise),
+    each encoder layer's output and the memory of the serve's frames and
+    layer 0's cross-attention of seeded rows to that memory at a decode
+    step's and a prefill's (batch, tokens) (``SSM_MESH_ROWS``; near:
+    within ENCDEC_MESH_REL); the near ones' digests on every rank."""
+    import repro_torch.models.transformer as transformer
+    from repro_torch.models.attention import apply_attention
+    dev = mesh.device
+    near = {}
+    block = transformer._encoder_block
+
+    def recorded(layer, x, c, positions):
+        y = block(layer, x, c, positions)
+        near[f"encoder layer {len(near)}"] = y
+        return y
+
+    transformer._encoder_block = recorded
+    try:
+        memory = transformer.encode(
+            model, encoder_frames(cfg, mesh_frames(cfg), dev), cfg)
+    finally:
+        transformer._encoder_block = block
+    near["memory"] = memory
+    for b, s in SSM_MESH_ROWS:
+        x = device_randn((b, s, cfg.d_model), 44 + s, dev, 1.0,
+                         torch.bfloat16)
+        near[f"layer 0 cross-attention ({b} x {s})"], _ = apply_attention(
+            model.layers[0].cross, x, cfg,
+            positions=torch.arange(s, device=dev).expand(b, s),
+            memory=memory[:b])
+    return {"bitwise": layer0_projections(model, cfg, mesh),
+            "digests": {k: digest(t) for k, t in near.items()},
+            "near": ({k: t.cpu() for k, t in near.items()}
+                     if mesh.rank == 0 else {})}
+
+
+def vlm_probe(model, cfg, mesh):
+    """phi3: layer 0's projections (bitwise), then ``prefill_step`` of one
+    seeded prompt of VLM_MESH_TEXT tokens after its frontend_len seeded
+    patches: the text positions' logits (near), the launches, seconds."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import prefill_step
+    dev = mesh.device
+    text = VLM_MESH_TEXT if cfg.vocab_size > 1000 else 64
+    g = torch.Generator().manual_seed(33)
+    tokens = torch.randint(0, cfg.vocab_size, (1, text), generator=g).to(dev)
+    patches = device_randn((1, cfg.frontend_len, cfg.d_model), 71, dev, 1.0,
+                           torch.bfloat16)
+    bitwise = layer0_projections(model, cfg, mesh)
+    reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, _ = prefill_step(model, tokens, cfg, frontend_embeds=patches)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    text_logits = logits[:, cfg.frontend_len:]
+    return {"bitwise": bitwise, "digests": {"logits": digest(text_logits)},
+            "near": ({"prefill_step logits": text_logits.cpu()}
+                     if mesh.rank == 0 else {}),
+            "prefill_counts": launch_counts(), "prefill_step_s": seconds,
+            "prefill_tokens": cfg.frontend_len + text}
+
+
+def seq_probe(model, cfg, mesh):
+    """qwen2.5-3b on the dense cache split by sequence: layer 0's
+    projections (bitwise), then the depth witness: the serve's prompts
+    prefilled and 2 decode steps on a dense cache of the mesh, every call
+    of ``_dense_attend_split`` held against the plain f32 attention over
+    the whole cache gathered from the ranks (each layer's largest error
+    over its output row's largest |value|), the unsplit dense path
+    (``_attend_dense``, which rounds the probabilities to bf16 as the
+    split does) on the same whole cache beside it.  Mesh 1 splits
+    nothing."""
+    import repro_torch.models.attention as attention
+    from repro_torch.serving.cache import CacheConfig, init_cache
+    from repro_torch.serving.engine import prefill, serve_step
+    bitwise = layer0_projections(model, cfg, mesh)
+    out = {"bitwise": bitwise, "digests": {}, "near": {}}
+    if mesh.size == 1:
+        return out
+    split = attention._dense_attend_split
+    err, calls = [0.0] * cfg.n_layers, [0]
+    err_dense = [0.0] * cfg.n_layers
+
+    def checked(q, k, v, cache, cache_pos, c, *, scale, is_local, mesh):
+        o, new = split(q, k, v, cache, cache_pos, c, scale=scale,
+                       is_local=is_local, mesh=mesh)
+        kw, vw = mesh.all_gather(torch.stack(new), dim=2)
+        s = q.shape[1]
+        tok_pos = cache_pos[:, None] + torch.arange(s, device=q.device)
+        ref = attention._attend_dense(
+            q.float(), kw.float(), vw.float(), tok_pos,
+            torch.arange(kw.shape[1], device=q.device), scale=scale,
+            cap=c.attn_logit_softcap, window=c.sliding_window,
+            is_local=is_local)
+        dense = attention._attend_dense(
+            q, kw, vw, tok_pos, torch.arange(kw.shape[1], device=q.device),
+            scale=scale, cap=c.attn_logit_softcap, window=c.sliding_window,
+            is_local=is_local)
+        den = ref.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        layer = calls[0] % c.n_layers
+        calls[0] += 1
+        err[layer] = max(err[layer],
+                         float(((o.float() - ref).abs() / den).max()))
+        err_dense[layer] = max(err_dense[layer], float(
+            ((dense.float() - ref).abs() / den).max()))
+        return o, new
+
+    dev = mesh.device
+    prompts, lens = serve_prompts(cfg, dev)
+    attention._dense_attend_split = checked
+    try:
+        cache = init_cache(cfg, len(lens), prompts.shape[1] + 4,
+                           torch.bfloat16, CacheConfig(mesh=mesh),
+                           device=dev)
+        lg, cache = prefill(model, cache, prompts, lens, cfg)
+        pos = lens.clone()
+        for _ in range(2):
+            lg, cache = serve_step(model, cache, lg.argmax(-1).reshape(-1, 1),
+                                   pos, cfg)
+            lg, pos = lg[:, -1], pos + 1
+    finally:
+        attention._dense_attend_split = split
+    out["witness"] = {"split": err, "dense": err_dense, "calls": calls[0],
+                      "policy": cache["kv_shard"]}
+    return out
+
+
+def encdec_serve_rank(mesh, key, smoke):
+    """A rank of ``key``'s serve (``serve_rank``): seamless and phi3 on the
+    paged bf16 pool, qwen2.5-3b on the dense cache of the mesh (split by
+    sequence on 4 ranks), each probed."""
+    from repro_torch.serving.cache import CacheConfig
+    cfg = encdec_mesh_configs(smoke)[key]
+    layers = cfg.n_layers
+    if key == "seq":
+        config = CacheConfig(mesh=mesh)
+        per_layer = (mesh_layer_launches(cfg, "pages") if mesh.size > 1
+                     else layer_launches(cfg))
+        probe, frames = seq_probe, 0
+    else:
+        config = CacheConfig(layout="paged", page_size=PAGE, mesh=mesh)
+        cross = key == "enc"
+        per_layer = (mesh_layer_launches(cfg, "heads", cross=cross)
+                     if mesh.size > 1
+                     else layer_launches(cfg, paged=True, cross=cross))
+        probe = encdec_probe if cross else vlm_probe
+        frames = mesh_frames(cfg) if cross else 0
+    return serve_rank(mesh, cfg, ENCDEC_MESH_SEEDS[key], probe, config,
+                      {k: n * layers for k, n in per_layer.items()},
+                      ENCDEC_COLLECTIVE_STEPS, frames=frames)
+
+
+def encdec_mesh_rank(mesh, smoke=False):
+    """A rank of the three serves (``encdec_serve_rank``): seamless, phi3,
+    then qwen2.5-3b on the sequence-split cache, each model freed before
+    the next."""
+    import gc
+    out = {}
+    for key in ("enc", "vlm", "seq"):
+        t0 = time.perf_counter()
+        out[key] = encdec_serve_rank(mesh, key, smoke)
+        out[key]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def row_rel(got, want) -> float:
+    """The largest |got - want| over each row's largest |want|."""
+    den = want.double().abs().amax(-1, keepdim=True).clamp_min(1e-300)
+    return float(((got.double() - want.double()).abs() / den).max())
+
+
+def split_weight(name, cfg) -> bool:
+    """Does a rank of mesh 4 hold a quarter of the weight ``name`` (the
+    rest whole)?  The column projections' values, scales and biases, the
+    row-parallel ones' values (their per-column scales whole), and the
+    embedding and head where the vocabulary divides 4."""
+    if name.startswith(("embed.", "lm_head.")):
+        return cfg.vocab_size % 4 == 0
+    proj, attr = name.split(".")[-2:]
+    if proj in ("wq", "wk", "wv", "gate", "up"):
+        return attr in ("w_q_values", "w_q_scale", "b")
+    return proj in ("wo", "down") and attr == "w_q_values"
+
+
+def check_encdec_mesh(runs, one, key, smi, smoke=False):
+    """The checks and prints of ``encdec_serve_rank``'s mesh-4 runs of
+    ``key`` against mesh 1's ``one``: exact launch counts (serve, encode,
+    prefill_step) and the same tokens on every rank; the probe's bitwise
+    tensors bitwise mesh 1's, its near ones the same bits on every rank
+    and within their limit of mesh 1's; the dense seq-split witness; the
+    tokens by the near-tie rule; each rank's bytes of the split weights
+    and cache a quarter of mesh 1's, the rest whole; returns the
+    record."""
+    cfg = encdec_mesh_configs(smoke)[key]
+    r0 = runs[0]
+    layers = (f"{cfg.n_encoder_layers} + {cfg.n_layers}"
+              if cfg.is_encoder_decoder else str(cfg.n_layers))
+    cache = "dense cache" if key == "seq" else "paged bf16 pool"
+    what = f"mesh 4 ({r0['policy']}) {cfg.name}, {layers} layers, {cache}"
+    if key == "seq" and r0["policy"] != "pages":
+        fail(f"{what}: the dense cache is not split by sequence")
+    for r in runs:
+        if r["counts"] != r["want"]:
+            fail(f"{what}: rank {r['rank']} launches {r['counts']} != "
+                 f"{r['want']}")
+        if not torch.equal(r["tokens"], r0["tokens"]):
+            fail(f"{what}: rank {r['rank']}'s tokens differ from rank 0's")
+        if r["probed"]["digests"] != r0["probed"]["digests"]:
+            fail(f"{what}: rank {r['rank']}'s replicated outputs differ "
+                 "from rank 0's")
+    if one["counts"] != one["want"]:
+        fail(f"mesh 1 {cfg.name}: launches {one['counts']} != "
+             f"{one['want']}")
+    extra = {}
+    if key == "enc":
+        n = mesh_frames(cfg)
+        enc_layer = {k: v * cfg.n_encoder_layers for k, v in
+                     mesh_layer_launches(cfg, None, paged=False,
+                                         flash=True).items()}
+        one_layer = encoder_launches(cfg, n)
+        for r, want in [(r, enc_layer) for r in runs] + [(one, one_layer)]:
+            if r["encode_counts"] != want:
+                fail(f"{what}: encode launches {r['encode_counts']} != "
+                     f"{want} (rank {r['rank']})")
+        extra["encode"] = (one["encode_s"], r0["encode_s"])
+    if key == "vlm":
+        per = {k: v * cfg.n_layers for k, v in mesh_layer_launches(
+            cfg, None, paged=False, flash=True).items()}
+        one_per = forward_launches(cfg, flash=True)
+        for r, want in [(r, per) for r in runs] + [(one, one_per)]:
+            if r["probed"]["prefill_counts"] != want:
+                fail(f"{what}: prefill_step launches "
+                     f"{r['probed']['prefill_counts']} != {want}")
+        extra["prefill_step"] = (one["probed"]["prefill_step_s"],
+                                 r0["probed"]["prefill_step_s"])
+    for name, want in one["probed"]["bitwise"].items():
+        got = r0["probed"]["bitwise"][name]
+        if not torch.equal(got, want):
+            fail(f"{what}: {name} differs from mesh 1's (max |err| "
+                 f"{(got.double() - want.double()).abs().max():.3e})")
+    print(f"{what}: launches a rank {r0['counts']} (exact on every rank); "
+          f"layer 0's projections at {MESH_MODE_ROWS} rows "
+          f"({len(one['probed']['bitwise'])} tensors, "
+          + ("cross q / k / v / wo among them, " if key == "enc" else "")
+          + "column ones gathered, row-parallel ones reduced) bitwise mesh "
+          "1's")
+    near = {}
+    limit = MESH_LOGIT_REL if key == "vlm" else ENCDEC_MESH_REL
+    for name, want in one["probed"]["near"].items():
+        got = r0["probed"]["near"][name]
+        near[name] = (row_rel(got, want), torch.equal(got, want))
+        if near[name][0] > limit:
+            fail(f"{what}: {name} at {near[name][0]:.3e} of its row's "
+                 f"largest |value| from mesh 1's (limit {limit:.3e})")
+    if near:
+        worst = max(e for e, _ in near.values())
+        n_bits = sum(b for _, b in near.values())
+        print(f"  {', '.join(near)}: the same bits on every rank; "
+              f"{n_bits} of {len(near)} bitwise mesh 1's, the worst within "
+              f"{worst:.3e} of its row's largest |value| (limit "
+              f"{limit:.3e})")
+    if key == "enc":
+        print(f"  encode of 4 x {mesh_frames(cfg)} frames: launches a rank "
+              f"{runs[0]['encode_counts']} (exact on every rank; K5 "
+              f"non-causal on the rank's heads); mesh 1 "
+              f"{one['encode_s'] * 1e3:.3f} ms, mesh 4 "
+              f"{r0['encode_s'] * 1e3:.3f} ms (host clock) [{smi}]")
+    if key == "vlm":
+        print(f"  prefill_step of {cfg.frontend_len} patches + "
+              f"{r0['probed']['prefill_tokens'] - cfg.frontend_len} tokens: "
+              f"launches a rank {r0['probed']['prefill_counts']} (exact on "
+              f"every rank); mesh 1 "
+              f"{one['probed']['prefill_step_s'] * 1e3:.3f} ms, mesh 4 "
+              f"{r0['probed']['prefill_step_s'] * 1e3:.3f} ms "
+              f"(host clock) [{smi}]")
+    if key == "seq":
+        for r in runs:
+            w = r["probed"]["witness"]
+            if w["policy"] != "pages" or w["calls"] != \
+                    r0["probed"]["witness"]["calls"]:
+                fail(f"{what}: witness on rank {r['rank']}: {w}")
+            if max(w["split"]) > PAGES_WITNESS_REL:
+                fail(f"{what}: rank {r['rank']}'s seq-split attention at "
+                     f"{max(w['split']):.3e} of its row's largest |value| "
+                     f"(limit {PAGES_WITNESS_REL:.3e})")
+        w = r0["probed"]["witness"]
+        extra["witness"] = {k: w[k] for k in ("split", "dense")}
+        print(f"  the seq-split attention against the plain f32 attention "
+              f"over the gathered cache: {w['calls']} calls, by layer "
+              + " ".join(f"{e:.2e}" for e in w["split"])
+              + f" of the row's largest |value| (limit "
+              f"{PAGES_WITNESS_REL:.3e}); the unsplit bf16 path on the same "
+              "inputs " + " ".join(f"{e:.2e}" for e in w["dense"]))
+    logit_rel, live, share = mesh_tokens(f"{what} against mesh 1", one, r0)
+    if key == "vlm" and logit_rel > MESH_LOGIT_REL:
+        fail(f"{what}: logits differ from mesh 1's by {logit_rel:.3e} of the "
+             f"largest |logit| (limit {MESH_LOGIT_REL})")
+    print(f"  logits (prefill and the {live - 1} decode steps whose inputs "
+          f"agree) within {logit_rel:.3e} of the largest |logit| ("
+          + (f"limit {MESH_LOGIT_REL}" if key == "vlm" else
+             "printed, no limit: the layers are held above")
+          + ")")
+    for name, b in one["weight_bytes"].items():
+        n = 4 if split_weight(name, cfg) else 1
+        for r in runs:
+            if n * r["weight_bytes"][name] != b:
+                fail(f"{what}: rank {r['rank']} holds "
+                     f"{r['weight_bytes'][name]} bytes of {name}, mesh 1 "
+                     f"{b} (1/{n} expected)")
+    for name, b in one["cache_bytes"].items():
+        n = 4 if name in ("k", "v", "k_pages", "v_pages") else 1
+        for r in runs:
+            if n * r["cache_bytes"][name] != b:
+                fail(f"{what}: rank {r['rank']} holds "
+                     f"{r['cache_bytes'][name]} bytes of the cache's {name},"
+                     f" mesh 1 {b} (1/{n} expected)")
+    split = sum(v for k, v in r0["weight_bytes"].items()
+                if split_weight(k, cfg))
+    whole = sum(v for k, v in r0["weight_bytes"].items()
+                if not split_weight(k, cfg))
+    print(f"  bytes a rank: split weights {split} (mesh 1: {4 * split}), "
+          f"whole ones {whole}; the cache's split arrays "
+          + str({k: v for k, v in r0["cache_bytes"].items()
+                 if k in ("k", "v", "k_pages", "v_pages")})
+          + " (a quarter of mesh 1's), the rest whole")
+    print(f"  prefill of {list(MISTRAL_PROMPTS)} tokens: mesh 1 "
+          f"{one['prefill_s'] * 1e3:.3f} ms, mesh 4 "
+          f"{r0['prefill_s'] * 1e3:.3f} ms; decode: mesh 1 "
+          f"{one['tok_s']:.1f} tok/s, mesh 4 {r0['tok_s']:.1f} tok/s (host "
+          f"clock); mesh 4's decode step {r0['decode_step_ms']:.3f} ms with "
+          f"a synchronize around each of its {r0['collectives_a_step']:.0f} "
+          f"collectives, {r0['collective_share']:.3f} of it in them (gloo "
+          "through host buffers, 4 ranks on one card); the serve "
+          f"{r0['seconds']:.1f} s on 4 ranks, {one['seconds']:.1f} s on 1 "
+          f"(host clock) [{smi}]")
+    return {"one": {k: v for k, v in one.items()
+                    if k not in ("logits", "probed", "weight_bytes")},
+            "four": {k: v for k, v in r0.items()
+                     if k not in ("logits", "probed", "weight_bytes")},
+            "logit_rel": logit_rel, "identical_share": share,
+            "near": near, "layers": layers, "split_bytes": split, **extra}
 
 
 # the sharded-training part of the mesh phase: qwen2.5-3b at full width
@@ -5982,8 +6467,9 @@ def mesh4_rank(mesh, smoke=False):
     once): qwen2.5-3b's Scheduler trace on 2 ranks (``heads``,
     ``mesh2_rank``) and on 4 (``pages``), the pages depth witness,
     mistral-large-123b's serve, qwen3-moe-30b-a3b's serve, mamba2-370m's
-    and zamba2-7b's serves, then sharded training; each part's memory
-    freed before the next."""
+    and zamba2-7b's serves, seamless-m4t-medium's, phi-3-vision's and
+    qwen2.5-3b's on the sequence-split cache, then sharded training; each
+    part's memory freed before the next."""
     import gc
     out, seconds = {}, {}
     for name, fn, args in (("qwen2", mesh2_rank, (smoke,)),
@@ -5992,6 +6478,7 @@ def mesh4_rank(mesh, smoke=False):
                            ("mistral", mistral_rank, (smoke,)),
                            ("moe", moe_mesh_rank, (smoke,)),
                            ("ssm", ssm_mesh_rank, (smoke,)),
+                           ("encdec", encdec_mesh_rank, (smoke,)),
                            ("train", train_mesh_rank, (smoke,))):
         t0 = time.perf_counter()
         out[name] = fn(mesh, *args)
@@ -6332,7 +6819,11 @@ def mesh_paths(dev, smi, smoke=False):
     zamba2-7b at full width, SSM_MESH_LAYERS layers, on the dense slot
     cache, every layer's Mamba2 stages bitwise mesh 1's slice and its
     output within the norm's tolerance, each rank's split weights and slot
-    state a quarter of mesh 1's (``ssm_mesh_rank``, ``check_ssm_mesh``).
+    state a quarter of mesh 1's (``ssm_mesh_rank``, ``check_ssm_mesh``);
+    then seamless-m4t-medium (encode and a serve with memory=),
+    phi-3-vision (prefill_step with its patches, a serve) and qwen2.5-3b
+    on the dense cache split by sequence (``encdec_mesh_rank``,
+    ``check_encdec_mesh``).
     Each
     rank's counts are exact and every rank emits the same tokens.  Then
     sharded training (``train_mesh_rank``, ``check_train_mesh``) on the
@@ -6387,11 +6878,22 @@ def mesh_paths(dev, smi, smoke=False):
               f"{one['resident_gb']:.2f} GB, peak {one['peak_gb']:.2f} GB, "
               f"drawn in {one['draw_s']:.1f} s; {one['seconds']:.1f} s")
     torch.cuda.empty_cache()
+    stamp("mesh phase: seamless-m4t-medium, phi-3-vision and qwen2.5-3b "
+          "(sequence-split cache) on 1 rank (here)")
+    ones["encdec"] = encdec_mesh_rank(
+        Mesh(1, backend=MESH_BACKEND, device=dev), smoke)
+    for key, cfg in encdec_mesh_configs(smoke).items():
+        one = ones["encdec"][key]
+        print(f"mesh 1 {cfg.name}: {describe(cfg)}; resident "
+              f"{one['resident_gb']:.2f} GB, peak {one['peak_gb']:.2f} GB, "
+              f"drawn in {one['draw_s']:.1f} s; {one['seconds']:.1f} s")
+    torch.cuda.empty_cache()
     stamp("mesh phase: sharded training, the unsharded steps (here)")
     train_ref = train_mesh_reference(dev, smoke)
     stamp("mesh phase: 4 ranks (the Scheduler trace on 2 and on 4, the "
           "depth witness, mistral-large-123b, qwen3-moe-30b-a3b, "
-          "mamba2-370m and zamba2-7b, sharded training)")
+          "mamba2-370m and zamba2-7b, seamless-m4t-medium, phi-3-vision and "
+          "qwen2.5-3b on the sequence-split cache, sharded training)")
     every = spawn_ranks(mesh4_rank, 4, backend=MESH_BACKEND,
                         device=MESH_DEVICE, args=(smoke,),
                         timeout=MESH_TIMEOUT)
@@ -6455,6 +6957,15 @@ def mesh_paths(dev, smi, smoke=False):
     print(f"  the SSM and hybrid program {every[0]['seconds']['ssm']:.1f} s "
           "on 4 ranks (both serves, their draws and probes included), "
           f"{sum(o['seconds'] for o in ones['ssm'].values()):.1f} s on 1 "
+          f"(host clock) [{smi}]")
+    res["encdec"] = {key: check_encdec_mesh([r["encdec"][key] for r in every],
+                                            ones["encdec"][key], key, smi,
+                                            smoke)
+                     for key in ("enc", "vlm", "seq")}
+    print(f"  the encoder-decoder, vision and seq-split program "
+          f"{every[0]['seconds']['encdec']:.1f} s on 4 ranks (the three "
+          f"serves, their draws and probes included), "
+          f"{sum(o['seconds'] for o in ones['encdec'].values()):.1f} s on 1 "
           f"(host clock) [{smi}]")
     stamp("mesh phase: sharded training")
     res["train"] = check_train_mesh([r["train"] for r in every], train_ref,
@@ -6751,9 +7262,15 @@ def main():
             k["name"], "seamless-m4t-medium")
         k["launches_phi3_vision_4_2b"] = path_launches(k["name"],
                                                        "phi-3-vision-4.2b")
+        k["launches_encdec_mesh4"] = {
+            f"{key} serve": r["four"]["counts"].get(k["name"], 0)
+            for key, r in mesh["encdec"].items()}
+        k["launches_encdec_mesh4"]["enc encode"] = mesh["encdec"]["enc"][
+            "four"]["encode_counts"].get(k["name"], 0)
     sched_all = {**{(k, "qwen2.5-3b w8a8 bf16, 36 layers"): r
                     for k, r in sched_runs.items()},
-                 **{(k, f"{MOE_ARCH} w8a8 bf16, 48 layers"): r
+                 **{(k, f"{MOE_ARCH} w8a8 bf16, first {MOE_SCHED_LAYERS} "
+                        "of 48 layers"): r
                     for k, r in moe["sched"].items()}}
     for (k, model_text), r in sched_all.items():
         accept = ("-" if r["acceptance"] is None
@@ -6864,6 +7381,18 @@ def main():
               f"{r['out_rel']:.3e}, logits within {r['logit_rel']:.3e}; "
               f"identical share {r['identical_share']:.3f}; the serve "
               f"{s4['seconds']:.1f} s on 4 ranks [{smi}]")
+    for key, cfg in encdec_mesh_configs(False).items():
+        r = mesh["encdec"][key]
+        e1, e4 = r["one"], r["four"]
+        cache = "dense cache" if key == "seq" else "paged bf16 pool"
+        print(f"{cfg.name} ({r['layers']} layers, w8a8 bf16, {cache}): "
+              f"mesh 1 {e1['tok_s']:.1f} tok/s, mesh 4 ({e4['policy']}) "
+              f"{e4['tok_s']:.1f} tok/s; split weights {r['split_bytes']} "
+              f"bytes a rank; collective share "
+              f"{e4['collective_share']:.3f}; logits within "
+              f"{r['logit_rel']:.3e}; identical share "
+              f"{r['identical_share']:.3f}; the serve {e4['seconds']:.1f} s "
+              f"on 4 ranks [{smi}]")
     st = mesh["train"]
     print(f"sharded training ({TRAIN_ARCH}, {TRAIN_MESH_LAYERS} layers, bf16 "
           f"ZeRO-1, mesh (data {TRAIN_MESH[0]}, model {TRAIN_MESH[1]}), 4 "

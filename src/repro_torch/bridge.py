@@ -243,19 +243,15 @@ def shard_model(model: nn.Module, mesh):
     ``out_proj`` rows (``"column"`` / ``"row"``) and its ``conv_x``
     channels of the rank's SSM heads, its other weights whole, and gets
     the mesh (``models/ssm.py``); SSM heads that do not divide the mesh
-    raise.  A hybrid's shared block is sliced as a dense decoder block.
-    ``model.mesh`` is set, so
+    raise.  A hybrid's shared block is sliced as a dense decoder block, and
+    an encoder-decoder's ``Encoder`` layers and its decoder blocks'
+    ``cross`` projections by the same path rules (a vocabulary that does
+    not divide the mesh, seamless's 256,206 on 4, leaves the embedding and
+    head whole: shard-if-divisible).  ``model.mesh`` is set, so
     the forward runs the rank's program.  ``model`` may be a whole
     ``Model`` or one block (``init_model(each_block=...)`` shards each
     block as it is drawn); modules sliced before are left as they are.  A
-    mesh of one rank slices nothing.  Encoder-decoder models raise
-    (ROADMAP queue 1, item 13)."""
-    for mod in model.modules():
-        if isinstance(mod, Encoder):
-            raise NotImplementedError(
-                "Encoder under a mesh: the port's meshes serve the dense "
-                "attention, MoE, SSM and hybrid families; the "
-                "encoder-decoder is ROADMAP queue 1, item 13")
+    mesh of one rank slices nothing."""
     model.mesh = mesh
     for mod in model.modules():
         if isinstance(mod, (Attention, MoE, Mamba2)):

@@ -39,9 +39,13 @@ mamba2-370m (under 2 B parameters: ``dp``, its weights replicated over
 by its rows) are placed at all four of their cells, ``long_500k``
 included; a serving cell's cache is the slot state (``ssm_h`` by
 ``ssm_heads``, ``conv_x`` by ``ssm_inner``) and zamba2's 13 shared-site
-KV caches (by KV heads).  A family whose path raises under a mesh is
-refused with its item number (the encoder-decoder and the vision
-family's patches): ``--all`` lists each refusal.
+KV caches (by KV heads).  seamless-m4t-medium (under 2 B parameters:
+``dp``) and phi-3-vision (``tp``) are placed at their three cells: the
+encoder's layers and the decoder's cross projections by the decoder
+blocks' rules, the encoder's frames, a decode cell's encoded memory and
+the vision family's patches by their batch axis (``input_shapes``).
+``--all`` places every cell of every architecture, 32 on the
+production meshes.
 
 Usage (no card):
   python -m repro_torch.launch.dryrun --arch qwen2_5_3b --shape train_4k \
@@ -61,7 +65,8 @@ import tempfile
 import torch
 
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.shapes import SHAPES, ShapeCell, cells_for
+from repro_torch.launch.shapes import (ENCDEC_DECODE_MEMORY_LEN, SHAPES,
+                                       ShapeCell, cells_for)
 from repro_torch.launch.sharding import (BATCH_AXES, local_shape,
                                          make_activation_rules,
                                          make_param_rules, param_specs,
@@ -122,37 +127,38 @@ def cache_shape_for(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 
 def input_shapes(cfg: ModelConfig, cell: ShapeCell) -> dict:
-    """{input: (shape, dtype)} of the cell's step (the cache aside)."""
-    b, s = cell.global_batch, cell.seq_len
-    if cell.kind == "train":
-        return {"inputs": ((b, s), torch.int32),
-                "targets": ((b, s), torch.int32)}
-    if cell.kind == "prefill":
-        return {"tokens": ((b, s), torch.int32)}
-    return {"tokens": ((b, 1), torch.int32)}
+    """{input: (shape, dtype)} of the cell's step (the cache aside), as the
+    JAX package's ``input_specs``: the vision family's text is the cell's
+    length less its ``frontend_len`` patches, which come as f32
+    ``frontend_embeds``; an encoder-decoder's train and prefill cells take
+    the cell's length of f32 ``encoder_frames``, its decode cells an f32
+    ``memory`` of ``ENCDEC_DECODE_MEMORY_LEN`` rows."""
+    b, s, d = cell.global_batch, cell.seq_len, cfg.d_model
+    f32, i32 = torch.float32, torch.int32
+    if cell.kind == "decode":
+        out = {"tokens": ((b, 1), i32)}
+        if cfg.is_encoder_decoder:
+            out["memory"] = ((b, ENCDEC_DECODE_MEMORY_LEN, d), f32)
+        return out
+    vision = cfg.frontend == "vision"
+    s_text = s - (cfg.frontend_len if vision else 0)
+    out = ({"inputs": ((b, s_text), i32), "targets": ((b, s_text), i32)}
+           if cell.kind == "train" else {"tokens": ((b, s_text), i32)})
+    if vision:
+        out["frontend_embeds"] = ((b, cfg.frontend_len, d), f32)
+    if cfg.is_encoder_decoder:
+        out["encoder_frames"] = ((b, s, d), f32)
+    return out
 
 
 def _bytes(shape, dtype, spec, mesh) -> int:
     return math.prod(local_shape(shape, spec, mesh)) * dtype.itemsize
 
 
-def check_placeable(cfg: ModelConfig) -> None:
-    """Raise, with its item number, for a family whose path raises under a
-    mesh (``models/transformer.check_mesh_supported``; the vision family's
-    patches, ``apply_model``)."""
-    from repro_torch.models.transformer import check_mesh_supported
-    check_mesh_supported(cfg)
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) under a mesh: frontend_embeds (the "
-            "vision family's patches) are ROADMAP queue 1, item 13")
-
-
 def place_cell(cfg: ModelConfig, cell: ShapeCell, mesh, *,
                quant: str = "w8a8") -> dict:
     """The record of ``cfg`` at ``cell`` on ``mesh`` (anything with a
     ``shape``): module docstring, step 4."""
-    check_placeable(cfg)
     train = cell.kind == "train"
     if train:
         cfg = cfg.replace(quant_proj="none", dtype="bfloat16")
@@ -258,14 +264,11 @@ def main(argv=None) -> int:
         ap.error("--arch and --shape, or --all")
     os.makedirs(args.out, exist_ok=True)
     tag = "multi" if args.multi_pod else "single"
-    refused, failures, done = [], [], 0
+    failures, done = [], 0
     for arch, shape in todo:
         try:
             rec = lower_cell(arch, shape, multi_pod=args.multi_pod,
                              quant=args.quant)
-        except NotImplementedError as e:
-            refused.append((arch, shape, str(e)))
-            continue
         except Exception as e:  # noqa: BLE001 — report and continue sweep
             failures.append((arch, shape, repr(e)))
             print(f"[{arch} x {shape}] FAILED: {e!r}")
@@ -274,14 +277,12 @@ def main(argv=None) -> int:
                   "w") as f:
             json.dump(rec, f, indent=1)
         done += 1
-    for arch, shape, why in refused:
-        print(f"refused: {arch} x {shape}: {why}")
     if failures:
         print(f"\n{len(failures)} FAILURES:")
         for f in failures:
             print(" ", f)
         return 1
-    print(f"\n{done} cells placed, {len(refused)} refused; records in "
+    print(f"\n{done} cells placed; records in "
           f"{args.out}")
     return 0
 

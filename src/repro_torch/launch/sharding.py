@@ -384,6 +384,7 @@ def shard_like_params(tree: dict, placement: TrainPlacement) -> dict:
 BATCH_AXES = {"inputs": ("batch", None), "targets": ("batch", None),
               "frontend_embeds": ("batch", None, None),
               "encoder_frames": ("batch", None, None),
+              "memory": ("batch", None, None),
               "tokens": ("batch", None)}
 
 

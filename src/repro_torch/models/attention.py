@@ -33,10 +33,18 @@ hold all heads of P/m pages): Q, K and V are gathered whole, the new rows
 scatter only into pages the rank owns, and each rank walks only those
 pages, combining with the others through a partial softmax against the
 global row max (``_paged_attend_split``, plain PyTorch on either device,
-as the JAX package's combine is plain jnp whatever its kernel mode).  The
-output projection is row-parallel.  The paged and dense caches serve
-under a mesh (the dense one by heads only); cross-attention and the verify
-mode raise (ROADMAP queue 1, item 13).
+as the JAX package's combine is plain jnp whatever its kernel mode).  A
+dense cache takes the same two policies: by heads, or, where the KV heads
+do not divide the mesh, by sequence (the JAX package's ``kv_seq``): each
+rank's slab holds S_max/m positions of every head, a rank writes the new
+rows that fall in them and attends over them, and the partial softmaxes
+combine as the pages' do, the probabilities rounded as the unsplit
+cache's are (``_dense_attend_split``).  The output
+projection is row-parallel.  Cross-attention runs on the rank's heads: Q
+from its ``wq`` columns, K and V from the whole (replicated) memory
+through its ``wk`` / ``wv`` columns, ``wo`` row-parallel; ``memory``
+enters through ``copy_to`` as ``x`` does, so under training its gradient
+sums each rank's share.  The verify mode raises under a mesh.
 
 The cache-less forward (``prefill_step``, and training, which
 differentiates it) runs tensor-parallel too: the rank's q heads attend
@@ -318,17 +326,9 @@ def _paged_attend_split(q, tok_pos, page_table, pools, cfg: ModelConfig, *,
         vd = dequantize_gathered(vd, paged_gather_scales(pools[3], local))
     t_len = kd.shape[1]
     own_tok = owned.repeat_interleave(page, dim=1)[:, None, None, None, :]
-    sc = torch.einsum("bskgh,btkh->bkgst", q.reshape(b, s, kh, g, hd).float(),
-                      kd.float()) * scale
-    sc = softcap(sc, cfg.attn_logit_softcap)
-    sc = sc + _mask_bias(tok_pos[:, None, None, :],
-                         torch.arange(t_len, device=q.device),
-                         window=cfg.sliding_window, is_local=is_local)
-    sc = torch.where(own_tok, sc, NEG_INF)
-    # the global row max is finite: the diagonal was just written to a page
-    # some rank owns
-    m = mesh.pmax(torch.amax(sc, dim=-1))                  # (B, K, G, S)
-    p = torch.where(own_tok, torch.exp(sc - m[..., None]), 0.0)
+    p = _split_probs(q.reshape(b, s, kh, g, hd), kd, tok_pos,
+                     torch.arange(t_len, device=q.device), cfg, scale=scale,
+                     is_local=is_local, mesh=mesh, own=own_tok)
     # the weighted V and the normaliser summed in one collective
     both = mesh.psum(torch.cat([torch.einsum("bkgst,btkh->bkgsh", p,
                                              vd.float()),
@@ -336,6 +336,61 @@ def _paged_attend_split(q, tok_pos, page_table, pools, cfg: ModelConfig, *,
     acc, l = both[..., :hd], both[..., hd]
     o = (acc / torch.clamp(l, min=1e-37)[..., None]).to(q.dtype)
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
+
+
+def _split_probs(q, k, q_pos, k_pos, cfg: ModelConfig, *, scale,
+                 is_local: bool, mesh, own=None):
+    """The unnormalised probabilities of attention whose keys are split
+    over the ranks: q (B, S, K, G, hd) whole, k (B, T, K, hd) this rank's
+    keys at positions ``k_pos`` (T,), ``own`` (broadcast to the (B, K, G,
+    S, T) scores) masking what the rank does not hold.  Each score less
+    the global row max (``pmax``), exponentiated: (B, K, G, S, T) f32, 0
+    where the rank holds no key.  The callers sum the normaliser and the
+    weighted V over the ranks (``psum``, in rank order): flash attention's
+    identity across ranks, with only (B, H, S)-sized partials crossing the
+    mesh, never KV, and the same bits on every rank."""
+    sc = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
+    sc = softcap(sc, cfg.attn_logit_softcap)
+    sc = sc + _mask_bias(q_pos[:, None, None, :], k_pos,
+                         window=cfg.sliding_window, is_local=is_local)
+    if own is not None:
+        sc = torch.where(own, sc, NEG_INF)
+    # the global row max is finite: the diagonal was just written where
+    # some rank holds it
+    m = mesh.pmax(torch.amax(sc, dim=-1))                  # (B, K, G, S)
+    p = torch.exp(sc - m[..., None])
+    return p if own is None else torch.where(own, p, 0.0)
+
+
+def _dense_attend_split(q, k, v, cache, cache_pos, cfg: ModelConfig, *,
+                        scale, is_local: bool, mesh):
+    """A dense cache split by sequence: this rank's slab ``cache`` (k, v),
+    each (B, S_max/m, K, hd), holds the positions [r·S_max/m,
+    (r+1)·S_max/m).  q (B, S, K, G, hd), k / v (B, S, K, hd) are whole
+    (every head); the new rows are written only where their positions fall
+    in the rank's slab (the other ranks write the rest), and the rank
+    attends over its slab (``_split_probs``).  As ``_attend_dense`` (the
+    unsplit cache's path) does, the probabilities are normalised by their
+    sum over the ranks and rounded to v's dtype before they weight V; the
+    weighted V is then summed over the ranks.  Returns (B, S, K, G, hd)
+    and the cache."""
+    ck, cv = cache
+    b, s = q.shape[:2]
+    per = ck.shape[1]
+    dev = q.device
+    tok_pos = cache_pos[:, None] + torch.arange(s, device=dev)   # (B, S)
+    local = tok_pos - mesh.rank * per
+    mine = (local >= 0) & (local < per)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, s)[mine]
+    ck[rows, local[mine]] = k[mine].to(ck.dtype)
+    cv[rows, local[mine]] = v[mine].to(cv.dtype)
+    k_pos = mesh.rank * per + torch.arange(per, device=dev)
+    p = _split_probs(q, ck, tok_pos, k_pos, cfg, scale=scale,
+                     is_local=is_local, mesh=mesh)
+    l = mesh.psum(p.sum(dim=-1))
+    p = (p / torch.clamp(l, min=1e-37)[..., None]).to(cv.dtype).float()
+    o = mesh.psum(torch.einsum("bkgst,btkh->bkgsh", p, cv.float()))
+    return o.to(q.dtype).permute(0, 3, 1, 2, 4), (ck, cv)
 
 
 def _project_out(params: Attention, o, cfg: ModelConfig, *,
@@ -391,11 +446,12 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     hd = cfg.head_dim
     mesh = params.mesh
-    by = _mesh_policy(mesh, kv_shard, cache=cache, memory=memory,
-                      n_new=n_new)
+    by = _mesh_policy(mesh, kv_shard, cache=cache, n_new=n_new)
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
     if params.wq.shard == "column":
         x = copy_to(mesh, x)
+        if memory is not None:
+            memory = copy_to(mesh, memory)
 
     if memory is not None:
         q = apply_linear(params.wq, x, mode=cfg.quant_proj)
@@ -437,9 +493,7 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                           torch.arange(k.shape[1], device=x.device),
                           scale=scale, cap=cfg.attn_logit_softcap,
                           window=None, is_local=False, causal=False)
-        y = apply_linear(params.wo, o.reshape(b, s, cfg.q_dim),
-                         mode=cfg.quant_proj)
-        return y, None
+        return _project_out(params, o.reshape(b, s, -1), cfg), None
 
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
@@ -451,6 +505,12 @@ def apply_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                              n_new=n_new, mesh=mesh, by=by)
 
     new_cache = None
+    if by == "pages":
+        o, new_cache = _dense_attend_split(
+            q.reshape(b, s, kh, g, hd), k, v, cache, cache_pos, cfg,
+            scale=scale, is_local=is_local, mesh=mesh)
+        return _project_out(params, o.reshape(b, s, -1), cfg,
+                            whole=True), new_cache
     if cache is not None:
         ck, cv = cache
         bidx = torch.arange(b, device=x.device)[:, None]
@@ -527,16 +587,13 @@ def _rank_kv_heads(cfg: ModelConfig, mesh) -> tuple[int, int]:
         "would read their KV heads unevenly")
 
 
-def _mesh_policy(mesh, kv_shard, *, cache, memory, n_new):
+def _mesh_policy(mesh, kv_shard, *, cache, n_new):
     """None without a mesh of more than one rank or without a cache (the
-    cache-less forward is tensor-parallel by heads), else the cache's
-    policy ``kv_shard``.  Raises on what does not run over a mesh."""
+    cache-less forward and cross-attention are tensor-parallel by heads),
+    else the cache's policy ``kv_shard``.  Raises on what does not run over
+    a mesh."""
     if mesh is None or mesh.size == 1:
         return None
-    if memory is not None:
-        raise NotImplementedError(
-            "cross-attention (memory=) under a mesh: ROADMAP queue 1, "
-            "item 13")
     if cache is None:
         return None
     if n_new is not None:

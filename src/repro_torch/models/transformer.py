@@ -29,12 +29,16 @@ embedding and head, column- and row-parallel projections and the sharded
 paged attention (``models/attention.py``) reduce over the mesh so that the
 residual stream, the norms and the logits are the same bits on every rank
 (ranks that picked different greedy tokens would wait on each other in a
-collective).  The dense attention families, MoE (its experts split by
-``models/moe.py``), SSM and hybrid (each Mamba2 block on the rank's
-``ssm_heads``, ``models/ssm.py``; the hybrid's shared block as a dense
-decoder block on its KV heads; ROADMAP queue 1, item 13 for the
-encoder-decoder and the vision family's patches), on a cache or without
-one: the cache-less forward
+collective).  Every family runs so, on a cache or without one: the dense
+attention families, MoE (its experts split by ``models/moe.py``), SSM and
+hybrid (each Mamba2 block on the rank's ``ssm_heads``, ``models/ssm.py``;
+the hybrid's shared block as a dense decoder block on its KV heads, or
+on its slab of the sequence), the vision family (its patches are spliced
+into the replicated residual stream before the first block, so the rest
+is the dense path) and the encoder-decoder (each encoder block on the
+rank's heads and ``mlp`` columns, K5 non-causal on its heads, so the
+memory comes out replicated; each decoder block's cross-attention on its
+heads over the whole memory).  The cache-less forward
 (``prefill_step``, and training, which differentiates it through the
 mesh's autograd collectives) runs each rank's heads through K5.  With
 ``split_logits=True`` (the train step's loss) a vocab-parallel head's
@@ -155,15 +159,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: unknown family {cfg.family!r}; the port runs "
             f"{', '.join(FAMILIES)}")
-
-
-def check_mesh_supported(cfg: ModelConfig) -> None:
-    """Refuse a family the port does not serve over a mesh yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) under a mesh: the port's meshes "
-            "serve the dense attention, MoE, SSM and hybrid families; the "
-            "encoder-decoder's memory= is ROADMAP queue 1, item 13")
 
 
 def is_ssm_family(cfg: ModelConfig) -> bool:
@@ -294,8 +289,9 @@ def _ssm_stack(model: Model, x, cfg: ModelConfig, *, positions, cache,
     layer row in place.  With a cache and S > 1 (or ``n_valid``) the
     blocks run in prefill-commit mode.  On a mesh the cache's rows are the
     rank's slices (its heads of ``ssm_h``, its channels of ``conv_x``, its
-    KV heads of ``shared_k`` / ``shared_v``: ``kv_shard`` ``"heads"``),
-    which each block reads and writes as they are."""
+    KV heads of ``shared_k`` / ``shared_v`` under ``kv_shard`` ``"heads"``,
+    or its positions of them under ``"pages"``), which each block reads
+    and writes as they are."""
     site = 0
     for i, (layer, shared_here) in enumerate(zip(model.layers,
                                                  shared_sites(cfg))):
@@ -423,12 +419,6 @@ def apply_model(model: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     # the cache's resolved policy (serving/cache.py): "heads", "pages", or
     # None on a cache built without a mesh
     kv_shard = cache.get("kv_shard") if cache is not None else None
-    if sharded:
-        check_mesh_supported(cfg)
-        if frontend_embeds is not None:
-            raise NotImplementedError(
-                "frontend_embeds (the vision family's patches) under a "
-                "mesh: ROADMAP queue 1, item 13")
     if cache is not None and sharded != (kv_shard is not None):
         raise ValueError(
             f"a model on {mesh.size if sharded else 1} rank(s) with a cache "

@@ -58,14 +58,17 @@ rank runs the same operations on it).  The cache also carries its
 resolved policy, ``kv_shard`` (the string ``"heads"`` or ``"pages"``;
 absent on a cache built without a mesh of more than one rank): the
 attention, the allocator and ``validate_decode_cache`` branch on it and
-never infer it from a slab's shape.  A dense cache splits only by heads.
-The SSM and hybrid families' slot state splits as the JAX package's
-``cache_logical_axes`` place it: ``ssm_h`` by SSM heads (L, B, H/m, P, N),
-``conv_x`` by their channels (L, B, k-1, d_inner/m), ``conv_B`` /
-``conv_C`` and ``seq_lens`` whole, a hybrid's ``shared_k`` / ``shared_v``
-by KV heads as a dense attention cache (``kv_shard`` ``"heads"``; split by
-sequence it raises, ROADMAP queue 1, item 13).  SSM heads that do not
-divide the ``model`` extent raise.
+never infer it from a slab's shape.  A dense cache splits by KV heads
+likewise, or else by sequence (the policy is still called ``"pages"``):
+``k`` / ``v`` ``(L, B, S_max/m, K, hd)``, rank ``r`` holding the positions
+``[r·S_max/m, (r+1)·S_max/m)`` (the JAX package's ``kv_seq``; ``max_len``
+is rounded up to a multiple of ``m``).  The SSM and hybrid families' slot
+state splits as the JAX package's ``cache_logical_axes`` place it:
+``ssm_h`` by SSM heads (L, B, H/m, P, N), ``conv_x`` by their channels
+(L, B, k-1, d_inner/m), ``conv_B`` / ``conv_C`` and ``seq_lens`` whole,
+a hybrid's ``shared_k`` / ``shared_v`` as a dense attention cache, by KV
+heads or by sequence.  SSM heads that do not divide the ``model`` extent
+raise.
 """
 from __future__ import annotations
 
@@ -221,9 +224,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     module docstring; the paged dict also carries ``page_table`` and
     ``seq_lens``, and under ``alloc="dynamic"`` the allocator's state,
     with every table row pointing at the reserved scratch page.  Under
-    ``config.mesh`` the pools are this rank's slab (module docstring) and
-    the pool's global page count is rounded up to a multiple of its shard
-    count.
+    ``config.mesh`` the pools are this rank's slab (module docstring); the
+    pool's global page count, or a dense cache's ``max_len`` split by
+    sequence, is rounded up to a multiple of its shard count.
     """
     config = config or CacheConfig()
     if config.layout not in ("dense", "paged"):
@@ -238,6 +241,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     check_supported(cfg)
     dev = resolve_device(device)
     kvh = cfg.n_kv_heads
+    if config.layout == "dense" and config.resolved_kv_shard(kvh) == "pages":
+        # split by sequence: every rank holds an equal run of positions
+        max_len = ceil_div(max_len, config.model_size()) * config.model_size()
     if is_ssm_family(cfg):
         if config.layout == "paged":
             raise ValueError(
@@ -248,12 +254,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     else:
         shapes, dtypes = _kv_shapes(cfg, batch, max_len, dtype, config)
     if config.mesh is not None:
-        if config.layout == "dense" and config.resolved_kv_shard(kvh) \
-                == "pages":
-            raise NotImplementedError(
-                "a dense cache split by sequence over a mesh (a hybrid's "
-                "shared_k / shared_v too): serve with the paged layout "
-                "(ROADMAP queue 1, item 13)")
         shapes = local_shapes(shapes, cache_shardings(cfg, shapes, config),
                               config.mesh)
     cache = {key: torch.zeros(shape, dtype=dtypes[key], device=dev)

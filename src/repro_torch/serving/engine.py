@@ -42,8 +42,10 @@ Over a serving mesh each rank calls these with its shard of the model
 the JAX package's ``_mesh_context`` is the model's own ``mesh``, which the
 forward reduces over (``models/transformer.py``).  Every rank gets the same
 logits and tokens.  ``prefill_step`` (cache-less, K5 on each rank's
-heads) runs under a mesh for the dense families; ``spec_step`` (the verify
-mode) raises under a mesh of more than one rank.
+heads, the vision family's patches and the encoder-decoder's frames
+included) and the cached entries with ``memory=`` run under a mesh for
+every family; ``spec_step`` (the verify mode) raises under a mesh of more
+than one rank.
 """
 from __future__ import annotations
 
@@ -131,18 +133,24 @@ def validate_decode_cache(cache: dict, cfg: ModelConfig, mesh=None) -> None:
             "kv_quant='int8'))")
 
 
-def cache_capacity(cache: dict) -> int | None:
+def cache_capacity(cache: dict, mesh=None) -> int | None:
     """Token capacity of a decode cache, or None for pure-SSM state (O(1)
-    in context length: no positional capacity to exceed)."""
+    in context length: no positional capacity to exceed).  ``mesh``: the
+    model's, whose ranks each hold S_max/m positions of a dense cache
+    split by sequence (its ``kv_shard`` ``"pages"``)."""
     if "k_pages" in cache:
         return cache["page_table"].shape[1] * cache["k_pages"].shape[2]
-    if "k" in cache:
-        return cache["k"].shape[2]
-    if "shared_k" in cache:
-        # hybrid: the shared block's sites hold the only positional
-        # buffers, and their S_max bounds the context
-        return cache["shared_k"].shape[2]
-    return None
+    # hybrid: the shared block's sites hold the only positional buffers,
+    # and their S_max bounds the context
+    key = "k" if "k" in cache else "shared_k" if "shared_k" in cache else None
+    if key is None:
+        return None
+    if cache.get("kv_shard") == "pages":
+        if mesh is None:
+            raise ValueError("a dense cache split by sequence over a mesh, "
+                             "read without the model's mesh")
+        return cache[key].shape[2] * mesh.size
+    return cache[key].shape[2]
 
 
 def prefill(model: Model, cache: dict, prompts: torch.Tensor,
@@ -177,7 +185,7 @@ def prefill(model: Model, cache: dict, prompts: torch.Tensor,
     """
     b, s_pad = prompts.shape
     validate_decode_cache(cache, cfg, getattr(model, "mesh", None))
-    capacity = cache_capacity(cache)
+    capacity = cache_capacity(cache, getattr(model, "mesh", None))
     if capacity is not None and start_pos + s_pad > capacity:
         # past capacity the page-table lookup would fault on the card
         raise ValueError(f"prompt width {start_pos + s_pad} exceeds cache "
@@ -238,7 +246,7 @@ def serve_step(model: Model, cache: dict, tokens: torch.Tensor,
     Returns (logits (B, 1, V) f32, cache — updated in place).
     """
     validate_decode_cache(cache, cfg, getattr(model, "mesh", None))
-    capacity = cache_capacity(cache)
+    capacity = cache_capacity(cache, getattr(model, "mesh", None))
     if (isinstance(pos, int) and capacity is not None
             and pos + tokens.shape[1] > capacity):
         raise ValueError(f"decode position {pos} exceeds cache capacity "
@@ -277,7 +285,7 @@ def greedy_decode(model: Model, cache: dict, first_token: torch.Tensor,
     pos = torch.as_tensor(start_pos, device=dev).long()
     # one host read per call, not per step: past capacity a write would
     # fault on the card (pure-SSM state has no capacity)
-    capacity = cache_capacity(cache)
+    capacity = cache_capacity(cache, getattr(model, "mesh", None))
     if (n_steps and capacity is not None
             and int(pos.max()) + n_steps > capacity):
         raise ValueError(f"{n_steps} decode steps from position "

@@ -73,7 +73,8 @@ class StateHandler:
     def capacity(self, cache: dict) -> int | None:
         """Max tokens one sequence may reach, or None (no positional
         bound: pure-SSM state is O(1) in context length)."""
-        return cache_capacity(cache)
+        return cache_capacity(cache, None if self.config is None
+                              else self.config.mesh)
 
     def occupancy(self, cache: dict):
         """(used, total, per_shard) in the handler's allocation units

@@ -33,10 +33,11 @@ from repro_torch.launch import dryrun, shapes
 from repro_torch.launch.mesh import PlacementMesh, make_production_mesh
 from repro_torch.roofline.model_flops import count_params, model_flops
 
-# the families the dry run places: dense, MoE, SSM and hybrid
+# the dense, MoE, SSM and hybrid families the dry run places
 PLACED = ["qwen2_5_3b", "gemma2_27b", "chatglm3_6b", "mistral_large_123b",
           "qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "mamba2_370m",
           "zamba2_7b"]
+# the encoder-decoder and vision families, which it placed last
 REFUSED = {"seamless_m4t_medium": "audio", "phi3_vision_4_2b": "vlm"}
 MESHES = {"single": False, "multi": True}
 SHAPES_KIND = {k: c.kind for k, c in shapes.SHAPES.items()}
@@ -125,6 +126,28 @@ def _tree_bytes(tree, specs, mesh, dtype_of=lambda leaf: leaf.dtype) -> int:
                * np.dtype(dtype_of(leaf)).itemsize for path, leaf in leaves)
 
 
+def _jax_inputs(cfg, cell) -> dict:
+    """{input: (shape, logical axes)} of the JAX dry run's
+    ``input_specs`` / ``batch_logical_axes`` for the cell, every one 4
+    bytes an element (int32 tokens, f32 frames, patches and memory)."""
+    b, s, d = cell.global_batch, cell.seq_len, cfg.d_model
+    rows = ("batch", None, None)
+    if cell.kind == "decode":
+        out = {"tokens": ((b, 1), ("batch", None))}
+        if cfg.is_encoder_decoder:
+            out["memory"] = ((b, jshapes.ENCDEC_DECODE_MEMORY_LEN, d), rows)
+        return out
+    vision = cfg.frontend == "vision"
+    s_text = s - (cfg.frontend_len if vision else 0)
+    names = ("inputs", "targets") if cell.kind == "train" else ("tokens",)
+    out = {n: ((b, s_text), ("batch", None)) for n in names}
+    if vision:
+        out["frontend_embeds"] = ((b, cfg.frontend_len, d), rows)
+    if cfg.is_encoder_decoder:
+        out["encoder_frames"] = ((b, s, d), rows)
+    return out
+
+
 def _jax_bytes(arch, shape, mesh) -> dict:
     """Each rank's bytes implied by the JAX package's placements."""
     cell = jshapes.SHAPES[shape]
@@ -147,13 +170,11 @@ def _jax_bytes(arch, shape, mesh) -> dict:
     else:
         out["param_bytes"] = _tree_bytes(params, compute, mesh)
     b, s = cell.global_batch, cell.seq_len
-    inputs = ({"inputs": (b, s), "targets": (b, s)} if train
-              else {"tokens": (b, s if cell.kind == "prefill" else 1)})
+    cfg = _cell_cfg(jax_get_config(arch), cell.kind)
     out["input_bytes"] = sum(
-        _local(sh, jsh.spec_for(sh, ("batch", None), mesh, act), mesh) * 4
-        for sh in inputs.values())
+        _local(sh, jsh.spec_for(sh, axes, mesh, act), mesh) * 4
+        for sh, axes in _jax_inputs(cfg, cell).values())
     if cell.kind == "decode":
-        cfg = _cell_cfg(jax_get_config(arch), "decode")
         cache = jax.eval_shape(lambda: jax_init_cache(cfg, b, s))
         specs = jsh.tree_specs(cache, jax_cache_axes(cfg), mesh, act)
         out["cache_bytes"] = sum(_local(cache[k].shape, specs[k], mesh)
@@ -166,7 +187,12 @@ def _jax_bytes(arch, shape, mesh) -> dict:
 @pytest.mark.parametrize("mesh_tag", list(MESHES))
 @pytest.mark.parametrize("arch", PLACED)
 def test_per_rank_bytes_equal_the_jax_placements(arch, mesh_tag):
-    multi = MESHES[mesh_tag]
+    _check_cells(arch, MESHES[mesh_tag])
+
+
+def _check_cells(arch, multi):
+    """Each of ``arch``'s cells on the production mesh: the record's bytes
+    equal those the JAX package's placements imply."""
     stand_in = PlacementMesh(**make_production_mesh(multi_pod=multi).shape)
     for shape in shapes.cells_for(get_config(arch)):
         rec = dryrun.lower_cell(arch, shape, multi_pod=multi, verbose=False)
@@ -191,22 +217,28 @@ def test_per_rank_bytes_equal_the_jax_placements(arch, mesh_tag):
 
 @pytest.mark.parametrize("arch", list(REFUSED))
 def test_refused_families_raise_with_their_item_number(arch):
-    cell = shapes.SHAPES["train_4k"]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        dryrun.place_cell(get_config(arch), cell, make_production_mesh())
-    assert get_config(arch).family == REFUSED[arch]
+    """The encoder-decoder and vision families, which the dry run refused
+    until their mesh path landed, are placed at each of their three cells
+    on both production meshes, their frames, memory and patches
+    included."""
+    cfg = get_config(arch)
+    assert cfg.family == REFUSED[arch]
+    assert shapes.cells_for(cfg) == ["train_4k", "prefill_32k", "decode_32k"]
+    for multi in MESHES.values():
+        _check_cells(arch, multi)
+    rec = dryrun.lower_cell(arch, "decode_32k", verbose=False)
+    assert rec["profile"] == ("dp" if arch == "seamless_m4t_medium"
+                              else "tp")
 
 
 def test_all_writes_a_record_a_placed_cell(tmp_path, capsys):
     assert dryrun.main(["--all", "--out", str(tmp_path)]) == 0
     files = sorted(p.name for p in tmp_path.iterdir())
-    want = sorted(f"{a}__{s}__single.json" for a in PLACED
+    want = sorted(f"{a}__{s}__single.json" for a in PLACED + list(REFUSED)
                   for s in shapes.cells_for(get_config(a)))
-    assert files == want
+    assert len(want) == 32 and files == want
     for name in files:
         rec = json.loads((tmp_path / name).read_text())
         assert rec["arg_bytes"] > 0 and rec["model_flops"] > 0
     out = capsys.readouterr().out
-    for arch in REFUSED:
-        assert f"refused: {arch} x train_4k" in out
-        assert "item 13" in out
+    assert "32 cells placed" in out and "refused" not in out

@@ -7,8 +7,8 @@ quickstart: the fp-vs-int8 logits rel-err within 2e-3 of the JAX
 example's (the w8a8 logits' limit of ``tests/test_torch_example.py``) and
 the greedy tokens equal.  serve_quantized and serve_zoo: every finished
 request's tokens equal to the JAX ``Scheduler``'s on the example's own
-trace, for each default arch.  ``--mesh 2`` raises (mesh serving is ROADMAP
-queue 1, item 13).
+trace, for each default arch; serve_quantized's ``--mesh 2`` (two gloo
+ranks) gives its ``--mesh 1`` tokens in f32, and so the JAX example's.
 """
 import importlib.util
 from pathlib import Path
@@ -128,8 +128,27 @@ def test_serve_quantized_twin_matches_the_jax_scheduler(dtype):
 
 
 def test_serve_quantized_twin_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _example("serve_quantized").main(["--device", "cpu", "--mesh", "2"])
+    """``--mesh 2`` serves the trace in two ranks: in f32 rank 0's finished
+    tokens are ``--mesh 1``'s and the JAX Scheduler's."""
+    mod = _example("serve_quantized")
+    args = mod.parser().parse_args([])
+    jcfg = jax_smoke_config(args.arch).replace(quant_proj="w8a8",
+                                               dtype="float32")
+    params = jax_qparams(jax_init_model(jax.random.PRNGKey(0),
+                                        jcfg.replace(quant_proj="none")))
+    jax_finished = _drive_jax(JaxScheduler(
+        params, jcfg, slots=args.slots, max_len=args.max_len, bucket=8,
+        config=JaxCacheConfig(layout="paged", alloc="dynamic",
+                              page_size=args.page_size)),
+        mod.make_trace(args, jcfg.vocab_size))
+    tcfg = get_smoke_config(args.arch).replace(quant_proj="w8a8",
+                                               dtype="float32")
+    model = params_from_numpy(numpy_tree(params), tcfg, device="cpu")
+    one = mod.main(["--device", "cpu"], model=model, cfg=tcfg)
+    two = mod.main(["--device", "cpu", "--mesh", "2"], model=model, cfg=tcfg)
+    assert len(two.finished) == args.requests
+    _same_finished(two.finished, one.finished)
+    _same_finished(two.finished, jax_finished)
 
 
 @pytest.mark.parametrize("arch", ["qwen2_5_3b", "mamba2_370m",

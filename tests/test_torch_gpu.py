@@ -1236,6 +1236,44 @@ def test_cross_attention_on_the_card(cuda, mode):
     assert torch.equal(y, plain)
 
 
+def test_cross_attention_on_a_rank_s_heads_on_the_card(cuda):
+    """seamless-m4t's cross-attention (smoke size, w8a8, bf16) on 2 ranks
+    sharing the card over gloo: each rank's heads through the kernels (K1
+    for q and the memory rows, K2 for q / k / v on the rank's columns, then
+    K1's absmax and given-absmax modes and K2's int32-out and epilogue
+    modes for the row-parallel wo) are bitwise the plain versions of every
+    mode on the same rank, and within 1e-2 of each row's largest value of
+    the unsharded plain run (the dense attention's products are another
+    shape on a rank's heads)."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.core.quantize_params import quantize_model_params
+    from repro_torch.launch.mesh import spawn_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_encdec_ranks as ranks
+    cfg = get_smoke_config("seamless_m4t_medium").replace(
+        quant_proj="w8a8", dtype="bfloat16")
+    model = quantize_model_params(init_model(
+        torch.Generator().manual_seed(0), cfg.replace(quant_proj="none"),
+        device="cpu"))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 7, cfg.d_model), generator=g).bfloat16()
+    mem = torch.randn((3, 40, cfg.d_model), generator=g).bfloat16()
+    runs = spawn_ranks(ranks.cross_card_rank, 2, backend="gloo",
+                       device="cuda:0",
+                       args=(params_to_numpy(model, cfg), cfg, x, mem),
+                       timeout=300)
+    for run in runs:
+        assert run["counts"] == {"quant_act": 3, "row_absmax": 1,
+                                 "tiled_matmul": 3, "tiled_matmul_int32": 1,
+                                 "int8_epilogue": 1}
+        assert run["finite"] and torch.equal(run["got"], run["plain"])
+        assert torch.equal(run["got"], runs[0]["got"])
+        assert _row_rel_err(run["got"], run["ref"]) <= 1e-2
+
+
 def test_train_step_card_matches_cpu(cuda):
     """One f32 train step of the smoke qwen2.5-3b config over 64 tokens
     (its blockwise threshold: K5 and its backward on the card, the plain

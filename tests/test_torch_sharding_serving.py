@@ -159,9 +159,21 @@ def test_dense_cache_splits_by_heads_only():
                        CacheConfig(mesh=FakeMesh(model=2)), device="cpu")
     assert tuple(heads["k"].shape) == (cfg.n_layers, 2, 16, 1,
                                        cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        init_cache(cfg, 2, 16, torch.float32,
-                   CacheConfig(mesh=FakeMesh(model=4)), device="cpu")
+    # 2 KV heads on 4 ranks: split by sequence, as the JAX package's kv_seq
+    # places it; 18 positions round up to 20, 5 a rank
+    mesh = FakeMesh(model=4)
+    seq = init_cache(cfg, 2, 18, torch.float32, CacheConfig(mesh=mesh),
+                     device="cpu")
+    assert seq["kv_shard"] == "pages"
+    assert tuple(seq["k"].shape) == (cfg.n_layers, 2, 5, 2, cfg.head_dim)
+    jcfg = jax_smoke_config("qwen2_5_3b")
+    jax_cache = jax_init_cache(jcfg, 2, 20)
+    shapes = {k: tuple(v.shape) for k, v in jax_cache.items()}
+    want = jcache.tree_specs(jax_cache, JaxCacheConfig(
+        mesh=mesh).logical_axes(jcfg), mesh, jcache.SERVING_RULES)
+    assert cache_shardings(cfg, shapes, CacheConfig(mesh=mesh)) == \
+        {k: tuple(v) for k, v in want.items()}
+    assert want["k"][2] == "model"
     # the slot state splits by SSM heads since the SSM mesh path landed
     # (tests/test_torch_ssm_mesh.py)
     ssm_cfg = get_smoke_config("mamba2_370m")
@@ -468,15 +480,33 @@ def test_w8a8_projections_are_bitwise_the_unsharded_ports():
 
 
 def test_shard_model_refuses_what_the_mesh_does_not_serve():
+    """Every family shards now (MoE, SSM and hybrid in
+    tests/test_torch_moe_mesh.py and tests/test_torch_ssm_mesh.py, the
+    encoder-decoder in tests/test_torch_encdec_mesh.py): seamless's encoder
+    layers and its decoder's cross projections slice by the decoder
+    blocks' rules."""
     from repro_torch.bridge import shard_model
     from repro_torch.models.transformer import init_model
-    # MoE, SSM and hybrid models shard since their mesh paths landed
-    # (tests/test_torch_moe_mesh.py, tests/test_torch_ssm_mesh.py)
-    for arch in ("seamless_m4t_medium",):
-        model = init_model(torch.Generator().manual_seed(0),
-                           get_smoke_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            shard_model(model, Mesh(2, 0, device="cpu"))
+    cfg = get_smoke_config("seamless_m4t_medium")
+    whole = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for r in range(2):
+        model = shard_model(init_model(torch.Generator().manual_seed(0), cfg,
+                                       device="cpu"),
+                            Mesh(2, r, device="cpu"))
+        cols = slice(r * cfg.q_dim // 2, (r + 1) * cfg.q_dim // 2)
+        for got, ref in ((model.encoder.layers[1].attn,
+                          whole.encoder.layers[1].attn),
+                         (model.layers[1].cross, whole.layers[1].cross)):
+            for name in ("wq", "wk", "wv"):
+                assert getattr(got, name).shard == "column"
+                assert torch.equal(getattr(got, name).w,
+                                   getattr(ref, name).w[:, cols])
+            assert got.wo.shard == "row"
+            assert torch.equal(got.wo.w, ref.wo.w[cols])
+            assert got.mesh is model.mesh
+        assert model.encoder.layers[0].ffn.down.shard == "row"
+        assert torch.equal(model.encoder.final_norm.w,
+                           whole.encoder.final_norm.w)
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,7 @@ the slot state split by ``serving/cache.py``), on the CPU over gloo ranks
     plus 2e-2.
   * SSM heads that do not divide the ``model`` extent raise, in
     ``shard_model``, ``init_cache`` and ``apply_mamba2``; a hybrid cache
-    whose KV heads do not divide it (its shared KV would split by
-    sequence) raises with item 13.
+    whose KV heads do not divide it splits its shared KV by sequence.
 
 Each spawning test passes its ranks a timeout of at most 120 s.
 """
@@ -434,9 +433,15 @@ def test_heads_that_do_not_divide_the_mesh_raise(arch):
 
 def test_hybrid_cache_split_by_sequence_raises():
     """8 ranks: the 8 SSM heads split, the 4 KV heads of the shared block
-    do not, so its dense KV would split by sequence."""
+    do not, so its dense KV splits by sequence (served in
+    tests/test_torch_encdec_mesh.py): 2 of the 16 positions a rank."""
     tcfg = _models("zamba2_7b", "none")[2]
     assert tcfg.ssm_n_heads % 8 == 0 and tcfg.n_kv_heads % 8
-    with pytest.raises(NotImplementedError, match="item 13"):
-        init_cache(tcfg, 2, 16, torch.float32,
-                   CacheConfig(mesh=_FakeMesh(8)), device="cpu")
+    cache = init_cache(tcfg, 2, 16, torch.float32,
+                       CacheConfig(mesh=_FakeMesh(8)), device="cpu")
+    assert cache["kv_shard"] == "pages"
+    sites = cache["shared_k"].shape[0]
+    for key in ("shared_k", "shared_v"):
+        assert tuple(cache[key].shape) == (sites, 2, 2, tcfg.n_kv_heads,
+                                           tcfg.head_dim)
+    assert cache["ssm_h"].shape[2] == tcfg.ssm_n_heads // 8
