@@ -6113,7 +6113,17 @@ def check_encdec_mesh(runs, one, key, smi, smoke=False):
 # update-sized ones, and the k bias starts at 0, so its scale is the
 # update's; ROADMAP queue 3).  The depth: 4 of 36 layers keep every
 # rank's K5 at the 36-layer shape and the phase within the script's
-# budget
+# budget.  Then the int8 gradient compressor (ROADMAP queue 1, item 20):
+# TRAIN_MESH_STEPS steps of the bf16 state with the launcher's compressor
+# (stochastic rounding, seed COMPRESS_SEED) against the unsharded
+# compressed steps, the first within the limits above (rounding to int8 is
+# discontinuous, so the later ones are printed), the compute copy the same
+# bits on both data ranks, the residual's bytes the master's; and two f32
+# check steps (the first with deterministic rounding, the second
+# stochastic, the residual carried) where each rank gathers its
+# compressor's inputs whole, runs the single-device compressor on them
+# with the same seed, and must hold its block of that result, wire and
+# residual, bit for bit
 TRAIN_MESH = (2, 2)
 TRAIN_MESH_LAYERS = 4
 TRAIN_MESH_STEPS = 2
@@ -6121,6 +6131,7 @@ TRAIN_MESH_CHECK_LAYERS = 2
 TRAIN_MESH_LOSS, TRAIN_MESH_GNORM = PLAIN_STEP_LOSS, PLAIN_STEP_GNORM
 TRAIN_MESH_F32_LOSS, TRAIN_MESH_F32_GRAD = 1e-5, 1e-4
 ILL_CONDITIONED = 1e-3
+COMPRESS_SEED = 7                           # the launcher's
 
 
 def train_mesh_configs(smoke):
@@ -6160,24 +6171,82 @@ def train_mesh_batches(cfg, seq, dev, steps):
     return [data.batch_at(i) for i in range(steps)]
 
 
+def mesh_compressor(state, dev, check=None):
+    """The launcher's int8 compressor for ``state`` (sharded or not): a
+    ``GradCompressor`` on the reduced gradients, its residual in their
+    layout (``state.master`` under ZeRO-1, else the parameters), the noise
+    from a generator on ``dev`` seeded COMPRESS_SEED.  Returns (the
+    compressor, its record): ``gc`` the GradCompressor a call uses (a
+    caller may swap it between steps), ``r`` the residual, ``s`` the host
+    seconds inside the calls (synchronized), ``calls``.  With ``check``
+    (a list) each call also gathers its inputs whole, one leaf group at a
+    time (the card holds four ranks), runs the single-device compressor
+    on them with a generator of the same seed (group by group its draws
+    are the whole tree's), and appends the names whose wire or residual
+    block is not the rank's block of that result, bit for bit."""
+    from repro_torch.launch.sharding import gather_whole, take_shard
+    from repro_torch.runtime.compression import GradCompressor
+    from repro_torch.training.train_step import trainable
+    from repro_torch.tree import leaf_groups
+    zero1 = state.master is not None
+    mesh = state.mesh
+    specs = None if mesh is None else state.placement.grad_specs(zero1)
+    gc = GradCompressor()
+    rec = {"gc": gc, "r": gc.init_residual(state.master if zero1
+                                            else trainable(state.params)),
+           "s": 0.0, "calls": 0}
+    gen = torch.Generator(device=dev).manual_seed(COMPRESS_SEED)
+    whole_gen = torch.Generator(device=dev).manual_seed(COMPRESS_SEED)
+
+    def block(t, n):
+        return take_shard(t, specs[n], mesh)
+
+    def compressor(grads):
+        sync(dev)
+        t0 = time.perf_counter()
+        wire, res = rec["gc"].compress_decompress(grads, rec["r"], gen,
+                                                  mesh=mesh, specs=specs)
+        sync(dev)
+        rec["s"] += time.perf_counter() - t0
+        rec["calls"] += 1
+        if check is not None:
+            off = []
+            for _, names in leaf_groups(grads):
+                w_wire, w_res = rec["gc"].compress_decompress(
+                    *({n: gather_whole(t[n], specs[n], mesh) for n in names}
+                      for t in (grads, rec["r"])), whole_gen)
+                off += [n for n in names
+                        if not (torch.equal(wire[n], block(w_wire[n], n))
+                                and torch.equal(res[n], block(w_res[n], n)))]
+                del w_wire, w_res
+            check.append(off)
+        rec["r"] = res
+        return wire
+
+    return compressor, rec
+
+
 @torch.inference_mode(False)
 @torch.enable_grad()
 def train_mesh_reference(dev, smoke=False):
     """The unsharded bf16 steps the ranks are held to, in this process:
-    their metrics."""
+    their metrics, without and with the launcher's compressor."""
     from repro_torch.training.train_step import TrainState, make_train_step
     cfg, _, seq, _ = train_mesh_configs(smoke)
-    model, opt = train_mesh_model(cfg, dev)
-    state = TrainState.create(model, opt, zero1=True)
-    step = make_train_step(cfg, opt)
-    history = []
-    for batch in train_mesh_batches(cfg, seq, dev, TRAIN_MESH_STEPS):
-        state, m = step(state, batch)
-        history.append({k: float(v) for k, v in m.items()})
-    del state, model
-    if torch.device(dev).type == "cuda":
-        torch.cuda.empty_cache()
-    return {"history": history}
+    out = {}
+    for key, compress in (("history", False), ("compressed", True)):
+        model, opt = train_mesh_model(cfg, dev)
+        state = TrainState.create(model, opt, zero1=True)
+        compressor = mesh_compressor(state, dev)[0] if compress else None
+        step = make_train_step(cfg, opt, compressor=compressor)
+        out[key] = []
+        for batch in train_mesh_batches(cfg, seq, dev, TRAIN_MESH_STEPS):
+            state, m = step(state, batch)
+            out[key].append({k: float(v) for k, v in m.items()})
+        del state, model, step, compressor
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def recording(opt, into, keep=lambda name, t: t):
@@ -6256,6 +6325,34 @@ def f32_check_step(mesh, check, check_seq, dev):
     return float(m["loss"]), float(ref_m["loss"]), out, counts
 
 
+def compressed_check_steps(mesh, check, check_seq, dev):
+    """The f32 compressed check steps on one rank (the classic layout):
+    step 1 with deterministic rounding, step 2 stochastic (the residual
+    carried), each compressor call held bitwise to the single-device
+    compressor on its inputs gathered whole (``mesh_compressor``'s check);
+    returns the names off at each step, the number of leaves, the losses
+    and the launches."""
+    from repro_torch.bridge import shard_train_state
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime.compression import GradCompressor
+    from repro_torch.training.train_step import make_train_step
+    batches = train_mesh_batches(check, check_seq, dev, 2)
+    model, opt = train_mesh_model(check, dev)
+    state = shard_train_state(model, opt, mesh, zero1=False)
+    del model
+    off = []
+    compressor, rec = mesh_compressor(state, dev, check=off)
+    step = make_train_step(check, opt, compressor=compressor)
+    losses = []
+    reset_launch_counts()
+    for stochastic, batch in zip((False, True), batches):
+        rec["gc"] = GradCompressor(stochastic=stochastic)
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    return {"off": off, "leaves": len(rec["r"]), "losses": losses,
+            "counts": launch_counts()}
+
+
 def compute_digests(params) -> str:
     """One sha256 over every compute-copy tensor's bytes, in name order."""
     h = hashlib.sha256()
@@ -6266,6 +6363,58 @@ def compute_digests(params) -> str:
     return h.hexdigest()
 
 
+def counted_steps(mesh, state, step, batches, dev):
+    """``step`` over ``batches`` from ``state`` on one rank: launches,
+    metrics, host-clock step times, the compute copy's digest after each
+    step, and the last step with a synchronize around each collective, its
+    host seconds in them summed (``collective_s``, ``collectives``)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.train_step import trainable
+    out = {"history": [], "times": [], "digests": []}
+    stats = {"s": 0.0, "n": 0}
+    sync(dev)
+    reset_launch_counts()
+    for i, batch in enumerate(batches):
+        timed = (timed_collectives(mesh, stats) if i == len(batches) - 1
+                 else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with timed:
+            state, m = step(state, batch)
+            out["history"].append({k: float(v) for k, v in m.items()})
+            sync(dev)
+        out["times"].append(time.perf_counter() - t0)
+        out["digests"].append(compute_digests(trainable(state.params)))
+    out.update(counts=launch_counts(), collective_s=stats["s"],
+               collectives=stats["n"])
+    return out
+
+
+def compressed_steps(mesh, cfg, batches, dev):
+    """``counted_steps`` of the bf16 ZeRO-1 state with the launcher's
+    compressor on one rank, from a fresh state, with the compressor's own
+    seconds, the residual's and the master's bytes, the largest leaf's
+    whole f32 bytes (the noise's transient) and the peak allocation over
+    the steps."""
+    from repro_torch.bridge import shard_train_state
+    from repro_torch.training.train_step import make_train_step
+    cuda = dev.type == "cuda"
+    model, opt = train_mesh_model(cfg, dev)
+    transient = max(t.numel() for t in model.buffers()) * 4
+    state = shard_train_state(model, opt, mesh, zero1=True)
+    del model
+    compressor, rec = mesh_compressor(state, dev)
+    step = make_train_step(cfg, opt, compressor=compressor)
+    master_bytes = sum(t.nbytes for t in state.master.values())
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = counted_steps(mesh, state, step, batches, dev)
+    out.update(master_bytes=master_bytes, transient_bytes=transient,
+               compress_s=rec["s"], calls=rec["calls"],
+               residual_bytes=sum(t.nbytes for t in rec["r"].values()),
+               peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+    return out
+
+
 def train_mesh_rank(serving_mesh, smoke=False):
     """A rank of the sharded-training part: the (data, model) mesh over
     the serving mesh's 4 ranks (its process groups made here); the ZeRO-1
@@ -6273,10 +6422,11 @@ def train_mesh_rank(serving_mesh, smoke=False):
     its bytes, and the allocation after it); TRAIN_MESH_STEPS counted
     steps on the global batch (launches, metrics, host-clock times, the
     compute copy's digest after each); one more step with every collective
-    timed (its share of the step); the peak allocation; then the f32 check
-    step (``f32_check_step``)."""
+    timed (its share of the step); the peak allocation; the same steps
+    with the launcher's compressor (``compressed_steps``); then the f32
+    check step (``f32_check_step``) and the f32 compressed check steps
+    (``compressed_check_steps``)."""
     from repro_torch.bridge import shard_train_state
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.training.train_step import make_train_step, trainable
     dev = serving_mesh.device
@@ -6299,40 +6449,28 @@ def train_mesh_rank(serving_mesh, smoke=False):
     allocated = torch.cuda.memory_allocated(dev) if cuda else 0
     step = make_train_step(cfg, opt)
     batches = train_mesh_batches(cfg, seq, dev, TRAIN_MESH_STEPS)
-    history, times, digests = [], [], []
-    # the last step with a synchronize around each collective, its host
-    # seconds in them summed
-    stats = {"s": 0.0, "n": 0}
-    sync(dev)
-    reset_launch_counts()
-    for i, batch in enumerate(batches):
-        timed = (timed_collectives(mesh, stats) if i == len(batches) - 1
-                 else contextlib.nullcontext())
-        t0 = time.perf_counter()
-        with timed:
-            state, m = step(state, batch)
-            history.append({k: float(v) for k, v in m.items()})
-            sync(dev)
-        times.append(time.perf_counter() - t0)
-        digests.append(compute_digests(trainable(state.params)))
-    counts = launch_counts()
-    timed_step = times[-1]
+    run = counted_steps(mesh, state, step, batches, dev)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     del state, step
+    if cuda:
+        torch.cuda.empty_cache()
+    compressed = compressed_steps(mesh, cfg, batches, dev)
     if cuda:
         torch.cuda.empty_cache()
     f32_loss, f32_ref_loss, f32_errs, check_counts = f32_check_step(
         mesh, check, check_seq, dev)
     if cuda:
         torch.cuda.empty_cache()
+    compressed["check"] = compressed_check_steps(mesh, check, check_seq, dev)
+    if cuda:
+        torch.cuda.empty_cache()
     return {"rank": mesh.global_rank, "data_rank": mesh.data_rank,
-            "model_rank": mesh.rank, "history": history, "times": times,
-            "digests": digests, "counts": counts,
+            "model_rank": mesh.rank, **run,
             "state_bytes": state_bytes, "allocated": allocated,
-            "peak": peak, "timed_step": timed_step,
-            "collective_s": stats["s"], "collectives": stats["n"],
+            "peak": peak, "timed_step": run["times"][-1],
             "f32_loss": f32_loss, "f32_ref_loss": f32_ref_loss,
             "f32_errs": f32_errs, "f32_counts": check_counts,
+            "compressed": compressed,
             "seconds": time.perf_counter() - t_part}
 
 
@@ -6438,14 +6576,109 @@ def check_train_mesh(runs, ref, smi, smoke=False):
           f"{wp} {errs[wp][2]:.3e} over its entries with sqrt(v) >= "
           f"{ILL_CONDITIONED} of the leaf's mean, {wa} {errs[wa][3]:.3e} "
           f"over all; {len(errs)} leaves; launches {r0['f32_counts']}")
+    comp = check_compressed(runs, ref, r0, what, smi, smoke)
     print(f"  the training part took {r0['seconds']:.1f} s on rank 0")
-    return {"counts": r0["counts"], "history": r0["history"],
+    return {"compressed": comp,
+            "counts": r0["counts"], "history": r0["history"],
             "times": r0["times"], "state_bytes": r0["state_bytes"],
             "predicted_state_bytes": predicted["state_bytes"],
             "peak_gb": [r["peak"] / 1e9 for r in runs],
             "collective_share": share, "seconds": r0["seconds"],
             "f32_worst": {"grad": errs[wg][0], "param": errs[wp][2],
                           "param_all": errs[wa][3]}}
+
+
+def check_compressed(runs, ref, r0, what, smi, smoke=False):
+    """The compressed part's checks (``compressed_steps``,
+    ``compressed_check_steps``): launches exact; step 1 against the
+    unsharded compressed step within the uncompressed steps' limits, the
+    later steps printed; the compute copy the same bits on both data ranks
+    of a model slice; a rank's residual bytes its master's; every f32
+    check call's wire and residual blocks bitwise the single-device
+    compressor's.  Prints the step times against the uncompressed steps
+    and the collectives the compressor adds; returns rank 0's numbers."""
+    cfg, check, _, check_seq = train_mesh_configs(smoke)
+    data, model = TRAIN_MESH
+    want = train_launches(cfg, TRAIN_MESH_STEPS)
+    ref_hist = ref["compressed"]
+    for r in runs:
+        c = r["compressed"]
+        rank = f"rank {r['rank']} (data {r['data_rank']}, model " \
+            f"{r['model_rank']})"
+        if c["counts"] != want:
+            fail(f"{what}, compressed: {rank} launches {c['counts']} != "
+                 f"{want}")
+        m, mr = c["history"][0], ref_hist[0]
+        rl = abs(m["loss"] - mr["loss"]) / abs(mr["loss"])
+        rg = abs(m["grad_norm"] - mr["grad_norm"]) / mr["grad_norm"]
+        if not (rl <= TRAIN_MESH_LOSS and rg <= TRAIN_MESH_GNORM):
+            fail(f"{what}, compressed: {rank} step 1 loss rel-err {rl:.3e}, "
+                 f"grad_norm {rg:.3e} (limits {TRAIN_MESH_LOSS}, "
+                 f"{TRAIN_MESH_GNORM})")
+        if c["residual_bytes"] != c["master_bytes"]:
+            fail(f"{what}, compressed: {rank} holds {c['residual_bytes']} "
+                 f"residual bytes, {c['master_bytes']} master bytes")
+        k = c["check"]
+        off = [(i + 1, names) for i, names in enumerate(k["off"]) if names]
+        if len(k["off"]) != 2 or off:
+            fail(f"{what}, compressed f32 check: {rank} wire or residual "
+                 f"blocks not the single-device compressor's on the whole "
+                 f"inputs (step, leaves): {off}; {len(k['off'])} calls")
+        if k["counts"] != train_launches(check, 2):
+            fail(f"{what}, compressed f32 check: {rank} launches "
+                 f"{k['counts']} != {train_launches(check, 2)}")
+    by = {(r["data_rank"], r["model_rank"]): r for r in runs}
+    for m in range(model):
+        for d in range(1, data):
+            if by[(d, m)]["compressed"]["digests"] != \
+                    by[(0, m)]["compressed"]["digests"]:
+                fail(f"{what}, compressed: the compute copy of model slice "
+                     f"{m} differs between data ranks 0 and {d}")
+    c = r0["compressed"]
+    print(f"{what}, with the launcher's int8 compressor (stochastic, seed "
+          f"{COMPRESS_SEED}): launches a rank {c['counts']} (exact)")
+    for i, (m, mr) in enumerate(zip(c["history"], ref_hist)):
+        held = (f"limit {TRAIN_MESH_LOSS} / {TRAIN_MESH_GNORM}" if i == 0
+                else "printed")
+        print(f"  compressed step {i + 1}: loss {m['loss']:.6f} (unsharded "
+              f"compressed {mr['loss']:.6f}, rel-err "
+              f"{abs(m['loss'] - mr['loss']) / abs(mr['loss']):.3e}), "
+              f"grad_norm {m['grad_norm']:.6f} ({mr['grad_norm']:.6f}, "
+              f"rel-err "
+              f"{abs(m['grad_norm'] - mr['grad_norm']) / mr['grad_norm']:.3e}"
+              f"; {held}); {c['times'][i] * 1e3:.1f} ms against "
+              f"{r0['times'][i] * 1e3:.1f} ms uncompressed (host clock, "
+              f"rank 0) [{smi}]")
+    print(f"  the compressor: {c['compress_s'] / c['calls'] * 1e3:.1f} ms a "
+          f"step inside it (synchronized, rank 0); the timed step had "
+          f"{c['collectives']} collectives against {r0['collectives']} "
+          f"uncompressed (+{c['collectives'] - r0['collectives']}: the one "
+          f"all-reduce of the leaves' maxima), {c['collective_s'] * 1e3:.1f}"
+          f" ms in them against {r0['collective_s'] * 1e3:.1f} [{smi}]")
+    print(f"  the compute copy after each compressed step the same sha256 on "
+          f"both data ranks of each model slice; residual bytes a rank "
+          f"{c['residual_bytes']} = master bytes (every rank); the noise's "
+          f"transient (the largest leaf whole in f32) "
+          f"{c['transient_bytes'] / 1e9:.3f} GB a rank; peak over the "
+          f"compressed steps "
+          + ", ".join(f"rank {r['rank']} "
+                      f"{r['compressed']['peak'] / 1e9:.2f} GB" for r in runs)
+          + f" [{smi}]")
+    k = c["check"]
+    print(f"  f32 compressed check ({check.n_layers} layers, {data} x "
+          f"{check_seq} tokens): step 1 deterministic, step 2 stochastic "
+          f"(the residual carried); on every rank all {k['leaves']} leaves' "
+          f"wire and residual blocks bitwise the single-device compressor's "
+          f"on the inputs gathered whole, at both steps; losses "
+          f"{k['losses'][0]:.7f} / {k['losses'][1]:.7f}; launches "
+          f"{k['counts']}")
+    return {"history": c["history"], "ref": ref_hist, "times": c["times"],
+            "compress_ms": c["compress_s"] / c["calls"] * 1e3,
+            "collectives": c["collectives"],
+            "added_collectives": c["collectives"] - r0["collectives"],
+            "residual_bytes": c["residual_bytes"],
+            "transient_bytes": c["transient_bytes"],
+            "peak_gb": [r["compressed"]["peak"] / 1e9 for r in runs]}
 
 
 def mesh2_rank(mesh, smoke=False):

@@ -36,6 +36,10 @@ global batch as one device:
     rank order; a leaf the FSDP rules leave whole is averaged whole; an
     MoE expert stack, ``placement.relayout``, is gathered whole over
     ``model`` first and sliced by its FSDP placement);
+  * a compressor, if any, takes these reduced gradients: a rank
+    compresses its blocks as the whole leaves (the absmax over every
+    rank, the noise of the whole shape), the JAX package's compressor on
+    the global gradient (``runtime/compression.py``);
   * AdamW updates the rank's slice of the f32 master and moments, clipping
     by the whole tree's norm (``optim/adamw.py``);
   * the bf16 compute copy is the master's cast, all-gathered over
@@ -285,8 +289,11 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
     before the optimizer, e.g. ``GradCompressor.compress_decompress`` with
     its error-feedback residual carried by the caller.  A sharded state
     (``state.placement``) takes the global batch and computes its step
-    (module docstring); a compressor over a data axis of more than one
-    rank raises (ROADMAP queue 1, item 20).
+    (module docstring); its compressor is given the reduced gradients,
+    each rank's blocks of the global batch's mean gradient placed by
+    ``placement.grad_specs`` (the JAX package's compressor on the global
+    gradient), and must compress them as the whole leaves
+    (``GradCompressor.compress_decompress(mesh=, specs=)``).
     """
     loss_fn = make_loss_fn(cfg, lb_coef, z_loss_coef)
     bf16 = cfg.dtype == "bfloat16"
@@ -316,10 +323,6 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
         placement = state.placement
         mesh = state.mesh
         if mesh is not None:
-            if compressor is not None and mesh.data > 1:
-                raise NotImplementedError(
-                    "int8 gradient compression over a data axis of "
-                    f"{mesh.data} ranks: ROADMAP queue 1, item 20")
             batch = shard_batch(batch, mesh)
         model = state.params
         params = trainable(model)

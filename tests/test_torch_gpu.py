@@ -1460,3 +1460,26 @@ def test_mesh_serving_on_one_card(cuda):
     assert [r["policy"] for r in runs[4]] == ["pages"] * 4
     for r in runs[4][1:]:
         assert r["ticks"] == runs[4][0]["ticks"]
+
+
+def test_grad_compressor_on_the_card_is_the_cpus(cuda):
+    """The int8 gradient compressor (deterministic rounding) on CUDA
+    tensors, three steps of error feedback: wire and residual bitwise the
+    same calls on the CPU (the scale a tensor divided by a tensor, never a
+    multiply by a reciprocal)."""
+    from repro_torch.runtime.compression import GradCompressor
+    shapes = {"layers.0.attn.wq.w": (64, 96), "layers.1.attn.wq.w": (64, 96),
+              "embed.table": (512, 64), "final_norm.scale": (64,)}
+    grads = {n: _randn(s, i, "cpu", 10.0 ** -i)
+             for i, (n, s) in enumerate(shapes.items())}
+    gc = GradCompressor(stochastic=False)
+    cpu = (grads, gc.init_residual(grads))
+    card = ({n: g.to(cuda) for n, g in grads.items()},
+            gc.init_residual({n: g.to(cuda) for n, g in grads.items()}))
+    for _ in range(3):
+        wire, res = gc.compress_decompress(*cpu)
+        cwire, cres = gc.compress_decompress(*card)
+        for n in grads:
+            assert torch.equal(cwire[n].cpu(), wire[n]), n
+            assert torch.equal(cres[n].cpu(), res[n]), n
+        cpu, card = (grads, res), (card[0], cres)
